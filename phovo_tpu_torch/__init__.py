@@ -1,0 +1,31 @@
+"""phovo_tpu_torch — the PyTorch/CUDA port of phovo_tpu.
+
+Multiscale photoconsistency visual odometry (6-DoF motion between
+consecutive RGB-D frames by coarse-to-fine photometric Gauss-Newton) on an
+NVIDIA H100. The JAX package phovo_tpu beside it is the reference this
+package is tested against; this one imports torch and numpy and never jax.
+
+Layout mirrors phovo_tpu:
+  ops/      SE(3), camera, pyramids, warping, residuals, the level-kernel
+            wrapper (ops/fused_batch.py) and its nvcc build (ops/_build.py)
+  csrc/     the hand-written CUDA kernels
+  solvers/  the exact per-pair Gauss-Newton oracle
+  models/   the analytic frame chain (align_sequence, align_sequence_chunk)
+  utils/    config schedule, synthetic frames, trajectories and ATE
+"""
+
+__version__ = "0.1.0"
+
+import torch as _torch
+
+# The 6x6 normal equations sum products over up to 300k pixels, and TF32
+# keeps ~3 decimal digits, enough to corrupt the Jacobians (phovo_tpu forces
+# highest matmul precision for the same reason). Keep every float32
+# matmul and convolution in full float32.
+_torch.backends.cudnn.allow_tf32 = False
+_torch.backends.cuda.matmul.allow_tf32 = False
+
+from phovo_tpu_torch.ops import camera, fused_batch, pyramid, residuals, se3, warp  # noqa: E402,F401
+from phovo_tpu_torch.utils.config import PhovoConfig  # noqa: E402,F401
+from phovo_tpu_torch.models.base import AlignmentResult  # noqa: E402,F401
+from phovo_tpu_torch.models.analytic import align_sequence, align_sequence_chunk  # noqa: E402,F401

@@ -1,0 +1,104 @@
+"""Build and load the port's CUDA kernels.
+
+Every `*.cu` file under phovo_tpu_torch/csrc/ is compiled by nvcc into ONE
+shared library with a plain C interface, for sm_90a (Hopper), and loaded
+with ctypes. The library lands in build/phovo_tpu_torch/ at the repository
+root, named by a hash of the sources and flags, so an unchanged tree builds
+once and a changed one never loads a stale library. The build runs at
+first use, never at import; a missing nvcc or a failed build raises.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+_PKG = Path(__file__).resolve().parents[1]
+CSRC = _PKG / "csrc"
+BUILD_DIR = _PKG.parent / "build" / "phovo_tpu_torch"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC",
+    # no contracted multiply-adds: the kernels then round every product and
+    # sum like the plain torch versions they are checked against
+    "-fmad=false",
+)
+
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+# C entry points: (argtypes, restype); every entry returns cudaGetLastError()
+_ENTRIES = {
+    "phovo_fused_gn_level_batch": (
+        [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _F, _F, _I, _F, _F, _P],
+        _I,
+    ),
+}
+
+
+def nvcc() -> str:
+    """Path of nvcc: $CUDA_HOME/bin/nvcc (CUDA_HOME defaults to the
+    toolkit's standard /usr/local/cuda), else the first nvcc on PATH."""
+    home = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda"))
+    found = home / "bin" / "nvcc"
+    if found.is_file():
+        return str(found)
+    on_path = shutil.which("nvcc")
+    if on_path is None:
+        raise RuntimeError(
+            f"nvcc not found (looked in {home / 'bin'} and on PATH): the "
+            "CUDA kernels cannot be built"
+        )
+    return on_path
+
+
+def _sources() -> list[Path]:
+    srcs = sorted(CSRC.glob("*.cu"))
+    if not srcs:
+        raise RuntimeError(f"no CUDA sources under {CSRC}")
+    return srcs
+
+
+def library_path() -> Path:
+    """Where the library for the current sources and flags lives."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in _sources():
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    return BUILD_DIR / f"libphovo_tpu_torch_{h.hexdigest()[:16]}.so"
+
+
+def build() -> Path:
+    """Compile the sources unless the library for them exists; returns its
+    path. Writes to a temporary name first, so a cut build leaves no
+    library behind."""
+    so = library_path()
+    if so.is_file():
+        return so
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = so.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, _sources())]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(
+            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
+            f"{proc.stdout}{proc.stderr}"
+        )
+    os.replace(tmp, so)
+    return so
+
+
+@functools.cache
+def library() -> ctypes.CDLL:
+    """The built kernel library, loaded once per process, with every entry
+    point's argument and result types declared."""
+    lib = ctypes.CDLL(str(build()))
+    for name, (argtypes, restype) in _ENTRIES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = restype
+    return lib

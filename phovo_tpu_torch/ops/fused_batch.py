@@ -1,0 +1,340 @@
+"""One whole Gauss-Newton pyramid level for B independent pairs (torch port
+of phovo_tpu/ops/fused_batch.py::fused_gn_level_batch).
+
+On a CUDA tensor the wrapper launches the hand-written kernel in
+csrc/fused_gn_batch.cu (one thread block per pair, the level's whole
+iteration loop inside the block). On a CPU tensor it runs
+fused_gn_level_batch_reference, the plain batched torch version of the same
+function: every pair advances in lockstep and freezes on its own once
+||J^T r|| < min_gradient_norm or its iteration budget is spent, exactly the
+per-pair semantics of the TPU kernel. Both write the per-pixel arithmetic
+in the same order (phovo_tpu/ops/fused_batch.py::_batch_linearize), so
+only the order of the pixel sums differs between them.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from phovo_tpu_torch.ops.camera import Intrinsics
+
+# Launches of the CUDA kernel in this process. The wrapper adds one per
+# launch and nowhere else, so a caller can show that its run went through
+# the kernel (reset it to 0 before the run, read it after).
+LAUNCHES = 0
+
+_SAMPLINGS = ("nearest", "bilinear")
+
+
+class LevelBatchResult(NamedTuple):
+    state: torch.Tensor  # (B, 6) float32
+    iterations: torch.Tensor  # (B,) int32 GN updates performed
+    gradient_norm: torch.Tensor  # (B,) ||J^T r|| of the last update (0 if non-finite)
+    cost: torch.Tensor  # (B,) sum r^2 at the last linearization
+    num_valid: torch.Tensor  # (B,) valid pixels at the last linearization
+    band_masked: torch.Tensor  # (B,) always 0: the GPU samples the whole target
+
+
+def _check_inputs(i0, geom, t_all, init_states, H, W, sampling):
+    """Raise on what the kernel does not take. Layouts of TPU-only variants
+    (bi-objective six-channel targets, ESM six-row geometry, one shared
+    source) are refused as not yet ported."""
+    if sampling not in _SAMPLINGS:
+        raise ValueError(f"sampling={sampling!r}; expected one of {_SAMPLINGS}")
+    tensors = {"i0": i0, "geom": geom, "t_all": t_all, "init_states": init_states}
+    for name, t in tensors.items():
+        if not isinstance(t, torch.Tensor):
+            raise TypeError(f"{name} must be a torch.Tensor, got {type(t).__name__}")
+        if t.dtype != torch.float32:
+            raise ValueError(f"{name} must be float32, got {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+        if t.device != i0.device:
+            raise ValueError(f"{name} is on {t.device}, i0 on {i0.device}")
+    if t_all.dim() == 4 and t_all.shape[1] == 6:
+        raise NotImplementedError(
+            "bi-objective (six-channel) level batches are not ported yet "
+            "(ROADMAP.md queue A, item 7)"
+        )
+    if geom.dim() == 3 and geom.shape[1] == 6:
+        raise NotImplementedError(
+            "ESM geometry packs (gradient_at='esm') are not ported yet "
+            "(ROADMAP.md queue A, item 4)"
+        )
+    B = t_all.shape[0] if t_all.dim() == 4 else -1
+    if B > 1 and i0.dim() == 2 and i0.shape[0] == 1:
+        raise NotImplementedError(
+            "a source shared by every pair (keyframe tracking) is not "
+            "ported yet (ROADMAP.md queue A, item 5)"
+        )
+    N = H * W
+    expected = {
+        "i0": (B, N), "geom": (B, 4, N), "t_all": (B, 3, H, W),
+        "init_states": (B, 6),
+    }
+    for name, shape in expected.items():
+        if tuple(tensors[name].shape) != shape:
+            raise ValueError(
+                f"{name} has shape {tuple(tensors[name].shape)}, expected "
+                f"{shape} for B={B} pairs at {H}x{W}"
+            )
+
+
+def fused_gn_level_batch(
+    i0: torch.Tensor,  # (B, H*W) source intensities
+    geom: torch.Tensor,  # (B, 4, H*W) pack_geometry rows
+    t_all: torch.Tensor,  # (B, 3, H, W) pack_target stacks
+    intr: Intrinsics,  # at this level
+    init_states: torch.Tensor,  # (B, 6)
+    max_iterations: int,
+    min_gradient_norm: float,
+    lambda_step: float,
+    *,
+    H: int,
+    W: int,
+    sampling: str = "nearest",
+) -> LevelBatchResult:
+    """Run ONE whole GN level for B independent pairs: the CUDA kernel for
+    CUDA tensors, the plain torch version for CPU tensors. Any other device
+    raises; so does a failed build or launch (there is no fallback)."""
+    global LAUNCHES
+    if i0.device.type == "cpu":
+        return fused_gn_level_batch_reference(
+            i0, geom, t_all, intr, init_states, max_iterations,
+            min_gradient_norm, lambda_step, H=H, W=W, sampling=sampling,
+        )
+    _check_inputs(i0, geom, t_all, init_states, H, W, sampling)
+    if i0.device.type != "cuda":
+        raise ValueError(f"no level kernel for device {i0.device}")
+
+    from phovo_tpu_torch.ops import _build
+
+    lib = _build.library()
+    B = i0.shape[0]
+    states = torch.empty((B, 6), dtype=torch.float32, device=i0.device)
+    diag = torch.empty((B, 5), dtype=torch.float32, device=i0.device)
+    if B:
+        with torch.cuda.device(i0.device):
+            stream = torch.cuda.current_stream(i0.device).cuda_stream
+            err = lib.phovo_fused_gn_level_batch(
+                i0.data_ptr(), geom.data_ptr(), t_all.data_ptr(),
+                init_states.data_ptr(), states.data_ptr(), diag.data_ptr(),
+                B, H, W, int(sampling == "bilinear"),
+                intr.fx, intr.fy, intr.cx, intr.cy,
+                int(max_iterations), float(min_gradient_norm),
+                float(lambda_step), stream,
+            )
+        if err:
+            raise RuntimeError(
+                f"fused_gn_batch kernel launch failed: CUDA error {err}"
+            )
+        LAUNCHES += 1
+    return LevelBatchResult(
+        states, diag[:, 0].to(torch.int32), diag[:, 1], diag[:, 2],
+        diag[:, 3], diag[:, 4],
+    )
+
+
+def _rotation_terms(s3, s4, s5):
+    """ZYX rotation R(yaw, pitch, roll) and the derivative rows the
+    Jacobian needs, in the expression order of _batch_linearize."""
+    cyw, syw = torch.cos(s3), torch.sin(s3)
+    cp, sp = torch.cos(s4), torch.sin(s4)
+    cr, sr = torch.cos(s5), torch.sin(s5)
+    R = (
+        cyw * cp, cyw * sp * sr - syw * cr, cyw * sp * cr + syw * sr,
+        syw * cp, syw * sp * sr + cyw * cr, syw * sp * cr - cyw * sr,
+        -sp, cp * sr, cp * cr,
+    )
+    dY = (
+        -syw * cp, -syw * sp * sr - cyw * cr, -syw * sp * cr + cyw * sr,
+        cyw * cp, cyw * sp * sr - syw * cr, cyw * sp * cr + syw * sr,
+    )
+    dP = (
+        -cyw * sp, cyw * cp * sr, cyw * cp * cr,
+        -syw * sp, syw * cp * sr, syw * cp * cr,
+        -cp, -sp * sr, -sp * cr,
+    )
+    dR = (
+        cyw * sp * cr + syw * sr, -cyw * sp * sr + syw * cr,
+        syw * sp * cr - cyw * sr, -syw * sp * sr - cyw * cr,
+        cp * cr, -cp * sr,
+    )
+    return R, dY, dP, dR
+
+
+def _sample(t_flat, idx):
+    """(B, 3, H*W) stacks gathered at (B, N) flat indices -> (B, 3, N)."""
+    return torch.gather(t_flat, 2, idx.unsqueeze(1).expand(-1, 3, -1))
+
+
+def _linearize(s, px, py, pz, vd, i0, t_flat, intr, H, W, bilinear):
+    """(B, 1) state columns -> (JtJ (B, 6, 6), Jtr (B, 6), cost (B,),
+    nvalid (B,)) of every pair at its current state."""
+    fx, fy, cx, cy = intr
+    (R00, R01, R02, R10, R11, R12, R20, R21, R22), dY, dP, dR = _rotation_terms(
+        s[3], s[4], s[5]
+    )
+    tx = R00 * px + R01 * py + R02 * pz + s[0]
+    ty = R10 * px + R11 * py + R12 * pz + s[1]
+    tz = R20 * px + R21 * py + R22 * pz + s[2]
+    safe_z = torch.where(torch.abs(tz) > 1e-12, tz, torch.full_like(tz, 1e-12))
+    iz = 1.0 / safe_z
+    u = tx * fx * iz + cx
+    v = ty * fy * iz + cy
+    valid = (vd > 0.5) & (tz > 0)
+
+    ry0 = dY[0] * px + dY[1] * py + dY[2] * pz
+    ry1 = dY[3] * px + dY[4] * py + dY[5] * pz
+    rp0 = dP[0] * px + dP[1] * py + dP[2] * pz
+    rp1 = dP[3] * px + dP[4] * py + dP[5] * pz
+    rp2 = dP[6] * px + dP[7] * py + dP[8] * pz
+    rr0 = dR[0] * py + dR[1] * pz
+    rr1 = dR[2] * py + dR[3] * pz
+    rr2 = dR[4] * py + dR[5] * pz
+    a0 = fx * iz
+    a2 = -fx * tx * iz * iz
+    b1 = fy * iz
+    b2 = -fy * ty * iz * iz
+    Ju3 = a0 * ry0
+    Ju4 = a0 * rp0 + a2 * rp2
+    Ju5 = a0 * rr0 + a2 * rr2
+    Jv3 = b1 * ry1
+    Jv4 = b1 * rp1 + b2 * rp2
+    Jv5 = b1 * rr1 + b2 * rr2
+
+    if bilinear:
+        c0 = torch.floor(u)
+        r0 = torch.floor(v)
+        fc = u - c0
+        fr = v - r0
+        valid = valid & (u >= 0) & (u < W) & (v >= 0) & (v < H)
+    else:
+        c0 = torch.round(u)  # half to even, as jnp.round and rintf
+        r0 = torch.round(v)
+        valid = valid & (c0 >= 0) & (c0 <= W - 1) & (r0 >= 0) & (r0 <= H - 1)
+
+    def index(rows, cols):
+        # clamp in float, convert, clamp again: NaN converts to an
+        # arbitrary integer, and gather must never read out of range
+        ri = torch.clamp(rows, 0, H - 1).to(torch.int64).clamp_(0, H - 1)
+        ci = torch.clamp(cols, 0, W - 1).to(torch.int64).clamp_(0, W - 1)
+        return ri * W + ci
+
+    if bilinear:
+        v00 = _sample(t_flat, index(r0, c0))
+        v01 = _sample(t_flat, index(r0, c0 + 1))
+        v10 = _sample(t_flat, index(r0 + 1, c0))
+        v11 = _sample(t_flat, index(r0 + 1, c0 + 1))
+        fc3 = fc.unsqueeze(1)
+        fr3 = fr.unsqueeze(1)
+        top = v00 * (1 - fc3) + v01 * fc3
+        bot = v10 * (1 - fc3) + v11 * fc3
+        samp = top * (1 - fr3) + bot * fr3
+    else:
+        samp = _sample(t_flat, index(r0, c0))
+    i1w, gxw, gyw = samp.unbind(1)
+
+    validf = valid.to(torch.float32)
+    resid = (i1w - i0) * validf
+    J = torch.stack([
+        (gxw * a0) * validf,
+        (gyw * b1) * validf,
+        (gxw * a2 + gyw * b2) * validf,
+        (gxw * Ju3 + gyw * Jv3) * validf,
+        (gxw * Ju4 + gyw * Jv4) * validf,
+        (gxw * Ju5 + gyw * Jv5) * validf,
+    ], dim=1)  # (B, 6, N)
+    JtJ = torch.bmm(J, J.transpose(1, 2))
+    Jtr = torch.bmm(J, resid.unsqueeze(2)).squeeze(2)
+    return JtJ, Jtr, torch.sum(resid * resid, dim=1), torch.sum(validf, dim=1)
+
+
+def _chol_solve6(A, b):
+    """Unrolled 6x6 Cholesky solve of A x = b, batched over pairs (entries
+    are (B,) tensors); rsqrt pivots floored at 1e-30 with NaN kept, as
+    phovo_tpu/ops/fused.py::_chol_solve6 and the CUDA kernel do."""
+    L = [[None] * 6 for _ in range(6)]
+    inv_diag = [None] * 6
+    for i in range(6):
+        acc = A[:, i, i]
+        for k in range(i):
+            acc = acc - L[i][k] * L[i][k]
+        acc = torch.clamp(acc, min=1e-30)
+        inv_d = torch.rsqrt(acc)
+        L[i][i] = acc * inv_d
+        inv_diag[i] = inv_d
+        for j in range(i + 1, 6):
+            acc = A[:, j, i]
+            for k in range(i):
+                acc = acc - L[j][k] * L[i][k]
+            L[j][i] = acc * inv_d
+    ys = [None] * 6
+    for i in range(6):
+        acc = b[:, i]
+        for k in range(i):
+            acc = acc - L[i][k] * ys[k]
+        ys[i] = acc * inv_diag[i]
+    xs = [None] * 6
+    for i in range(5, -1, -1):
+        acc = ys[i]
+        for k in range(i + 1, 6):
+            acc = acc - L[k][i] * xs[k]
+        xs[i] = acc * inv_diag[i]
+    return xs
+
+
+def fused_gn_level_batch_reference(
+    i0: torch.Tensor,
+    geom: torch.Tensor,
+    t_all: torch.Tensor,
+    intr: Intrinsics,
+    init_states: torch.Tensor,
+    max_iterations: int,
+    min_gradient_norm: float,
+    lambda_step: float,
+    *,
+    H: int,
+    W: int,
+    sampling: str = "nearest",
+) -> LevelBatchResult:
+    """Plain batched torch version of fused_gn_level_batch, on any device.
+    A Python while loop over iterations runs until every pair froze; a
+    frozen pair's state and diagnostics stop changing."""
+    _check_inputs(i0, geom, t_all, init_states, H, W, sampling)
+    B = i0.shape[0]
+    px, py, pz, vd = geom.unbind(1)
+    t_flat = t_all.reshape(B, 3, H * W)
+    s = [init_states[:, k] for k in range(6)]
+    zero = torch.zeros(B, dtype=torch.float32, device=i0.device)
+    it, gnorm = zero, torch.full_like(zero, float("inf"))
+    cost, nvalid = zero, zero
+    while True:
+        act = (it < max_iterations) & (gnorm >= min_gradient_norm)
+        if not bool(act.any()):
+            break
+        JtJ, Jtr, cost_i, nvalid_i = _linearize(
+            [c.unsqueeze(1) for c in s], px, py, pz, vd, i0, t_flat, intr,
+            H, W, sampling == "bilinear",
+        )
+        xs = _chol_solve6(JtJ, Jtr)
+        finite = torch.stack([torch.isfinite(x) for x in xs]).all(dim=0)
+        upd = act & finite
+        s = [torch.where(upd, s[k] - lambda_step * xs[k], s[k]) for k in range(6)]
+        g2 = Jtr[:, 0] * Jtr[:, 0]
+        for k in range(1, 6):
+            g2 = g2 + Jtr[:, k] * Jtr[:, k]
+        it = it + act.to(torch.float32)
+        gnorm = torch.where(act, torch.sqrt(g2), gnorm)
+        cost = torch.where(act, cost_i, cost)
+        nvalid = torch.where(act, nvalid_i, nvalid)
+    return LevelBatchResult(
+        torch.stack(s, dim=1),
+        it.to(torch.int32),
+        torch.where(torch.isfinite(gnorm), gnorm, zero),
+        cost,
+        nvalid,
+        zero,
+    )

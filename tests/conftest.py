@@ -38,6 +38,12 @@ def pytest_configure(config):
         "tpu: on-device kernel regression tests (run with "
         "PHOVO_TPU_TESTS=1 python -m pytest -m tpu)",
     )
+    config.addinivalue_line(
+        "markers",
+        "cuda: phovo_tpu_torch kernel tests that need an NVIDIA GPU (run "
+        "with python -m pytest --noconftest -m cuda "
+        "tests/test_torch_kernel_cuda.py)",
+    )
 
 
 def pytest_collection_modifyitems(config, items):

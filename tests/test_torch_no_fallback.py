@@ -1,0 +1,188 @@
+"""phovo_tpu_torch never imports jax, never falls back silently, and
+refuses what it has not ported.
+
+The level kernel runs only on CUDA tensors; on CPU tensors the wrapper
+takes the plain version and launches nothing; any other device, a missing
+nvcc, or a card that is not there raises instead of computing elsewhere.
+"""
+
+import shutil
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+import phovo_tpu_torch
+from phovo_tpu_torch.models.analytic import align_sequence, align_sequence_chunk
+from phovo_tpu_torch.ops import _build
+from phovo_tpu_torch.ops import fused_batch as FB
+from phovo_tpu_torch.ops.camera import Intrinsics
+from phovo_tpu_torch.utils.config import PhovoConfig
+
+torch.set_num_threads(1)
+
+REPO = Path(__file__).resolve().parents[1]
+INTR = Intrinsics(32.0, 32.0, 15.5, 11.5)
+H, W = 24, 32
+
+
+def _frames(n=3):
+    rng = np.random.default_rng(0)
+    I = torch.from_numpy(rng.random((n, H, W), dtype=np.float32))
+    D = torch.from_numpy(rng.uniform(1.0, 3.0, (n, H, W)).astype(np.float32))
+    return I, D
+
+
+def _level_inputs(B=2, channels=3, rows=4, device="cpu"):
+    rng = np.random.default_rng(1)
+
+    def t(*shape):
+        return torch.from_numpy(rng.random(shape, dtype=np.float32)).to(device)
+
+    return (t(B, H * W), t(B, rows, H * W), t(B, channels, H, W), INTR,
+            torch.zeros((B, 6), device=device))
+
+
+CONFIG = PhovoConfig(
+    num_levels=2, blur_filter_sizes=(0, 0), gradient_scales=(0.0625,) * 2,
+    max_iterations=(2, 2), lambda_steps=(1.0,) * 2, min_gradient_norms=(0.0,) * 2,
+)
+
+
+def test_imports_without_jax():
+    """Every module of the package imports with jax blocked, and neither
+    jax nor phovo_tpu ends up loaded."""
+    modules = sorted(
+        ".".join(p.relative_to(REPO).with_suffix("").parts)
+        for p in (REPO / "phovo_tpu_torch").rglob("*.py")
+    )
+    code = (
+        "import importlib, sys\n"
+        "sys.modules['jax'] = None\n"
+        f"for m in {modules!r}:\n"
+        "    importlib.import_module(m.removesuffix('.__init__'))\n"
+        "loaded = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'phovo_tpu')]\n"
+        "assert sys.modules['jax'] is None and loaded == ['jax'], loaded\n"
+    )
+    subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True, timeout=120)
+
+
+def test_matmul_and_conv_precision_is_full_float32():
+    assert phovo_tpu_torch is not None
+    assert torch.backends.cuda.matmul.allow_tf32 is False
+    assert torch.backends.cudnn.allow_tf32 is False
+
+
+def test_cpu_tensors_launch_nothing():
+    before = FB.LAUNCHES
+    I, D = _frames()
+    res = align_sequence(I, D, INTR, CONFIG)
+    res_c, ci, cd = align_sequence_chunk(I[0], D[0], I[1:], D[1:], INTR, CONFIG)
+    assert FB.LAUNCHES == before
+    assert res.state.device.type == "cpu" and ci.device.type == "cpu"
+    for a, b in zip(res, res_c):
+        assert torch.equal(a, b)
+
+
+def test_other_devices_raise():
+    """A tensor on neither the CPU nor a CUDA card is refused, never
+    computed somewhere else."""
+    before = FB.LAUNCHES
+    args = _level_inputs(device="meta")
+    with pytest.raises(ValueError, match="no level kernel for device"):
+        FB.fused_gn_level_batch(*args, 1, 0.0, 1.0, H=H, W=W)
+    assert FB.LAUNCHES == before
+
+
+def test_missing_nvcc_raises(tmp_path, monkeypatch):
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path))
+    monkeypatch.setenv("PATH", str(tmp_path))
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        _build.nvcc()
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        _build.build()
+
+
+def _run_smoke(cwd):
+    return subprocess.run(
+        [sys.executable, "chip_smoke.py"], cwd=cwd, capture_output=True,
+        text=True, timeout=120,
+    )
+
+
+def test_chip_smoke_without_a_card_fails(tmp_path):
+    """chip_smoke.py exits non-zero and prints no result when CUDA is not
+    available, from the repository and from a directory holding only the
+    script."""
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a CUDA card")
+    for cwd in (REPO, tmp_path):
+        if cwd is tmp_path:
+            shutil.copy(REPO / "chip_smoke.py", tmp_path)
+        proc = _run_smoke(cwd)
+        assert proc.returncode != 0
+        assert '"ok": true' not in proc.stdout
+
+
+@pytest.mark.parametrize(
+    "kwargs",
+    [
+        dict(warm_start=True),
+        dict(robust_loss="tdist"),
+        dict(robust_loss="huber"),
+        dict(gradient_at="esm"),
+        dict(gradient_at="source"),
+    ],
+    ids=lambda kw: "-".join(f"{k}={v}" for k, v in kw.items()),
+)
+def test_unported_routes_raise(kwargs):
+    import dataclasses
+
+    warm = kwargs.pop("warm_start", False)
+    cfg = dataclasses.replace(CONFIG, **kwargs)
+    I, D = _frames()
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        align_sequence(I, D, INTR, cfg, warm_start=warm)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        align_sequence_chunk(I[0], D[0], I[1:], D[1:], INTR, cfg, warm_start=warm)
+
+
+@pytest.mark.parametrize(
+    "layout,what",
+    [
+        (dict(channels=6), "bi-objective"),
+        (dict(rows=6), "ESM"),
+        (dict(), "shared"),
+    ],
+    ids=["biobjective", "esm", "shared-source"],
+)
+def test_unported_kernel_layouts_raise(layout, what):
+    i0, geom, t_all, intr, states = _level_inputs(**layout)
+    if what == "shared":
+        i0 = i0[:1].contiguous()
+    with pytest.raises(NotImplementedError, match=what):
+        FB.fused_gn_level_batch(i0, geom, t_all, intr, states, 1, 0.0, 1.0, H=H, W=W)
+
+
+@pytest.mark.parametrize("fault", ["dtype", "contiguity", "shape", "sampling"])
+def test_kernel_input_checks(fault):
+    i0, geom, t_all, intr, states = _level_inputs()
+    kw = dict(H=H, W=W)
+    if fault == "dtype":
+        i0 = i0.double()
+    elif fault == "contiguity":
+        t_all = t_all.transpose(2, 3).contiguous().transpose(2, 3)
+    elif fault == "shape":
+        kw["W"] = W - 1
+    else:
+        kw["sampling"] = "bicubic"
+    with pytest.raises(ValueError):
+        FB.fused_gn_level_batch(i0, geom, t_all, intr, states, 1, 0.0, 1.0, **kw)
+
+
+def test_config_from_dict_rejects_unknown_fields():
+    with pytest.raises(ValueError, match="unknown PhovoConfig fields"):
+        PhovoConfig.from_dict({"num_levels": 1, "no_such_field": 1})
