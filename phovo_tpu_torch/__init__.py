@@ -9,9 +9,13 @@ Layout mirrors phovo_tpu:
   ops/      SE(3), camera, pyramids, warping, residuals, the level-kernel
             wrapper (ops/fused_batch.py) and its nvcc build (ops/_build.py)
   csrc/     the hand-written CUDA kernels
-  solvers/  the exact per-pair Gauss-Newton oracle
+  solvers/  the exact per-pair Gauss-Newton and trust-region solvers
   models/   the analytic frame chain (align_sequence, align_sequence_chunk)
-  utils/    config schedule, synthetic frames, trajectories and ATE
+            and the trust-region ("ceres") backend (align_autodiff,
+            align_sequence_autodiff, align_sequence_chunk_autodiff,
+            PhotoconsistencyOdometryAutodiff)
+  utils/    config schedule and YAML presets, synthetic frames,
+            trajectories and ATE
 """
 
 __version__ = "0.1.0"
@@ -26,6 +30,13 @@ _torch.backends.cudnn.allow_tf32 = False
 _torch.backends.cuda.matmul.allow_tf32 = False
 
 from phovo_tpu_torch.ops import camera, fused_batch, pyramid, residuals, se3, warp  # noqa: E402,F401
-from phovo_tpu_torch.utils.config import PhovoConfig  # noqa: E402,F401
+from phovo_tpu_torch.utils.config import PhovoConfig, load_config  # noqa: E402,F401
 from phovo_tpu_torch.models.base import AlignmentResult  # noqa: E402,F401
 from phovo_tpu_torch.models.analytic import align_sequence, align_sequence_chunk  # noqa: E402,F401
+from phovo_tpu_torch.models.autodiff import (  # noqa: E402,F401
+    PhotoconsistencyOdometryAutodiff,
+    align_autodiff,
+    align_sequence_autodiff,
+    align_sequence_chunk_autodiff,
+)
+from phovo_tpu_torch.models import BACKENDS  # noqa: E402,F401

@@ -1,0 +1,262 @@
+// Per-pixel device code shared by the level kernels (fused_gn_batch.cu,
+// fused_tr_batch.cu): the state's rotation terms, target sampling, one
+// pixel's residual and Jacobian row, the block reduction of the normal
+// equations and the 6x6 Cholesky solve.
+//
+// Arithmetic order follows phovo_tpu_torch/ops/fused_batch.py::_linearize
+// term by term; build with -fmad=false so no multiply-add is contracted and
+// the per-pixel values equal the plain torch version's. Every function has
+// internal linkage, so each translation unit that includes this header gets
+// its own copy.
+
+#pragma once
+
+#include <cuda_runtime.h>
+#include <math.h>
+
+namespace phovo {
+
+constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / 32;
+// 21 JtJ entries (upper triangle, row-major), 6 Jtr, cost, nvalid
+constexpr int kSums = 29;
+
+// The state's ZYX rotation and the derivative rows of the Jacobian
+// (fused_batch.py:269-283), computed once per linearization by thread 0.
+struct Terms {
+  float s0, s1, s2;
+  float R[9];
+  float dY[6];
+  float dP[9];
+  float dR[6];
+};
+
+static __device__ void make_terms(const float* s, Terms* t) {
+  const float cyw = cosf(s[3]), syw = sinf(s[3]);
+  const float cp = cosf(s[4]), sp = sinf(s[4]);
+  const float cr = cosf(s[5]), sr = sinf(s[5]);
+  t->s0 = s[0];
+  t->s1 = s[1];
+  t->s2 = s[2];
+  t->R[0] = cyw * cp;
+  t->R[1] = cyw * sp * sr - syw * cr;
+  t->R[2] = cyw * sp * cr + syw * sr;
+  t->R[3] = syw * cp;
+  t->R[4] = syw * sp * sr + cyw * cr;
+  t->R[5] = syw * sp * cr - cyw * sr;
+  t->R[6] = -sp;
+  t->R[7] = cp * sr;
+  t->R[8] = cp * cr;
+  t->dY[0] = -syw * cp;
+  t->dY[1] = -syw * sp * sr - cyw * cr;
+  t->dY[2] = -syw * sp * cr + cyw * sr;
+  t->dY[3] = cyw * cp;
+  t->dY[4] = cyw * sp * sr - syw * cr;
+  t->dY[5] = cyw * sp * cr + syw * sr;
+  t->dP[0] = -cyw * sp;
+  t->dP[1] = cyw * cp * sr;
+  t->dP[2] = cyw * cp * cr;
+  t->dP[3] = -syw * sp;
+  t->dP[4] = syw * cp * sr;
+  t->dP[5] = syw * cp * cr;
+  t->dP[6] = -cp;
+  t->dP[7] = -sp * sr;
+  t->dP[8] = -sp * cr;
+  t->dR[0] = cyw * sp * cr + syw * sr;
+  t->dR[1] = -cyw * sp * sr + syw * cr;
+  t->dR[2] = syw * sp * cr - cyw * sr;
+  t->dR[3] = -syw * sp * sr - cyw * cr;
+  t->dR[4] = cp * cr;
+  t->dR[5] = -cp * sr;
+}
+
+// Clamp to [0, n-1] in float, then convert. fmaxf/fminf return the non-NaN
+// operand, so a NaN coordinate lands on index 0 and never reads out of range.
+static __device__ __forceinline__ int clamp_index(float x, int n) {
+  return static_cast<int>(fminf(fmaxf(x, 0.0f), static_cast<float>(n - 1)));
+}
+
+// Target samples (I, gx, gy) at the warped point (u, v) of one pixel, from a
+// (3, H, W) stack; returns the in-bounds test. Nearest rounds half to even
+// (rintf, as jnp.round and torch.round; never roundf). Bilinear: in bounds
+// means u in [0, W) and v in [0, H); the +1 taps clamp to the last column
+// or row; no zero padding.
+template <bool kBilinear>
+static __device__ __forceinline__ bool sample_target(const float* __restrict__ t,
+                                                     int H, int W, float u, float v,
+                                                     float* I, float* gx, float* gy) {
+  const int HW = H * W;
+  if (!kBilinear) {
+    const float c0 = rintf(u);
+    const float r0 = rintf(v);
+    const int off = clamp_index(r0, H) * W + clamp_index(c0, W);
+    *I = __ldg(t + off);
+    *gx = __ldg(t + HW + off);
+    *gy = __ldg(t + 2 * HW + off);
+    return (c0 >= 0.0f) & (c0 <= static_cast<float>(W - 1)) & (r0 >= 0.0f) &
+           (r0 <= static_cast<float>(H - 1));
+  }
+  const float c0 = floorf(u);
+  const float r0 = floorf(v);
+  const float fc = u - c0;
+  const float fr = v - r0;
+  const int cl = clamp_index(c0, W), ch = clamp_index(c0 + 1.0f, W);
+  const int rl = clamp_index(r0, H), rh = clamp_index(r0 + 1.0f, H);
+  const int o00 = rl * W + cl, o01 = rl * W + ch;
+  const int o10 = rh * W + cl, o11 = rh * W + ch;
+  float out[3];
+#pragma unroll
+  for (int c = 0; c < 3; ++c) {
+    const float* p = t + c * HW;
+    const float top = __ldg(p + o00) * (1.0f - fc) + __ldg(p + o01) * fc;
+    const float bot = __ldg(p + o10) * (1.0f - fc) + __ldg(p + o11) * fc;
+    out[c] = top * (1.0f - fr) + bot * fr;
+  }
+  *I = out[0];
+  *gx = out[1];
+  *gy = out[2];
+  return (u >= 0.0f) & (u < static_cast<float>(W)) & (v >= 0.0f) &
+         (v < static_cast<float>(H));
+}
+
+// Residual and the six Jacobian columns of one source pixel at the state
+// held in t, added into acc[kSums].
+template <bool kBilinear>
+static __device__ __forceinline__ void accumulate_pixel(
+    const Terms& t, float px, float py, float pz, float vd, float i0,
+    const float* __restrict__ tgt, int H, int W, float fx, float fy, float cx,
+    float cy, float* acc) {
+  const float tx = t.R[0] * px + t.R[1] * py + t.R[2] * pz + t.s0;
+  const float ty = t.R[3] * px + t.R[4] * py + t.R[5] * pz + t.s1;
+  const float tz = t.R[6] * px + t.R[7] * py + t.R[8] * pz + t.s2;
+  const float safe_z = fabsf(tz) > 1e-12f ? tz : 1e-12f;
+  const float iz = 1.0f / safe_z;
+  const float u = tx * fx * iz + cx;
+  const float v = ty * fy * iz + cy;
+
+  const float ry0 = t.dY[0] * px + t.dY[1] * py + t.dY[2] * pz;
+  const float ry1 = t.dY[3] * px + t.dY[4] * py + t.dY[5] * pz;
+  const float rp0 = t.dP[0] * px + t.dP[1] * py + t.dP[2] * pz;
+  const float rp1 = t.dP[3] * px + t.dP[4] * py + t.dP[5] * pz;
+  const float rp2 = t.dP[6] * px + t.dP[7] * py + t.dP[8] * pz;
+  const float rr0 = t.dR[0] * py + t.dR[1] * pz;
+  const float rr1 = t.dR[2] * py + t.dR[3] * pz;
+  const float rr2 = t.dR[4] * py + t.dR[5] * pz;
+  const float a0 = fx * iz;
+  const float a2 = -fx * tx * iz * iz;
+  const float b1 = fy * iz;
+  const float b2 = -fy * ty * iz * iz;
+  const float Ju3 = a0 * ry0;
+  const float Ju4 = a0 * rp0 + a2 * rp2;
+  const float Ju5 = a0 * rr0 + a2 * rr2;
+  const float Jv3 = b1 * ry1;
+  const float Jv4 = b1 * rp1 + b2 * rp2;
+  const float Jv5 = b1 * rr1 + b2 * rr2;
+
+  float i1w, gxw, gyw;
+  const bool inb = sample_target<kBilinear>(tgt, H, W, u, v, &i1w, &gxw, &gyw);
+  const bool valid = (vd > 0.5f) & (tz > 0.0f) & inb;
+  const float validf = valid ? 1.0f : 0.0f;
+  const float resid = (i1w - i0) * validf;
+  float col[6];
+  col[0] = (gxw * a0) * validf;
+  col[1] = (gyw * b1) * validf;
+  col[2] = (gxw * a2 + gyw * b2) * validf;
+  col[3] = (gxw * Ju3 + gyw * Jv3) * validf;
+  col[4] = (gxw * Ju4 + gyw * Jv4) * validf;
+  col[5] = (gxw * Ju5 + gyw * Jv5) * validf;
+  int k = 0;
+#pragma unroll
+  for (int i = 0; i < 6; ++i) {
+#pragma unroll
+    for (int j = i; j < 6; ++j) acc[k++] += col[i] * col[j];
+  }
+#pragma unroll
+  for (int i = 0; i < 6; ++i) acc[21 + i] += col[i] * resid;
+  acc[27] += resid * resid;
+  acc[28] += validf;
+}
+
+// The normal equations of one pair at the state held in `terms`, summed
+// over the block into total[kSums]. Sums are per-thread in registers, then
+// warp shuffles, then a fixed-order pass over the warps in shared memory:
+// no atomics, so every run gives the same bits. Every thread of the block
+// calls it; it ends with a barrier, so total is ready for every thread.
+template <bool kBilinear>
+static __device__ __forceinline__ void linearize_block(
+    const Terms& terms, const float* __restrict__ i0,
+    const float* __restrict__ geom, const float* __restrict__ tgt, int H,
+    int W, float fx, float fy, float cx, float cy,
+    float (*partial)[kSums], float* total) {
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int N = H * W;
+  float acc[kSums];
+#pragma unroll
+  for (int k = 0; k < kSums; ++k) acc[k] = 0.0f;
+  for (int p = tid; p < N; p += kThreads) {
+    accumulate_pixel<kBilinear>(terms, geom[p], geom[N + p], geom[2 * N + p],
+                                geom[3 * N + p], i0[p], tgt, H, W, fx, fy, cx,
+                                cy, acc);
+  }
+#pragma unroll
+  for (int k = 0; k < kSums; ++k) {
+    float a = acc[k];
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) a += __shfl_down_sync(0xffffffffu, a, off);
+    if (lane == 0) partial[warp][k] = a;
+  }
+  __syncthreads();
+  if (tid < kSums) {
+    float a = partial[0][tid];
+    for (int w = 1; w < kWarps; ++w) a += partial[w][tid];
+    total[tid] = a;
+  }
+  __syncthreads();
+}
+
+// Unpack the 21 upper-triangle sums into a full symmetric 6x6 matrix.
+static __device__ __forceinline__ void unpack_jtj(const float* sums, float A[6][6]) {
+  int k = 0;
+  for (int i = 0; i < 6; ++i) {
+    for (int j = i; j < 6; ++j) {
+      A[i][j] = sums[k];
+      A[j][i] = sums[k];
+      ++k;
+    }
+  }
+}
+
+// Unrolled 6x6 Cholesky solve with rsqrt pivots floored at 1e-30 (a NaN
+// pivot stays NaN, as jnp.maximum keeps it): phovo_tpu/ops/fused.py:771.
+static __device__ void chol_solve6(const float A[6][6], const float b[6], float x[6]) {
+  float L[6][6];
+  float inv_diag[6];
+  for (int i = 0; i < 6; ++i) {
+    float acc = A[i][i];
+    for (int k = 0; k < i; ++k) acc = acc - L[i][k] * L[i][k];
+    if (!isnan(acc)) acc = fmaxf(acc, 1e-30f);
+    const float inv_d = rsqrtf(acc);
+    L[i][i] = acc * inv_d;
+    inv_diag[i] = inv_d;
+    for (int j = i + 1; j < 6; ++j) {
+      float a = A[j][i];
+      for (int k = 0; k < i; ++k) a = a - L[j][k] * L[i][k];
+      L[j][i] = a * inv_d;
+    }
+  }
+  float y[6];
+  for (int i = 0; i < 6; ++i) {
+    float acc = b[i];
+    for (int k = 0; k < i; ++k) acc = acc - L[i][k] * y[k];
+    y[i] = acc * inv_diag[i];
+  }
+  for (int i = 5; i >= 0; --i) {
+    float acc = y[i];
+    for (int k = i + 1; k < 6; ++k) acc = acc - L[k][i] * x[k];
+    x[i] = acc * inv_diag[i];
+  }
+}
+
+}  // namespace phovo

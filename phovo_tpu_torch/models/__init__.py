@@ -1,0 +1,9 @@
+from phovo_tpu_torch.models.base import AlignmentResult, PhotoconsistencyOdometryBase  # noqa: F401
+from phovo_tpu_torch.models.autodiff import PhotoconsistencyOdometryAutodiff  # noqa: F401
+
+# Object-API backends by the names phovo_tpu's BACKENDS uses; the others
+# join as they are ported.
+BACKENDS = {
+    "autodiff": PhotoconsistencyOdometryAutodiff,
+    "ceres": PhotoconsistencyOdometryAutodiff,  # reference naming alias
+}

@@ -1,13 +1,24 @@
-"""Backend-independent alignment results and device-side input conversion
-(torch port of the parts of phovo_tpu/models/base.py the frame chain runs).
+"""Backend-independent alignment API (torch port of
+phovo_tpu/models/base.py): results, input conversion, the serial pair loop
+and the reference's object interface (CPhotoconsistencyOdometry.h:137-179).
+
+The object API is a thin host-side holder of frames over a backend's
+functional `align`; it runs on the device it is given. phovo_tpu's
+band-fallback re-run has no counterpart: the GPU kernels sample the whole
+target, so band_masked is always 0.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import NamedTuple
 
 import numpy as np
 import torch
+
+from phovo_tpu_torch.ops import se3
+from phovo_tpu_torch.ops.camera import Intrinsics
+from phovo_tpu_torch.utils.config import PhovoConfig, load_config
 
 
 class AlignmentResult(NamedTuple):
@@ -22,6 +33,22 @@ class AlignmentResult(NamedTuple):
     # (..., L) pixels dropped by the TPU kernels' banded sampling window;
     # always 0 here, where the kernel samples the whole target
     band_masked: torch.Tensor
+
+
+def as_float_intensity(img):
+    """Normalize a host intensity image for the aligners: uint8 passes
+    through unchanged (every backend converts it on the device, so the
+    host-to-device copy stays at storage size), other integer dtypes are
+    converted here (* 1/255), floats become float32. Tensors pass
+    through untouched."""
+    if isinstance(img, torch.Tensor):
+        return img
+    arr = np.asarray(img)
+    if arr.dtype == np.uint8:
+        return arr
+    if np.issubdtype(arr.dtype, np.integer):
+        return arr.astype(np.float32) * np.float32(1.0 / 255.0)
+    return arr.astype(np.float32)
 
 
 def device_unit_intensity(img: torch.Tensor) -> torch.Tensor:
@@ -46,3 +73,95 @@ def chunk_device_prep(carry_intensity, carry_depth, intensities, depths, depth_s
     I = torch.cat([carry_f[None], intensities])
     D = torch.cat([carry_depth.to(torch.float32)[None], depths])
     return I, D
+
+
+def sequence_scan(align_one, intensities, depths, warm_start: bool) -> AlignmentResult:
+    """Align the consecutive pairs of a buffered segment one after the
+    other (phovo_tpu's lax.scan as a Python loop): pair k aligns frame k
+    to frame k+1. align_one(si, sd, ti, td, init) -> AlignmentResult.
+    warm_start starts each pair from the previous pair's state; otherwise
+    every pair starts from zero, as the reference does. Returns batched
+    results with leading dim B-1."""
+    zero = torch.zeros(6, dtype=torch.float32, device=intensities.device)
+    init, results = zero, []
+    for k in range(intensities.shape[0] - 1):
+        res = align_one(
+            intensities[k], depths[k], intensities[k + 1], depths[k + 1],
+            init if warm_start else zero,
+        )
+        results.append(res)
+        init = res.state
+    return AlignmentResult(*(torch.stack(x) for x in zip(*results)))
+
+
+class PhotoconsistencyOdometryBase:
+    """Host-side stateful wrapper over a backend's functional aligner, on
+    one torch device."""
+
+    # AlignmentResult.cost convention: GN backends report sum r^2, the
+    # trust-region backend 0.5 * sum r^2 (Ceres's)
+    COST_IS_HALF_SUM_SQ = False
+
+    def __init__(self, config: PhovoConfig | None = None, device="cpu"):
+        self.config = config or PhovoConfig()
+        self.device = torch.device(device)
+        self.intrinsics: Intrinsics | None = None
+        self._source = None  # (intensity, depth) tensors on self.device
+        self._target = None
+        self._init_state = torch.zeros(6, dtype=torch.float32, device=self.device)
+        self._result: AlignmentResult | None = None
+
+    # -- reference API surface ------------------------------------------------
+    def read_configuration_file(self, path) -> None:
+        self.config = load_config(path)
+
+    def set_intrinsic_matrix(self, K) -> None:
+        self.intrinsics = Intrinsics.from_matrix(K)
+
+    def set_min_depth(self, d: float) -> None:
+        self.config = dataclasses.replace(self.config, min_depth=float(d))
+
+    def set_max_depth(self, d: float) -> None:
+        self.config = dataclasses.replace(self.config, max_depth=float(d))
+
+    def _frame(self, intensity, depth):
+        return (
+            torch.as_tensor(as_float_intensity(intensity), device=self.device),
+            torch.as_tensor(depth, dtype=torch.float32, device=self.device),
+        )
+
+    def set_source_frame(self, intensity, depth) -> None:
+        self._source = self._frame(intensity, depth)
+
+    def set_target_frame(self, intensity, depth) -> None:
+        self._target = self._frame(intensity, depth)
+
+    def set_initial_state_vector(self, state) -> None:
+        self._init_state = torch.as_tensor(state, dtype=torch.float32, device=self.device)
+
+    def optimize(self) -> AlignmentResult:
+        if self.intrinsics is None:
+            raise RuntimeError("set_intrinsic_matrix must be called before optimize")
+        if self._source is None or self._target is None:
+            raise RuntimeError("source and target frames must be set before optimize")
+        self._result = self.align(
+            *self._source, *self._target, self.intrinsics, self._init_state
+        )
+        return self._result
+
+    def get_optimal_state_vector(self) -> torch.Tensor:
+        self._require_result()
+        return self._result.state
+
+    def get_optimal_rigid_transformation_matrix(self) -> torch.Tensor:
+        self._require_result()
+        return se3.pose_matrix(self._result.state)
+
+    def _require_result(self):
+        if self._result is None:
+            raise RuntimeError("optimize() has not been called")
+
+    # -- functional core (implemented by backends) ----------------------------
+    def align(self, source_intensity, source_depth, target_intensity,
+              target_depth, intr: Intrinsics, init_state) -> AlignmentResult:
+        raise NotImplementedError

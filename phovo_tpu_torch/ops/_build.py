@@ -2,9 +2,10 @@
 
 Every `*.cu` file under phovo_tpu_torch/csrc/ is compiled by nvcc into ONE
 shared library with a plain C interface, for sm_90a (Hopper), and loaded
-with ctypes. The library lands in build/phovo_tpu_torch/ at the repository
-root, named by a hash of the sources and flags, so an unchanged tree builds
-once and a changed one never loads a stale library. The build runs at
+with ctypes; the `*.cuh` headers beside them hold device code the sources
+share. The library lands in build/phovo_tpu_torch/ at the repository root,
+named by a hash of the sources, the headers and the flags, so an unchanged
+tree builds once and a changed one never loads a stale library. The build runs at
 first use, never at import; a missing nvcc or a failed build raises.
 """
 
@@ -36,6 +37,11 @@ _ENTRIES = {
         [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _F, _F, _I, _F, _F, _P],
         _I,
     ),
+    "phovo_fused_tr_level_batch": (
+        [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _F, _F, _I]
+        + [_F] * 7 + [_P],
+        _I,
+    ),
 }
 
 
@@ -63,9 +69,10 @@ def _sources() -> list[Path]:
 
 
 def library_path() -> Path:
-    """Where the library for the current sources and flags lives."""
+    """Where the library for the current sources, headers and flags
+    lives."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in _sources():
+    for src in sorted([*_sources(), *CSRC.glob("*.cuh")]):
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return BUILD_DIR / f"libphovo_tpu_torch_{h.hexdigest()[:16]}.so"
@@ -80,7 +87,7 @@ def build() -> Path:
         return so
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = so.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, _sources())]
+    cmd = [nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp), *map(str, _sources())]
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
         tmp.unlink(missing_ok=True)

@@ -1,15 +1,18 @@
-"""One whole Gauss-Newton pyramid level for B independent pairs (torch port
-of phovo_tpu/ops/fused_batch.py::fused_gn_level_batch).
+"""One whole pyramid level for B independent pairs: Gauss-Newton (torch
+port of phovo_tpu/ops/fused_batch.py::fused_gn_level_batch) and
+trust-region Levenberg-Marquardt (::fused_tr_level_batch).
 
-On a CUDA tensor the wrapper launches the hand-written kernel in
-csrc/fused_gn_batch.cu (one thread block per pair, the level's whole
-iteration loop inside the block). On a CPU tensor it runs
-fused_gn_level_batch_reference, the plain batched torch version of the same
-function: every pair advances in lockstep and freezes on its own once
-||J^T r|| < min_gradient_norm or its iteration budget is spent, exactly the
-per-pair semantics of the TPU kernel. Both write the per-pixel arithmetic
-in the same order (phovo_tpu/ops/fused_batch.py::_batch_linearize), so
-only the order of the pixel sums differs between them.
+On a CUDA tensor each wrapper launches its hand-written kernel,
+csrc/fused_gn_batch.cu or csrc/fused_tr_batch.cu (one thread block per
+pair, the level's whole iteration loop inside the block). On a CPU tensor
+it runs the plain batched torch version of the same function
+(fused_gn_level_batch_reference, fused_tr_level_batch_reference): every
+pair advances in lockstep and freezes on its own once its termination
+test fires or its iteration budget is spent, exactly the per-pair
+semantics of the TPU kernels. Kernel and plain version write the per-pixel
+arithmetic in the same order (phovo_tpu/ops/fused_batch.py::
+_batch_linearize), so only the order of the pixel sums differs between
+them.
 """
 
 from __future__ import annotations
@@ -24,6 +27,8 @@ from phovo_tpu_torch.ops.camera import Intrinsics
 # launch and nowhere else, so a caller can show that its run went through
 # the kernel (reset it to 0 before the run, read it after).
 LAUNCHES = 0
+# Launches of the trust-region kernel, with the same contract.
+TR_LAUNCHES = 0
 
 _SAMPLINGS = ("nearest", "bilinear")
 
@@ -34,6 +39,18 @@ class LevelBatchResult(NamedTuple):
     gradient_norm: torch.Tensor  # (B,) ||J^T r|| of the last update (0 if non-finite)
     cost: torch.Tensor  # (B,) sum r^2 at the last linearization
     num_valid: torch.Tensor  # (B,) valid pixels at the last linearization
+    band_masked: torch.Tensor  # (B,) always 0: the GPU samples the whole target
+
+
+class TRLevelBatchResult(NamedTuple):
+    """phovo_tpu's fused_tr_level_batch result, in its order."""
+
+    state: torch.Tensor  # (B, 6) float32
+    iterations: torch.Tensor  # (B,) int32 LM iterations (accepted or not)
+    cost: torch.Tensor  # (B,) 0.5 sum r^2 at the last accepted linearization
+    gradient_norm: torch.Tensor  # (B,) max |J^T r| there (the max-norm)
+    radius: torch.Tensor  # (B,) final trust-region radius
+    num_valid: torch.Tensor  # (B,) valid pixels there
     band_masked: torch.Tensor  # (B,) always 0: the GPU samples the whole target
 
 
@@ -337,4 +354,157 @@ def fused_gn_level_batch_reference(
         cost,
         nvalid,
         zero,
+    )
+
+
+def fused_tr_level_batch(
+    i0: torch.Tensor,  # (B, H*W) source intensities
+    geom: torch.Tensor,  # (B, 4, H*W) pack_geometry rows
+    t_all: torch.Tensor,  # (B, 3, H, W) pack_target stacks
+    intr: Intrinsics,  # at this level
+    init_states: torch.Tensor,  # (B, 6)
+    opts,  # solvers.trust_region.TROptions
+    *,
+    H: int,
+    W: int,
+    sampling: str = "bilinear",
+) -> TRLevelBatchResult:
+    """Run ONE whole trust-region LM level for B independent pairs: the
+    CUDA kernel for CUDA tensors, the plain torch version for CPU tensors.
+    Any other device raises; so does a failed build or launch (there is no
+    fallback). Every option goes to the kernel as a float32 scalar."""
+    global TR_LAUNCHES
+    if i0.device.type == "cpu":
+        return fused_tr_level_batch_reference(
+            i0, geom, t_all, intr, init_states, opts, H=H, W=W, sampling=sampling,
+        )
+    _check_inputs(i0, geom, t_all, init_states, H, W, sampling)
+    if i0.device.type != "cuda":
+        raise ValueError(f"no level kernel for device {i0.device}")
+
+    from phovo_tpu_torch.ops import _build
+
+    lib = _build.library()
+    B = i0.shape[0]
+    states = torch.empty((B, 6), dtype=torch.float32, device=i0.device)
+    diag = torch.empty((B, 6), dtype=torch.float32, device=i0.device)
+    if B:
+        with torch.cuda.device(i0.device):
+            stream = torch.cuda.current_stream(i0.device).cuda_stream
+            err = lib.phovo_fused_tr_level_batch(
+                i0.data_ptr(), geom.data_ptr(), t_all.data_ptr(),
+                init_states.data_ptr(), states.data_ptr(), diag.data_ptr(),
+                B, H, W, int(sampling == "bilinear"),
+                intr.fx, intr.fy, intr.cx, intr.cy,
+                int(opts.max_iterations), *_tr_scalars(opts), stream,
+            )
+        if err:
+            raise RuntimeError(
+                f"fused_tr_batch kernel launch failed: CUDA error {err}"
+            )
+        TR_LAUNCHES += 1
+    return TRLevelBatchResult(
+        states, diag[:, 0].to(torch.int32), diag[:, 2], diag[:, 1],
+        diag[:, 4], diag[:, 3], diag[:, 5],
+    )
+
+
+def _tr_scalars(opts) -> tuple[float, ...]:
+    """The float options in the kernel's argument order."""
+    return tuple(float(v) for v in (
+        opts.function_tolerance, opts.gradient_tolerance,
+        opts.parameter_tolerance, opts.initial_trust_region_radius,
+        opts.max_trust_region_radius, opts.min_trust_region_radius,
+        opts.min_relative_decrease,
+    ))
+
+
+def fused_tr_level_batch_reference(
+    i0: torch.Tensor,
+    geom: torch.Tensor,
+    t_all: torch.Tensor,
+    intr: Intrinsics,
+    init_states: torch.Tensor,
+    opts,
+    *,
+    H: int,
+    W: int,
+    sampling: str = "bilinear",
+) -> TRLevelBatchResult:
+    """Plain batched torch version of fused_tr_level_batch, on any device,
+    in the TPU kernel's order of operations (phovo_tpu/ops/fused_batch.py::
+    _fused_tr_batch_kernel). The options are float32 tensors, so the radius,
+    rho and the tolerances compare in float32 as the kernels compare them.
+    A Python while loop over iterations runs until every pair froze; a
+    frozen pair's state and diagnostics stop changing."""
+    _check_inputs(i0, geom, t_all, init_states, H, W, sampling)
+    B = i0.shape[0]
+    px, py, pz, vd = geom.unbind(1)
+    t_flat = t_all.reshape(B, 3, H * W)
+    ftol, gtol, ptol, radius0, rmax, rmin, mrd = (
+        torch.tensor(v, dtype=torch.float32, device=i0.device)
+        for v in _tr_scalars(opts)
+    )
+    one_third = torch.tensor(1.0 / 3.0, dtype=torch.float32, device=i0.device)
+    tiny = torch.tensor(1e-30, dtype=torch.float32, device=i0.device)
+
+    def linearize(s):
+        return _linearize(
+            [s[:, k:k + 1] for k in range(6)], px, py, pz, vd, i0, t_flat,
+            intr, H, W, sampling == "bilinear",
+        )
+
+    def dot6(a, b):
+        acc = a[:, 0] * b[:, 0]
+        for k in range(1, 6):
+            acc = acc + a[:, k] * b[:, k]
+        return acc
+
+    state = init_states
+    JtJ, Jtr, cost_raw, nvalid = linearize(state)
+    it = torch.zeros(B, dtype=torch.float32, device=i0.device)
+    radius = radius0.expand(B)
+    done = Jtr.abs().amax(dim=1) <= gtol
+    while True:
+        act = (it < opts.max_iterations) & ~done
+        if not bool(act.any()):
+            break
+        cost = 0.5 * cost_raw
+        d = torch.diagonal(JtJ, dim1=1, dim2=2)
+        A_lm = JtJ + torch.diag_embed(torch.clamp(d, 1e-12, 1e32) * (1.0 / radius)[:, None])
+        step = torch.stack(_chol_solve6(A_lm, -Jtr), dim=1)
+        step = torch.where(torch.isfinite(step).all(dim=1, keepdim=True), step, 0.0)
+        trial = state + step
+        JtJ_n, Jtr_n, cost_n_raw, nvalid_n = linearize(trial)
+        new_cost = 0.5 * cost_n_raw
+
+        sAs = torch.zeros_like(cost)
+        for i in range(6):
+            for j in range(6):
+                sAs = sAs + step[:, i] * JtJ[:, i, j] * step[:, j]
+        predicted = torch.maximum(-dot6(step, Jtr) - 0.5 * sAs, tiny)
+        rho = (cost - new_cost) / predicted
+        accept = rho > mrd
+        t = 2.0 * rho - 1.0
+        grow = radius / torch.maximum(one_third, 1.0 - t * (t * t))
+        new_radius = torch.where(accept, torch.minimum(grow, rmax), radius * 0.5)
+
+        x2, s2 = dot6(state, state), dot6(step, step)
+        upd = act & accept
+        state = torch.where(upd[:, None], trial, state)
+        JtJ = torch.where(upd[:, None, None], JtJ_n, JtJ)
+        Jtr = torch.where(upd[:, None], Jtr_n, Jtr)
+        cost_raw = torch.where(upd, cost_n_raw, cost_raw)
+        nvalid = torch.where(upd, nvalid_n, nvalid)
+
+        f_done = accept & (torch.abs(cost - new_cost) <= ftol * cost)
+        g_done = Jtr.abs().amax(dim=1) <= gtol
+        p_done = accept & (torch.sqrt(s2) <= ptol * (torch.sqrt(x2) + ptol))
+        r_done = new_radius < rmin
+        done = torch.where(act, f_done | g_done | p_done | r_done, done)
+        radius = torch.where(act, new_radius, radius)
+        it = it + act.to(torch.float32)
+    return TRLevelBatchResult(
+        state, it.to(torch.int32), 0.5 * cost_raw, Jtr.abs().amax(dim=1),
+        radius, nvalid, torch.zeros_like(it),
     )

@@ -1,16 +1,45 @@
-"""Per-level setting schedule (torch port of phovo_tpu/utils/config.py).
+"""Per-level setting schedule and its YAML files (torch port of
+phovo_tpu/utils/config.py).
 
 The same fields and defaults as phovo_tpu's PhovoConfig, so one schedule
 can drive both packages: PhovoConfig.from_dict(dataclasses.asdict(cfg))
-carries a phovo_tpu config across. Lists are indexed by pyramid level;
-levels with max_iterations 0 are skipped (state passes through).
+carries a phovo_tpu config across, and load_config reads the same files
+(the shipped presets under phovo_tpu/configs/, native schema, and the
+reference's OpenCV FileStorage schema with its `%YAML:1.0` header and
+"... (at each level)" keys). Lists are indexed by pyramid level; levels
+with max_iterations 0 are skipped (state passes through). pyyaml is
+imported only inside load_config: config_from_dict needs no YAML parser.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import re
+from pathlib import Path
 
 from phovo_tpu_torch.ops.robust import LOSSES
+from phovo_tpu_torch.solvers.trust_region import TROptions
+
+# reference key -> (our field, element type)
+_KEYMAP = {
+    "numOptimizationLevels": ("num_levels", int),
+    "blurFilterSize (at each level)": ("blur_filter_sizes", int),
+    "imageGradientsScalingFactor (at each level)": ("gradient_scales", float),
+    "lambda_optimization_step (at each level)": ("lambda_steps", float),
+    "max_num_iterations (at each level)": ("max_iterations", int),
+    "min_gradient_norm (at each level)": ("min_gradient_norms", float),
+    "visualizeIterations": ("visualize_iterations", bool),
+    "function_tolerance (at each level)": ("function_tolerances", float),
+    "gradient_tolerance (at each level)": ("gradient_tolerances", float),
+    "parameter_tolerance (at each level)": ("parameter_tolerances", float),
+    "initial_trust_region_radius (at each level)": ("initial_trust_region_radii", float),
+    "max_trust_region_radius (at each level)": ("max_trust_region_radii", float),
+    "min_trust_region_radius (at each level)": ("min_trust_region_radii", float),
+    "min_relative_decrease (at each level)": ("min_relative_decreases", float),
+    "num_threads": ("num_threads", int),
+    "num_linear_solver_threads": ("num_linear_solver_threads", int),
+    "minimizer_progress_to_stdout": ("progress_to_stdout", bool),
+}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -44,6 +73,25 @@ class PhovoConfig:
     # sampling-matmul precision of the TPU kernels; the port computes in f32
     # whatever it says
     mix_mode: str = "bf16x2g"
+
+    def trust_region_options(self, level: int) -> TROptions:
+        """The trust-region schedule at one level; unset fields take
+        TROptions' defaults."""
+
+        def get(field, default):
+            v = getattr(self, field)
+            return default if v is None else v[level]
+
+        return TROptions(
+            max_iterations=self.max_iterations[level],
+            function_tolerance=get("function_tolerances", 1e-6),
+            gradient_tolerance=get("gradient_tolerances", 1e-10),
+            parameter_tolerance=get("parameter_tolerances", 1e-8),
+            initial_trust_region_radius=get("initial_trust_region_radii", 1e4),
+            max_trust_region_radius=get("max_trust_region_radii", 1e16),
+            min_trust_region_radius=get("min_trust_region_radii", 1e-32),
+            min_relative_decrease=get("min_relative_decreases", 1e-3),
+        )
 
     def validate(self) -> "PhovoConfig":
         for f in (
@@ -79,3 +127,112 @@ class PhovoConfig:
             raise ValueError(f"unknown PhovoConfig fields: {unknown}")
         kwargs = {k: tuple(v) if isinstance(v, list) else v for k, v in d.items()}
         return cls(**kwargs).validate()
+
+
+def _sanitize_opencv_yaml(text: str) -> str:
+    """Strip the OpenCV FileStorage header lines PyYAML rejects."""
+    text = re.sub(r"^%YAML:1\.0\s*\n", "", text)
+    text = re.sub(r"^---\s*\n", "", text)
+    return text
+
+
+def load_config(path: str | Path) -> PhovoConfig:
+    """Load a reference-schema or native-schema YAML config file."""
+    import yaml
+
+    data = yaml.safe_load(_sanitize_opencv_yaml(Path(path).read_text()))
+    if not isinstance(data, dict):
+        raise ValueError(f"config {path} did not parse to a mapping")
+    return config_from_dict(data)
+
+
+# element type of each native-schema field (PyYAML leaves '1e-9'-style
+# floats as strings: YAML 1.1 wants a dot in the mantissa, so coerce)
+_FIELD_TYPES = {
+    "num_levels": int,
+    "blur_filter_sizes": int,
+    "blur_type": None,
+    "gradient_scales": float,
+    "max_iterations": int,
+    "visualize_iterations": bool,
+    "min_depth": float,
+    "max_depth": float,
+    "lambda_steps": float,
+    "min_gradient_norms": float,
+    "function_tolerances": float,
+    "gradient_tolerances": float,
+    "parameter_tolerances": float,
+    "initial_trust_region_radii": float,
+    "max_trust_region_radii": float,
+    "min_trust_region_radii": float,
+    "min_relative_decreases": float,
+    "num_threads": int,
+    "num_linear_solver_threads": int,
+    "progress_to_stdout": bool,
+    "sampling": None,
+    "gradient_at": None,
+    "robust_loss": None,
+    "robust_delta": float,
+    "mix_mode": None,
+}
+
+
+def config_from_dict(data: dict) -> PhovoConfig:
+    """Config from a parsed YAML mapping, reference or native keys. Unknown
+    keys are ignored (as cv::FileStorage lookups ignore them); schedules
+    longer than num_levels are truncated and shorter ones padded with their
+    last value, as the reference indexes them by level."""
+    kwargs: dict = {}
+    for key, value in data.items():
+        if key in _KEYMAP:
+            field, elem = _KEYMAP[key]
+        elif key in _FIELD_TYPES:
+            field, elem = key, _FIELD_TYPES[key]
+        else:
+            continue
+        if isinstance(value, (list, tuple)):
+            value = tuple(elem(v) if elem else v for v in value)
+        elif elem is not None:
+            value = elem(value)
+        kwargs[field] = value
+
+    n = kwargs.get("num_levels")
+    if n is None:
+        raise ValueError("config missing numOptimizationLevels / num_levels")
+    for field, value in list(kwargs.items()):
+        if isinstance(value, tuple) and field.endswith(("s", "radii")):
+            if len(value) > n:
+                kwargs[field] = value[:n]
+            elif 0 < len(value) < n:
+                kwargs[field] = value + (value[-1],) * (n - len(value))
+
+    defaults = {
+        "blur_filter_sizes": (0,) * n,
+        "gradient_scales": (0.0625,) * n,
+        "max_iterations": (0,) * n,
+        "lambda_steps": (1.0,) * n,
+        "min_gradient_norms": (300.0,) * n,
+    }
+    for field, dval in defaults.items():
+        kwargs.setdefault(field, dval)
+    return PhovoConfig(**kwargs).validate()
+
+
+def override_config(cfg: PhovoConfig, **overrides) -> PhovoConfig:
+    """Apply CLI-style overrides, skipping None values (unset flags)."""
+    kept = {k: v for k, v in overrides.items() if v is not None}
+    if not kept:
+        return cfg
+    return dataclasses.replace(cfg, **kept).validate()
+
+
+def builtin_config_dir() -> Path:
+    """The shipped presets: phovo_tpu/configs/ beside this package (read as
+    files; nothing of phovo_tpu is imported)."""
+    return Path(__file__).resolve().parents[2] / "phovo_tpu" / "configs"
+
+
+def load_builtin(name: str) -> PhovoConfig:
+    """Load a shipped preset by file stem, e.g.
+    'config_5_level_optimization_ceres'."""
+    return load_config(builtin_config_dir() / f"{name}.yml")

@@ -1,4 +1,5 @@
-"""The CUDA level kernel against its plain torch version, on the card.
+"""The CUDA level kernels (Gauss-Newton and trust-region) against their
+plain torch versions, on the card.
 
 Needs an NVIDIA GPU and nvcc; skipped elsewhere. Run on the card with
     python -m pytest --noconftest -m cuda tests/test_torch_kernel_cuda.py
@@ -10,8 +11,20 @@ relative (pixel sums in another order), iterations and valid counts equal
 multiply-adds). Nearest sampling runs 2 iterations: from the third on, the
 states differ by enough (~1e-6) that a pixel within that distance of a
 rounding boundary samples its neighbour in one version and not the other,
-which moves the cost by ~5e-4 (measured on an H100).
+which moves the cost by ~5e-4 (measured on an H100). The trust-region
+kernel is held to the same bounds, its max|J^T r| to 1e-3 relative over
+budgets of 4 iterations and on pairs an early-exit case stops, and its
+radius to 1e-4 relative over budgets of 4 iterations; longer runs near
+float32 noise, where max|J^T r| is noise and rho (a ratio of noise-level
+cost changes) halves or grows the radius by chance. Its stopping tests
+are held by early-exit
+cases whose tolerances chip_smoke.py's early_exit_tolerance sets at least
+7% from every value the test reads, so both versions must stop where the
+plain version's values predict.
 """
+
+import importlib.util
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -20,7 +33,8 @@ import torch
 from phovo_tpu_torch.ops import fused_batch as FB
 from phovo_tpu_torch.ops import pyramid as pyr
 from phovo_tpu_torch.ops.camera import Intrinsics
-from phovo_tpu_torch.ops.fused import pack_geometry, pack_target
+from phovo_tpu_torch.ops.fused import fused_tr_level, pack_geometry, pack_target
+from phovo_tpu_torch.solvers.trust_region import TROptions
 from phovo_tpu_torch.utils.synthetic import make_sequence
 
 pytestmark = [
@@ -29,6 +43,16 @@ pytestmark = [
 ]
 
 INTR = Intrinsics(128.0, 128.0, 63.5, 47.5)
+TESTS_OFF = dict(function_tolerance=1e-9, gradient_tolerance=1e-12, parameter_tolerance=1e-10)
+
+
+def _chip_smoke():
+    """chip_smoke.py as a module (it runs its phases only as a script)."""
+    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    return smoke
 
 
 @pytest.mark.parametrize("sampling,iterations,threshold", [
@@ -60,3 +84,74 @@ def test_kernel_matches_plain(sampling, iterations, threshold):
     assert torch.equal(k.num_valid, p.num_valid)
     torch.testing.assert_close(k.cost, p.cost, rtol=1e-4, atol=0)
     assert float(k.band_masked.abs().sum()) == 0.0
+
+
+def _packs(H=96, W=128, n=6):
+    I, D, _, _ = make_sequence(INTR, (H, W), n)
+    dev = torch.device("cuda")
+    It = torch.from_numpy(np.stack(I)).to(dev)
+    Dt = torch.from_numpy(np.stack(D)).to(dev)
+    t_all = pack_target(It, pyr.scharr(It, "x", 0.0625), pyr.scharr(It, "y", 0.0625))
+    init = torch.from_numpy(
+        (np.random.default_rng(0).standard_normal((n - 1, 6)) * 1e-3).astype(np.float32)
+    ).to(dev)
+    return (
+        It[:-1].reshape(n - 1, -1).contiguous(),
+        pack_geometry(Dt[:-1], INTR, 0.3, 5.0).contiguous(),
+        t_all[1:].contiguous(), INTR, init,
+    ), (It, Dt, t_all)
+
+
+@pytest.mark.parametrize("sampling,iterations", [
+    ("bilinear", 4), ("bilinear", 12), ("nearest", 2),
+])
+def test_tr_kernel_matches_plain(sampling, iterations):
+    args, _ = _packs()
+    _assert_tr_kernel_matches_plain(args, TROptions(iterations, **TESTS_OFF), sampling, iterations <= 4)
+
+
+@pytest.mark.parametrize("stop", list(TESTS_OFF))
+def test_tr_kernel_stops_early_like_plain(stop):
+    """Each stopping test set to stop pairs before chip_smoke.py's
+    early-exit budget, away from its boundary: both versions stop after the
+    predicted counts."""
+    smoke = _chip_smoke()
+    args, _ = _packs()
+    n = smoke.EARLY_EXIT_ITERATIONS
+    opts = TROptions(n, **TESTS_OFF)
+    tol, stops = smoke.early_exit_tolerance(smoke.stop_values(FB, args, opts, 96, 128)[stop])
+    k = _assert_tr_kernel_matches_plain(args, opts._replace(**{stop: tol}), "bilinear", stops < n)
+    assert k.iterations.cpu().tolist() == stops.tolist()
+
+
+def _assert_tr_kernel_matches_plain(args, opts, sampling, settled):
+    """settled: a bool or (B,) mask of the pairs short of convergence,
+    whose max|J^T r| is compared too."""
+    before = FB.TR_LAUNCHES
+    k = FB.fused_tr_level_batch(*args, opts, H=96, W=128, sampling=sampling)
+    assert FB.TR_LAUNCHES == before + 1
+    p = FB.fused_tr_level_batch_reference(*args, opts, H=96, W=128, sampling=sampling)
+    assert FB.TR_LAUNCHES == before + 1
+    torch.cuda.synchronize()
+    torch.testing.assert_close(k.state, p.state, rtol=0, atol=2e-4)
+    assert torch.equal(k.iterations, p.iterations)
+    assert torch.equal(k.num_valid, p.num_valid)
+    torch.testing.assert_close(k.cost, p.cost, rtol=1e-4, atol=0)
+    settled = torch.as_tensor(settled, device=k.state.device).expand(k.state.shape[0])
+    torch.testing.assert_close(k.gradient_norm[settled], p.gradient_norm[settled], rtol=1e-3, atol=0)
+    if int(p.iterations.max()) <= 4 and bool(settled.all()):
+        torch.testing.assert_close(k.radius, p.radius, rtol=1e-4, atol=0)
+    assert float(k.band_masked.abs().sum()) == 0.0
+    return k
+
+
+def test_tr_kernel_single_pair_equals_batch():
+    """B = 1 (the per-pair level, ops/fused.fused_tr_level) runs each pair
+    through the same block code as the batch: the same bits."""
+    args, (It, Dt, t_all) = _packs()
+    opts = TROptions(6, 1e-4, 1e-3, 1e-6, 1e4, 1e8)
+    batch = FB.fused_tr_level_batch(*args, opts, H=96, W=128)
+    for j in range(args[0].shape[0]):
+        one = fused_tr_level(It[j], Dt[j], t_all[j + 1], INTR, args[4][j], 0.3, 5.0, opts)
+        for x, y in zip(one, batch):
+            assert torch.equal(x, y[j])

@@ -1,11 +1,13 @@
 """phovo_tpu_torch never imports jax, never falls back silently, and
 refuses what it has not ported.
 
-The level kernel runs only on CUDA tensors; on CPU tensors the wrapper
-takes the plain version and launches nothing; any other device, a missing
-nvcc, or a card that is not there raises instead of computing elsewhere.
+The level kernels (Gauss-Newton and trust-region) run only on CUDA
+tensors; on CPU tensors the wrappers take the plain versions and launch
+nothing; any other device, a missing nvcc, or a card that is not there
+raises instead of computing elsewhere.
 """
 
+import dataclasses
 import shutil
 import subprocess
 import sys
@@ -16,10 +18,12 @@ import pytest
 import torch
 
 import phovo_tpu_torch
+from phovo_tpu_torch.models import autodiff as tad
 from phovo_tpu_torch.models.analytic import align_sequence, align_sequence_chunk
 from phovo_tpu_torch.ops import _build
 from phovo_tpu_torch.ops import fused_batch as FB
 from phovo_tpu_torch.ops.camera import Intrinsics
+from phovo_tpu_torch.solvers.trust_region import TROptions
 from phovo_tpu_torch.utils.config import PhovoConfig
 
 torch.set_num_threads(1)
@@ -186,3 +190,112 @@ def test_kernel_input_checks(fault):
 def test_config_from_dict_rejects_unknown_fields():
     with pytest.raises(ValueError, match="unknown PhovoConfig fields"):
         PhovoConfig.from_dict({"num_levels": 1, "no_such_field": 1})
+
+
+TR_CONFIG = dataclasses.replace(CONFIG, sampling="bilinear")
+
+
+def test_cpu_trust_region_calls_launch_nothing():
+    """Every trust-region entry point on CPU tensors runs the plain version:
+    per pair, level-major, warm-started and chunked."""
+    before = (FB.LAUNCHES, FB.TR_LAUNCHES)
+    I, D = _frames()
+    lm = tad.align_sequence_autodiff(I, D, INTR, TR_CONFIG)
+    warm = tad.align_sequence_autodiff(I, D, INTR, TR_CONFIG, warm_start=True)
+    chunk, ci, _ = tad.align_sequence_chunk_autodiff(I[0], D[0], I[1:], D[1:], INTR, TR_CONFIG)
+    one = tad.align_autodiff(I[0], D[0], I[1], D[1], INTR, torch.zeros(6), TR_CONFIG)
+    assert (FB.LAUNCHES, FB.TR_LAUNCHES) == before
+    for res in (lm, warm, chunk, one):
+        assert res.state.device.type == "cpu" and bool(torch.isfinite(res.state).all())
+    assert ci.device.type == "cpu"
+
+
+def test_trust_region_other_devices_raise():
+    before = FB.TR_LAUNCHES
+    i0, geom, t_all, intr, states = _level_inputs(device="meta")
+    with pytest.raises(ValueError, match="no level kernel for device"):
+        FB.fused_tr_level_batch(i0, geom, t_all, intr, states, TROptions(2), H=H, W=W)
+    assert FB.TR_LAUNCHES == before
+
+
+@pytest.mark.parametrize(
+    "kwargs,error",
+    [
+        (dict(robust_loss="huber"), NotImplementedError),
+        (dict(robust_loss="cauchy"), NotImplementedError),
+        (dict(robust_loss="tukey"), NotImplementedError),
+        (dict(jacobian_mode="jacfwd"), NotImplementedError),
+        (dict(jacobian_mode="numeric"), ValueError),
+    ],
+    ids=lambda v: "-".join(f"{k}={x}" for k, x in v.items()) if isinstance(v, dict) else "",
+)
+def test_unported_trust_region_routes_raise(kwargs, error):
+    """Robust losses and the jacfwd Jacobian are not ported: every entry
+    point refuses them, naming the ROADMAP item."""
+    mode = kwargs.pop("jacobian_mode", "linearizer")
+    cfg = dataclasses.replace(TR_CONFIG, **kwargs)
+    I, D = _frames()
+    match = "ROADMAP.md" if error is NotImplementedError else "jacobian_mode"
+    calls = [
+        lambda: tad.align_autodiff(I[0], D[0], I[1], D[1], INTR, torch.zeros(6), cfg, mode),
+        lambda: tad.align_sequence_autodiff(I, D, INTR, cfg, mode),
+        lambda: tad.align_sequence_autodiff(I, D, INTR, cfg, mode, warm_start=True),
+        lambda: tad.align_sequence_chunk_autodiff(I[0], D[0], I[1:], D[1:], INTR, cfg, mode),
+        lambda: tad.PhotoconsistencyOdometryAutodiff(cfg, mode).align(
+            I[0], D[0], I[1], D[1], INTR, torch.zeros(6)),
+    ]
+    for call in calls:
+        with pytest.raises(error, match=match):
+            call()
+
+
+@pytest.mark.parametrize(
+    "layout,what",
+    [
+        (dict(channels=6), "bi-objective"),
+        (dict(rows=6), "ESM"),
+        (dict(), "shared"),
+    ],
+    ids=["biobjective", "esm", "shared-source"],
+)
+def test_unported_trust_region_layouts_raise(layout, what):
+    """The trust-region kernel takes what the GN kernel takes: the
+    bi-objective, ESM and shared-source (keyframe tracking, queue A item
+    5) layouts are refused."""
+    i0, geom, t_all, intr, states = _level_inputs(**layout)
+    if what == "shared":
+        i0 = i0[:1].contiguous()
+    with pytest.raises(NotImplementedError, match=what):
+        FB.fused_tr_level_batch(i0, geom, t_all, intr, states, TROptions(2), H=H, W=W)
+
+
+def test_library_path_hashes_headers(tmp_path, monkeypatch):
+    """A changed header (or source) names another library, so a stale
+    build is never loaded; the build puts csrc/ on the include path."""
+    csrc = tmp_path / "csrc"
+    shutil.copytree(_build.CSRC, csrc)
+    monkeypatch.setattr(_build, "CSRC", csrc)
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
+    paths = [_build.library_path()]
+    assert _build.library_path() == paths[0]
+    for name in ("phovo_linearize.cuh", "fused_tr_batch.cu"):
+        f = csrc / name
+        f.write_text(f.read_text() + "\n// edited\n")
+        paths.append(_build.library_path())
+    assert len(set(paths)) == 3
+
+    seen = []
+
+    def fake_run(cmd, **kw):
+        seen.append(cmd)
+        return subprocess.CompletedProcess(cmd, 1, "", "refused")
+
+    monkeypatch.setattr(_build, "nvcc", lambda: "nvcc")
+    monkeypatch.setattr(_build.subprocess, "run", fake_run)
+    with pytest.raises(RuntimeError, match="nvcc failed"):
+        _build.build()
+    cmd = seen[0]
+    assert cmd[cmd.index("-I") + 1] == str(csrc)
+    assert sorted(Path(c).name for c in cmd if c.endswith(".cu")) == [
+        "fused_gn_batch.cu", "fused_tr_batch.cu",
+    ]
