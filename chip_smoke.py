@@ -26,12 +26,41 @@ Phases, each of which raises on failure (exit code 1, no result line):
      early exit at ||g|| < 300), 256 VGA pairs of the ceres preset through
      align_sequence_autodiff, each kernel vs its plain version per level,
      and one pair through the per-pair route
-The line before the last is the kernels' JSON record; the last line is
+ 3b. the variants vs plain: the GN kernel with huber, cauchy, tukey, ESM
+     and the Student-t loss (its sigma carried level to level, with the
+     burn-in) at every active level of the analytic preset, both
+     samplings, plus 3 iterations at 480x640 and 240x320 (bilinear costs
+     within 1e-4; a nearest cost difference split into the order of the
+     sums, within 1e-4, and named sample flips) and one linearization
+     there; the trust-region kernel with huber, cauchy and tukey at all
+     five ceres levels (a valid count that differs must be accounted for
+     by pixels at the image edge); the one-linearization kernel's Gram at
+     every VGA level for each variant
+ 6b. per-pair analytic API: 4 pairs through
+     PhotoconsistencyOdometryAnalytic.optimize() with the analytic preset,
+     one GN launch per pair per active level, and the warm-started chain,
+     each once more through the plain version; one 480x640 pair of
+     config_only_level_0_analytic
+ 6c. robust losses on an occluded VGA pair (tests/test_robust.py's
+     occluder scaled to VGA): each loss cuts the error of 'none'
+ 6d. per-linearization API: one VGA pair solved by gauss_newton_level over
+     make_fused_linearizer (one launch of the one-linearization kernel per
+     iteration), against align_analytic on the GN kernel
+ 7b. timing: the per-pair analytic route, the 256-pair analytic chain with
+     huber, tdist and ESM beside 'none', the ceres chain with huber, and
+     the GN kernel at B = 1 and the one-linearization kernel vs their
+     plain versions at 480x640
+Each of the paths of phases 4, 5, 6, 6b and 6d runs with the launch counts
+set to 0 just before it and read just after. The line before the last is
+the kernels' JSON record (for fused_lin, max_abs_err is the largest Gram
+difference over the Gram's largest entry); the last line is
 {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
 
+import dataclasses
+import functools
 import json
 import subprocess
 import sys
@@ -51,8 +80,16 @@ STATE_ATOL = 2e-4  # tests/test_fused_batch.py's level for the batch kernel
 # such a sum (Higham's gamma_n, n = 1,211 additions) is 7.2e-5 of the cost
 # on its side alone; torch's tree reduction adds its own. The reading there
 # is 9.675e-5 on every run (both sums are deterministic); 1e-4 is kept as
-# the bound tests/test_fused_batch.py pins for the TPU kernels.
+# the bound tests/test_fused_batch.py pins for the TPU kernels. It holds
+# one linearization's cost at the same state, and bilinear runs. A nearest
+# run's cost moves by a whole pixel's residual once a sample flips between
+# the two versions' states (3 iterations at 240x320: 1.070e-4 huber,
+# 1.412e-4 tukey, 1.452e-4 tdist; H100), so attribute_nearest_cost holds
+# its part from the order of the sums to this bound and names the flips.
 COST_RTOL = 1e-4
+# The Student-t sigma out, kernel vs plain: sqrt(cost / n), so half the
+# cost's relative difference, at COST_RTOL's level.
+SIGMA_RTOL = 1e-4
 # max|J^T r| (tests/test_torch_trust_region.py's level), compared on the
 # pairs an early-exit case stopped before its budget: those cases start
 # from the zero state, far from convergence. Near a converged state it is
@@ -96,6 +133,48 @@ N_API_PAIRS = 4
 # step or gradient reaches these.
 TR_TESTS_OFF = dict(function_tolerance=1e-9, gradient_tolerance=1e-12, parameter_tolerance=1e-10)
 EARLY_EXIT_ITERATIONS = 4
+# The shipped analytic presets phovo_tpu/configs/config_5_level_optimization_
+# analytic.yml and config_only_level_0_analytic.yml as YAML mappings;
+# tests/test_torch_analytic.py holds them to the files.
+ANALYTIC_PRESET = {
+    "num_levels": 5,
+    "blur_filter_sizes": [0, 0, 0, 0, 0],
+    "gradient_scales": [0.0625] * 5,
+    "lambda_steps": [1, 1, 1, 1, 1],
+    "max_iterations": [0, 0, 5, 20, 50],
+    "min_gradient_norms": [300] * 5,
+    "visualize_iterations": False,
+}
+LEVEL0_PRESET = {
+    "num_levels": 1,
+    "blur_filter_sizes": [0],
+    "gradient_scales": [0.0625],
+    "lambda_steps": [1],
+    "max_iterations": [5000],
+    "min_gradient_norms": [300],
+    "visualize_iterations": True,
+}
+# The loss scales of tests/test_robust.py:117-118, and the Student-t seed.
+LOSS_DELTAS = {"huber": 0.02, "cauchy": 0.02, "tukey": 0.1, "tdist": 0.1}
+GN_VARIANTS = ("huber", "cauchy", "tukey", "esm", "tdist")
+# The trust-region variants' strict cases may end with valid counts a pixel
+# apart: states 1e-7 apart can put one pixel's warped u or v on the two
+# sides of the in-bounds edge (huber at 480x640 after 3 iterations from
+# zero: one pixel of 307,200 on one of 8 pairs; H100). Such a difference
+# passes only where explain_valid_diff accounts for it pixel by pixel, and
+# an edge pixel moves by no more than this many pixels between the states.
+EDGE_SHIFT_PX = 1e-3
+# The one-linearization kernel's Gram against its plain version: float32
+# sums over up to 307,200 pixels in another order, relative to the
+# Gram's largest entry.
+GRAM_RTOL = 1e-4
+# tests/test_robust.py's occluder (rows 10.., cols 20.. of 96x128, 22% of
+# the height, 44% of the width, 0.95) and its bounds on the pose error
+# (:117-128, :221-241): (loss, delta, bound, the factor it cuts 'none' by)
+OCCLUSION_CASES = (
+    ("huber", 0.02, 0.4, 3), ("cauchy", 0.02, 0.06, 3), ("tukey", 0.1, 0.06, 3),
+    ("tdist", 0.1, 0.15, 4),
+)
 # an early-exit tolerance lies at least this factor from every value its
 # test compares with it, so another summation order cannot flip a stop
 EARLY_EXIT_MARGIN = 1.07
@@ -144,15 +223,124 @@ def pair_packs(prep: dict) -> dict:
 def reset_counts(fb) -> None:
     fb.LAUNCHES = 0
     fb.TR_LAUNCHES = 0
+    fb.LIN_LAUNCHES = 0
 
 
-def compare_levels(fb, packs, intr, iterations, sampling, card):
+def variant_config(cfg, variant: str):
+    """cfg with one variant: 'none', 'esm' (gradient_at) or a robust loss
+    at its LOSS_DELTAS scale."""
+    if variant == "esm":
+        return dataclasses.replace(cfg, gradient_at="esm")
+    if variant == "none":
+        return cfg
+    return dataclasses.replace(cfg, robust_loss=variant, robust_delta=LOSS_DELTAS[variant])
+
+
+def gn_variant_kw(cfg) -> dict:
+    """The level kernels' variant arguments of a config."""
+    return dict(robust_loss=cfg.robust_loss, robust_delta=cfg.robust_delta, esm=cfg.gradient_at == "esm")
+
+
+def warped_uv(fb, geom, states, intr, H, W, sampling):
+    """Each pixel's warped (u, v) and valid flag, (B, N) each, at states
+    (B, 6), in the plain version's order of operations
+    (fused_batch._pixel_columns), so the same bits as it computes."""
+    fx, fy, cx, cy = intr
+    px, py, pz, vd = geom.unbind(1)[:4]
+    s = [states[:, k:k + 1] for k in range(6)]
+    (R00, R01, R02, R10, R11, R12, R20, R21, R22), *_ = fb._rotation_terms(s[3], s[4], s[5])
+    tx = R00 * px + R01 * py + R02 * pz + s[0]
+    ty = R10 * px + R11 * py + R12 * pz + s[1]
+    tz = R20 * px + R21 * py + R22 * pz + s[2]
+    iz = 1.0 / torch.where(torch.abs(tz) > 1e-12, tz, torch.full_like(tz, 1e-12))
+    u = tx * fx * iz + cx
+    v = ty * fy * iz + cy
+    valid = (vd > 0.5) & (tz > 0)
+    if sampling == "bilinear":
+        return u, v, valid & (u >= 0) & (u < W) & (v >= 0) & (v < H)
+    c0, r0 = torch.round(u), torch.round(v)
+    return u, v, valid & (c0 >= 0) & (c0 <= W - 1) & (r0 >= 0) & (r0 <= H - 1)
+
+
+def attribute_nearest_cost(fb, args, kw, k, p, what, card):
+    """Where the cost difference of a nearest GN run of n >= 2 fixed
+    iterations (k kernel, p plain) comes from. Its cost is the last
+    linearization's, at the state after n - 1 iterations. Nearest residuals
+    are piecewise constant in the state: at two states whose every sample
+    is the same pixel, the plain version's cost at one scale is the same
+    bits. So the difference is
+      the order of the sums: the kernel's cost against the plain version's
+        at the kernel's own state and scale, held to COST_RTOL;
+      plus sample flips: pixels whose nearest sample or validity differs
+        between the two versions' states after 1..n-1 iterations.
+    Checks the first; that, but for 'tdist' (whose sigma carries the
+    earlier linearizations' flips), the plain costs at the two last states
+    are the same bits on every pair without a flip there; and that every
+    pair whose cost differs by more than COST_RTOL has a flip. Prints the
+    worst pair's flips, with one pixel named."""
+    i0, geom, t_all, intr, init, n = args[:6]
+    H, W = kw["H"], kw["W"]
+
+    def rel(a, b):
+        return (a - b).abs() / b.abs().clamp_min(1e-30)
+
+    flips, coords = [], []  # after m = 1..n-1 iterations: (B, N) flags, (u, v) of both
+    for m in range(1, n):
+        km = fb.fused_gn_level_batch(*args[:5], m, *args[6:], **kw)
+        pm = fb.fused_gn_level_batch_reference(*args[:5], m, *args[6:], **kw)
+        uk, vk, ok = warped_uv(fb, geom, km.state, intr, H, W, "nearest")
+        up, vp, op = warped_uv(fb, geom, pm.state, intr, H, W, "nearest")
+        moved = (torch.round(uk) != torch.round(up)) | (torch.round(vk) != torch.round(vp))
+        flips.append((ok != op) | (ok & op & moved))
+        coords.append((uk, vk, up, vp))
+    # km, pm: the states and scales of the last linearization
+    same_kw = dict(kw, robust_scale=km.robust_scale, tdist_burnin=0)
+    at_k = fb.fused_gn_level_batch_reference(i0, geom, t_all, intr, km.state, 1, *args[6:], **same_kw).cost
+    torch.cuda.synchronize()
+    same, total = rel(k.cost, at_k), rel(k.cost, p.cost)
+    n_last = flips[-1].sum(dim=1)
+    n_any = torch.stack(flips).any(dim=0).sum(dim=1)
+    b = int(total.argmax())
+    named = "no flip"
+    for m in range(n - 1, 0, -1):
+        idx = flips[m - 1][b].nonzero()
+        if idx.numel():
+            j = int(idx[0])
+            uk, vk, up, vp = (float(c[b, j]) for c in coords[m - 1])
+            named = (f"{int(flips[m - 1][b].sum())} flipped after {m} it, e.g. pixel (row {j // W}, col {j % W}): "
+                     f"u, v kernel ({uk:.6f}, {vk:.6f}), plain ({up:.6f}, {vp:.6f})")
+            break
+    print(f"nearest cost attribution {what}: cost rel diff {float(total.max()):.3e}, of which the order of "
+          f"the sums (plain at the kernel's state) {float(same.max()):.3e}; flipped samples per pair at the "
+          f"last linearization {n_last.tolist()}, at any {n_any.tolist()}; worst pair {b}: {named} [{card}]")
+    check(float(same.max()) <= COST_RTOL, f"{what}: same-state cost rel diff {float(same.max())} > {COST_RTOL}")
+    if kw.get("robust_loss") != "tdist":
+        unflipped = n_last == 0
+        check(torch.equal(at_k[unflipped], p.cost[unflipped]),
+              f"{what}: plain costs at the two states differ on a pair without a flipped sample")
+    check(bool((n_any[total > COST_RTOL] > 0).all()),
+          f"{what}: a pair's cost differs by more than {COST_RTOL} without a flipped sample")
+
+
+def compare_levels(fb, packs, intr, iterations, sampling, card, cfg=None, check_cost=False, attribute=False):
     """GN kernel vs plain version on the same packs at every active level,
-    `iterations[level]` fixed iterations from the zero state; returns the
-    largest state difference."""
+    `iterations[level]` fixed iterations from the zero state, with cfg's
+    variant (gn_variant_kw; none without cfg). With 'tdist' the first
+    level runs the burn-in from the seed and each later level starts from
+    the kernel's sigma of the level before, in both versions, whose sigmas
+    out must agree within SIGMA_RTOL (bilinear, or one linearization:
+    after a few nearest iterations a sample flip moves sigma as it moves
+    the cost). check_cost: costs within COST_RTOL. attribute (nearest,
+    2 or more iterations): attribute_nearest_cost.
+    Returns (the largest state difference, the largest cost rel diff)."""
     from phovo_tpu_torch.ops.pyramid import level_shape
+    from phovo_tpu_torch.ops.robust import TDIST_BURNIN
 
-    worst = 0.0
+    vkw = {} if cfg is None else gn_variant_kw(cfg)
+    tdist = vkw.get("robust_loss") == "tdist"
+    name = "none" if cfg is None else (cfg.robust_loss if cfg.robust_loss != "none" else ("esm" if vkw["esm"] else "none"))
+    worst = worst_cost = 0.0
+    sigma = None
     for level, (i0, geom, t_all) in sorted(packs.items(), reverse=True):
         H, W = level_shape(SHAPE, level)
         args = (
@@ -160,26 +348,71 @@ def compare_levels(fb, packs, intr, iterations, sampling, card):
             torch.zeros((i0.shape[0], 6), device=i0.device),
             iterations[level], 0.0, 1.0,
         )
-        kw = dict(H=H, W=W, sampling=sampling)
+        kw = dict(H=H, W=W, sampling=sampling, **vkw)
+        if tdist:
+            kw.update(robust_scale=sigma, tdist_burnin=TDIST_BURNIN if sigma is None else 0)
         k = fb.fused_gn_level_batch(*args, **kw)
         p = fb.fused_gn_level_batch_reference(*args, **kw)
         torch.cuda.synchronize()
         err = float((k.state - p.state).abs().max())
+        cost_rel = float(((k.cost - p.cost).abs() / p.cost.abs().clamp_min(1e-30)).max())
         worst = max(worst, err)
+        worst_cost = max(worst_cost, cost_rel)
         same_its = torch.equal(k.iterations, p.iterations)
         same_nv = torch.equal(k.num_valid, p.num_valid)
+        extra = ""
+        if tdist:
+            sig_rel = float(((k.robust_scale - p.robust_scale).abs() / p.robust_scale).max())
+            extra = f", sigma rel diff {sig_rel:.3e} (sigma {k.robust_scale.min():.4g}..{k.robust_scale.max():.4g})"
+            if sampling == "bilinear" or check_cost:  # nearest flips move it past one linearization
+                check(sig_rel <= SIGMA_RTOL, f"{name}: sigma rel diff {sig_rel} > {SIGMA_RTOL}")
+            sigma = k.robust_scale
         print(
-            f"kernel vs plain: level {level} {H}x{W} {sampling} "
+            f"kernel vs plain{'' if cfg is None else ' ' + name}: level {level} {H}x{W} {sampling} "
             f"{i0.shape[0]} pairs x {iterations[level]} it: "
             f"max|state diff| {err:.3e}, iterations equal {same_its}, "
-            f"nvalid equal {same_nv} [{card}]"
+            f"nvalid equal {same_nv}, max cost rel diff {cost_rel:.3e}{extra} [{card}]"
         )
         check(err <= STATE_ATOL, f"state diff {err} > {STATE_ATOL}")
         check(same_its and same_nv, "iterations or valid counts differ")
+        if check_cost:
+            check(cost_rel <= COST_RTOL, f"{name}: cost rel diff {cost_rel} > {COST_RTOL}")
+        if attribute:
+            attribute_nearest_cost(fb, args, kw, k, p, f"{name}: level {level} {H}x{W} "
+                                   f"{i0.shape[0]} pairs x {iterations[level]} it", card)
+    return worst, worst_cost
+
+
+def compare_lin(fb, packs, intr, cfg, sampling, card):
+    """One-linearization kernel vs plain Gram at every level of packs, at
+    seeded small states, with cfg's variant: within GRAM_RTOL of each
+    pair's largest entry, valid counts and the band slot equal. Returns
+    the largest relative difference."""
+    from phovo_tpu_torch.ops.pyramid import level_shape
+
+    vkw = gn_variant_kw(cfg)
+    worst = 0.0
+    for level, (i0, geom, t_all) in sorted(packs.items(), reverse=True):
+        H, W = level_shape(SHAPE, level)
+        g = torch.Generator().manual_seed(level)
+        states = (torch.randn((i0.shape[0], 6), generator=g) * 1e-3).to(i0.device)
+        args = (i0, geom, t_all, intr.at_level(level), states)
+        kw = dict(H=H, W=W, sampling=sampling, **vkw)
+        k = fb.fused_lin_batch(*args, **kw)
+        p = fb.fused_lin_batch_reference(*args, **kw)
+        torch.cuda.synchronize()
+        rel = float(((k - p).abs() / p.abs().amax(dim=(1, 2), keepdim=True)).max())
+        worst = max(worst, rel)
+        same_nv = torch.equal(k[:, 7, 7], p[:, 7, 7])
+        print(f"one-linearization kernel vs plain ({cfg.robust_loss}, esm {vkw['esm']}, {sampling}): "
+              f"level {level} {H}x{W} {i0.shape[0]} pairs: max Gram diff / largest entry {rel:.3e}, "
+              f"nvalid equal {same_nv} [{card}]")
+        check(rel <= GRAM_RTOL, f"Gram rel diff {rel} > {GRAM_RTOL}")
+        check(same_nv and float(k[:, 6, 7].abs().sum()) == 0.0, "Gram valid counts or band slot differ")
     return worst
 
 
-def stop_values(fb, args, opts, H, W, sampling="bilinear"):
+def stop_values(fb, args, opts, H, W, sampling="bilinear", **loss_kw):
     """What each trust-region stopping test compares with its tolerance,
     per pair, after 0..opts.max_iterations iterations of the plain version
     with every test off: {option name: (iterations + 1, B) float64}. The
@@ -189,7 +422,7 @@ def stop_values(fb, args, opts, H, W, sampling="bilinear"):
     step tests read accepted steps only: NaN elsewhere and at iteration 0."""
     off = opts._replace(**TR_TESTS_OFF)
     runs = [
-        fb.fused_tr_level_batch_reference(*args, off._replace(max_iterations=n), H=H, W=W, sampling=sampling)
+        fb.fused_tr_level_batch_reference(*args, off._replace(max_iterations=n), H=H, W=W, sampling=sampling, **loss_kw)
         for n in range(opts.max_iterations + 1)
     ]
     state = torch.stack([r.state for r in runs]).double().cpu()
@@ -240,15 +473,45 @@ def early_exit_tolerance(values):
     return best[1], best[2]
 
 
-def compare_tr_results(k, p, what, strict, settled=None):
+def explain_valid_diff(fb, geom, intr, H, W, k, p, what):
+    """Trust-region kernel (k) and plain (p) results whose valid counts
+    differ: the pixels valid at one version's final state and not at the
+    other's, by the plain arithmetic at both states (warped_uv), must give
+    every pair's count difference exactly, and each must have its u or v on
+    the two sides of the in-bounds edge (0 <= u < W, 0 <= v < H), moved by
+    at most EDGE_SHIFT_PX between the states. Prints each such pixel."""
+    uk, vk, ok = warped_uv(fb, geom, k.state, intr, H, W, "bilinear")
+    up, vp, op = warped_uv(fb, geom, p.state, intr, H, W, "bilinear")
+    torch.cuda.synchronize()
+    explained = (ok.sum(dim=1) - op.sum(dim=1)).to(torch.float32)
+    for b, j in (ok != op).nonzero().tolist():
+        cu, cv = (float(c[b, j]) for c in (uk, vk))
+        pu, pv = (float(c[b, j]) for c in (up, vp))
+        u_edge = ((cu >= 0) != (pu >= 0)) or ((cu < W) != (pu < W))
+        v_edge = ((cv >= 0) != (pv >= 0)) or ((cv < H) != (pv < H))
+        shift = max(abs(cu - pu), abs(cv - pv))
+        print(f"{what}: pair {b} pixel (row {j // W}, col {j % W}) valid in the "
+              f"{'kernel' if bool(ok[b, j]) else 'plain version'} only: u kernel {cu:.7f} plain {pu:.7f}, "
+              f"v kernel {cv:.7f} plain {pv:.7f} ({W}x{H} edge crossed by {'u' if u_edge else ''}"
+              f"{'v' if v_edge else ''}, shift {shift:.3e} px)")
+        check((u_edge or v_edge) and shift <= EDGE_SHIFT_PX,
+              f"{what}: pixel {j} of pair {b} changes validity away from the in-bounds edge")
+    check(torch.equal(explained, k.num_valid - p.num_valid),
+          f"{what}: valid counts differ by {(k.num_valid - p.num_valid).tolist()}, the edge pixels "
+          f"account for {explained.tolist()}")
+
+
+def compare_tr_results(k, p, what, strict, settled=None, explain_valid=None):
     """Trust-region kernel vs plain results of B pairs. Always: states
     within STATE_ATOL, and costs within COST_RTOL on the pairs whose
     iteration counts agree. settled, a (B,) mask of the pairs short of
     convergence: max|J^T r| within GNORM_RTOL there. strict: iteration and
-    valid counts equal too. Otherwise (the shipped tolerances, where
-    |dcost| <= ftol cost on float32 sums taken in different orders can flip
-    by one iteration) the differing pairs are counted and printed. Returns
-    (max state diff, pairs whose iterations differ)."""
+    valid counts equal too, where explain_valid(k, p), when given, may
+    account for differing valid counts instead. Otherwise (the shipped
+    tolerances, where |dcost| <= ftol cost on float32 sums taken in
+    different orders can flip by one iteration) the differing pairs are
+    counted and printed. Returns (max state diff, pairs whose iterations
+    differ)."""
     B = k.state.shape[0]
     err = float((k.state - p.state).abs().max())
     same_its = k.iterations == p.iterations
@@ -272,11 +535,15 @@ def compare_tr_results(k, p, what, strict, settled=None):
     check(cost_rel <= COST_RTOL, f"{what}: cost rel diff {cost_rel} > {COST_RTOL}")
     check(gnorm_rel <= GNORM_RTOL, f"{what}: max|J^T r| rel diff {gnorm_rel} > {GNORM_RTOL}")
     if strict:
-        check(n_its == 0 and n_nv == 0, f"{what}: iterations or valid counts differ")
+        check(n_its == 0, f"{what}: iterations differ")
+        if n_nv and explain_valid is not None:
+            explain_valid(k, p)
+        else:
+            check(n_nv == 0, f"{what}: valid counts differ")
     return err, n_its
 
 
-def compare_tr_levels(fb, packs, intr, cfg, card):
+def compare_tr_levels(fb, packs, intr, cfg, card, explain_edge=False):
     """Trust-region kernel vs plain version at every level of cfg, chained
     coarse to fine from the zero state: every case of a level starts at the
     kernel's states of the level before under cfg's own tolerances. The
@@ -290,9 +557,12 @@ def compare_tr_levels(fb, packs, intr, cfg, card):
         values it reads (early_exit_tolerance); both versions must stop
         where the plain version's values predict, and max|J^T r| is
         compared on the pairs stopped before the budget.
-    Returns the largest state difference."""
+    explain_edge: a strict case's valid counts may differ where
+    explain_valid_diff accounts for it. Returns the largest state
+    difference."""
     from phovo_tpu_torch.ops.pyramid import level_shape
 
+    loss_kw = dict(robust_loss=cfg.robust_loss, robust_delta=cfg.robust_delta)
     worst = 0.0
     init = None
     for level, (i0, geom, t_all) in sorted(packs.items(), reverse=True):
@@ -305,19 +575,22 @@ def compare_tr_levels(fb, packs, intr, cfg, card):
         cases = [("budget", args, opts._replace(**TR_TESTS_OFF), None), ("preset", args, opts, None)]
         early = opts._replace(max_iterations=EARLY_EXIT_ITERATIONS, **TR_TESTS_OFF)
         zero = args[:-1] + (torch.zeros_like(init),)
-        for name, values in stop_values(fb, zero, early, H, W).items():
+        for name, values in stop_values(fb, zero, early, H, W, **loss_kw).items():
             tol, stops = early_exit_tolerance(values)
             cases.append((f"{name} {tol:.6g} from zero", zero, early._replace(**{name: tol}), stops))
         for name, case_args, case_opts, stops in cases:
-            k = fb.fused_tr_level_batch(*case_args, case_opts, H=H, W=W)
-            p = fb.fused_tr_level_batch_reference(*case_args, case_opts, H=H, W=W)
+            k = fb.fused_tr_level_batch(*case_args, case_opts, H=H, W=W, **loss_kw)
+            p = fb.fused_tr_level_batch_reference(*case_args, case_opts, H=H, W=W, **loss_kw)
             torch.cuda.synchronize()
             what = (
-                f"trust-region kernel vs plain: level {level} {H}x{W} {B} pairs, "
+                f"trust-region kernel vs plain{'' if cfg.robust_loss == 'none' else ' ' + cfg.robust_loss}: "
+                f"level {level} {H}x{W} {B} pairs, "
                 f"{name}, iterations {k.iterations.tolist()} [{card}]"
             )
             settled = None if stops is None else stops < EARLY_EXIT_ITERATIONS
-            err, _ = compare_tr_results(k, p, what, strict=name != "preset", settled=settled)
+            explain = functools.partial(explain_valid_diff, fb, geom, args[3], H, W, what=what) if explain_edge else None
+            err, _ = compare_tr_results(k, p, what, strict=name != "preset", settled=settled,
+                                        explain_valid=explain)
             worst = max(worst, err)
             if stops is not None:
                 check(p.iterations.cpu().tolist() == stops.tolist(),
@@ -337,6 +610,256 @@ def trajectory_ate(se3, traj, states, gts, ts):
         traj.Trajectory.from_poses(ts, np.tile(np.eye(4), (len(ts), 1, 1))), gt
     )["rmse"]
     return ate, still
+
+
+def phase_variants(fb, I9, D9, card):
+    """Phase 3b: each kernel's loss and Jacobian variants against its plain
+    version on 8 VGA pairs. Returns {kernel: (largest state or Gram
+    difference, the variants held)}."""
+    from phovo_tpu_torch.models.analytic import prep_frame_analytic
+    from phovo_tpu_torch.ops.camera import TUM_FR1
+    from phovo_tpu_torch.utils.config import config_from_dict
+
+    cfg_an = config_from_dict(ANALYTIC_PRESET)
+    # every level active: the 480x640 and 240x320 runs and the Gram checks
+    cfg_all = config_from_dict(dict(ANALYTIC_PRESET, max_iterations=[3] * 5))
+    gn_err = lin_err = 0.0
+    worst_cost_vga = {}
+    worst_cost_3 = {"nearest": {}, "bilinear": {}}
+    for variant in GN_VARIANTS:
+        cfg = variant_config(cfg_an, variant)
+        packs = pair_packs(prep_frame_analytic(I9, D9, TUM_FR1, cfg))
+        for sampling in ("nearest", "bilinear"):
+            iterations = {
+                level: n if sampling == "bilinear" else min(n, NEAREST_ITERATIONS)
+                for level, n in enumerate(cfg.max_iterations)
+            }
+            gn_err = max(gn_err, compare_levels(fb, packs, TUM_FR1, iterations, sampling, card, cfg)[0])
+        del packs
+        cfg = variant_config(cfg_all, variant)
+        packs = pair_packs(prep_frame_analytic(I9, D9, TUM_FR1, cfg))
+        fine = {level: packs[level] for level in (0, 1)}
+        for sampling in ("nearest", "bilinear"):
+            # 3 iterations: bilinear costs within COST_RTOL, nearest ones
+            # split into the order of the sums and sample flips
+            bilinear = sampling == "bilinear"
+            err, cost = compare_levels(fb, fine, TUM_FR1, {0: 3, 1: 3}, sampling, card, cfg,
+                                       check_cost=bilinear, attribute=not bilinear)
+            gn_err = max(gn_err, err)
+            worst_cost_3[sampling][variant] = cost
+            # one iteration: both versions' cost is the weighted sum at the
+            # same state, so it differs by the order of the sums alone
+            # (later, nearest samples flip with ulp-level state changes)
+            cost = compare_levels(fb, fine, TUM_FR1, {0: 1, 1: 1}, sampling, card, cfg, check_cost=True)[1]
+            worst_cost_vga[variant] = max(worst_cost_vga.get(variant, 0.0), cost)
+        for sampling in ("nearest", "bilinear") if variant in ("none", "esm") else ("bilinear",):
+            lin_err = max(lin_err, compare_lin(fb, packs, TUM_FR1, cfg, sampling, card))
+        del packs, fine
+    packs = pair_packs(prep_frame_analytic(I9, D9, TUM_FR1, cfg_all))
+    for sampling in ("nearest", "bilinear"):
+        lin_err = max(lin_err, compare_lin(fb, packs, TUM_FR1, cfg_all, sampling, card))
+    del packs
+    print("kernel vs plain weighted-cost rel diff at 480x640 and 240x320, one linearization: "
+          + ", ".join(f"{v} {c:.3e}" for v, c in worst_cost_vga.items()) + f" [{card}]")
+    for sampling, costs in worst_cost_3.items():
+        print(f"kernel vs plain weighted-cost rel diff at 480x640 and 240x320, 3 iterations, {sampling}"
+              f"{' (held to the bound)' if sampling == 'bilinear' else ' (attributed above)'}: "
+              + ", ".join(f"{v} {c:.3e}" for v, c in costs.items()) + f" [{card}]")
+
+    cfg_tr = config_from_dict(CERES_PRESET)
+    tr_packs = pair_packs(prep_frame_analytic(I9, D9, TUM_FR1, cfg_tr))
+    tr_err = 0.0
+    for loss in ("huber", "cauchy", "tukey"):
+        tr_err = max(tr_err, compare_tr_levels(fb, tr_packs, TUM_FR1, variant_config(cfg_tr, loss), card,
+                                               explain_edge=True))
+    del tr_packs
+    return {
+        "fused_gn_level_batch": (gn_err, ["none", *GN_VARIANTS]),
+        "fused_tr_level_batch": (tr_err, ["none", "huber", "cauchy", "tukey"]),
+        "fused_lin": (lin_err, ["none", *GN_VARIANTS]),
+    }
+
+
+def phase_analytic_api(fb, I8, D16, card):
+    """Phase 6b: the per-pair analytic object API and the warm-started
+    chain, one GN launch per pair per active level, each against its plain
+    version; one 480x640 pair of config_only_level_0_analytic. Returns
+    (launches of the per-pair run, largest state difference)."""
+    from phovo_tpu_torch.models import analytic
+    from phovo_tpu_torch.ops import fused as fused_ops
+    from phovo_tpu_torch.ops.camera import TUM_FR1
+    from phovo_tpu_torch.utils.config import config_from_dict
+
+    dev = torch.device("cuda", 0)
+    cfg_an = config_from_dict(ANALYTIC_PRESET)
+    active = sum(1 for n in cfg_an.max_iterations if n > 0)
+    n = N_API_PAIRS + 1
+    depth_m = [torch.from_numpy(D16[k]).to(dev).to(torch.float32) * float(np.float32(DEPTH_SCALE)) for k in range(n)]
+    Iapi, Dapi = torch.from_numpy(I8[:n]).to(dev), torch.stack(depth_m)
+    K = [[TUM_FR1.fx, 0, TUM_FR1.cx], [0, TUM_FR1.fy, TUM_FR1.cy], [0, 0, 1]]
+
+    def per_pair(cfg, pairs):
+        vo = analytic.PhotoconsistencyOdometryAnalytic(cfg, device=dev)
+        vo.set_intrinsic_matrix(K)
+        out = []
+        for k in pairs:
+            vo.set_source_frame(I8[k], depth_m[k])
+            vo.set_target_frame(I8[k + 1], depth_m[k + 1])
+            vo.set_initial_state_vector(np.zeros(6))
+            out.append(vo.optimize())
+        torch.cuda.synchronize()
+        return type(out[0])(*(torch.stack(x) for x in zip(*out)))
+
+    def plain(fn):
+        with mock.patch.object(fused_ops, "fused_gn_level_batch", fb.fused_gn_level_batch_reference):
+            return fn()
+
+    lm = analytic.align_sequence(Iapi, Dapi, TUM_FR1, cfg_an)
+    reset_counts(fb)
+    kern = per_pair(cfg_an, range(N_API_PAIRS))
+    launches, other = fb.LAUNCHES, fb.TR_LAUNCHES + fb.LIN_LAUNCHES
+    reset_counts(fb)
+    ref = plain(lambda: per_pair(cfg_an, range(N_API_PAIRS)))
+    check(fb.LAUNCHES == 0, "the plain per-pair run launched the kernel")
+    err = float((kern.state - ref.state).abs().max())
+    lm_err = float((kern.state - lm.state).abs().max())
+    print(f"analytic per-pair API: {N_API_PAIRS} pairs, GN launches {launches} (expected {active} x "
+          f"{N_API_PAIRS}), other launches {other}, iterations {kern.iterations.tolist()}, max|state diff| "
+          f"kernel vs plain {err:.3e}, vs level-major {lm_err:.3e} [{card}]")
+    check(launches == active * N_API_PAIRS and other == 0, "optimize() did not launch the GN kernel once per level per pair")
+    check(err <= STATE_ATOL and lm_err <= STATE_ATOL, "per-pair analytic state diff")
+    check(torch.equal(kern.iterations, ref.iterations) and torch.equal(kern.num_valid, ref.num_valid),
+          "per-pair analytic iterations or valid counts differ")
+    worst = max(err, lm_err)
+
+    reset_counts(fb)
+    warm = analytic.align_sequence(Iapi, Dapi, TUM_FR1, cfg_an, warm_start=True)
+    torch.cuda.synchronize()
+    warm_launches = fb.LAUNCHES
+    warm_plain = plain(lambda: analytic.align_sequence(Iapi, Dapi, TUM_FR1, cfg_an, warm_start=True))
+    err = float((warm.state - warm_plain.state).abs().max())
+    print(f"analytic warm start: {N_API_PAIRS} pairs, GN launches {warm_launches}, max|state diff| kernel vs "
+          f"plain {err:.3e}, max|state - zero-init state| {float((warm.state - lm.state).abs().max()):.3e} [{card}]")
+    check(warm_launches == active * N_API_PAIRS, "the analytic warm chain did not launch once per level per pair")
+    check(fb.LAUNCHES == warm_launches, "the plain warm run launched the kernel")
+    check(err <= STATE_ATOL and torch.equal(warm.iterations, warm_plain.iterations), "analytic warm chain differs from plain")
+    worst = max(worst, err)
+
+    # config_only_level_0_analytic: one 480x640 level, up to 5000 iterations
+    cfg0 = config_from_dict(LEVEL0_PRESET)
+    reset_counts(fb)
+    t0 = time.perf_counter()
+    one = per_pair(cfg0, [0])
+    wall = time.perf_counter() - t0
+    its = int(one.iterations[0, 0])
+    print(f"config_only_level_0_analytic: one {SHAPE[0]}x{SHAPE[1]} pair, GN launches {fb.LAUNCHES}, iterations {its}, "
+          f"{wall:.3f} s, final ||J^T r|| {float(one.gradient_norm[0, 0]):.3f} [{card}]")
+    check(fb.LAUNCHES == 1 and bool(torch.isfinite(one.state).all()), "the level-0 preset did not run once through the kernel")
+    if its <= NEAREST_ITERATIONS:
+        ref0 = plain(lambda: per_pair(cfg0, [0]))
+        err = float((one.state - ref0.state).abs().max())
+        print(f"config_only_level_0_analytic: kernel vs plain max|state diff| {err:.3e}")
+        check(err <= STATE_ATOL and torch.equal(one.iterations, ref0.iterations), "level-0 preset differs from plain")
+        worst = max(worst, err)
+    else:
+        print(f"config_only_level_0_analytic: not compared with the plain version past "
+              f"{NEAREST_ITERATIONS} nearest iterations (chaotic; phase 3b holds 480x640 at 3)")
+    return launches, worst
+
+
+def occluded_pair():
+    """A VGA pair with tests/test_robust.py's occluder scaled to VGA."""
+    from phovo_tpu_torch.ops.camera import TUM_FR1
+    from phovo_tpu_torch.utils.synthetic import make_pair
+
+    H, W = SHAPE
+    I0, D0, I1, D1, gt = make_pair(TUM_FR1, SHAPE)
+    I1 = I1.copy()
+    r0, c0 = round(10 * H / 96), round(20 * W / 128)
+    I1[r0:r0 + int(H * 0.22), c0:c0 + int(W * 0.44)] = 0.95
+    return I0, D0, I1, D1, gt
+
+
+def phase_occlusion(fb, card):
+    """Phase 6c: the robust losses on an occluded VGA pair through the
+    per-pair object API (tests/test_robust.py's schedule: 2 levels,
+    bilinear, 10 and 15 iterations)."""
+    from phovo_tpu_torch.models import analytic
+    from phovo_tpu_torch.ops.camera import TUM_FR1
+    from phovo_tpu_torch.utils.config import PhovoConfig
+
+    dev = torch.device("cuda", 0)
+    I0, D0, I1, D1, gt = occluded_pair()
+
+    def error(loss="none", delta=0.1):
+        cfg = PhovoConfig(
+            num_levels=2, blur_filter_sizes=(0, 0), gradient_scales=(0.0625, 0.0625),
+            max_iterations=(10, 15), lambda_steps=(1.0, 1.0), min_gradient_norms=(1e-10, 1e-10),
+            sampling="bilinear", robust_loss=loss, robust_delta=delta,
+        )
+        vo = analytic.PhotoconsistencyOdometryAnalytic(cfg, device=dev)
+        vo.set_intrinsic_matrix([[TUM_FR1.fx, 0, TUM_FR1.cx], [0, TUM_FR1.fy, TUM_FR1.cy], [0, 0, 1]])
+        vo.set_source_frame((I0 * 255).astype(np.uint8), D0)
+        vo.set_target_frame((I1 * 255).astype(np.uint8), D1)
+        return float(np.abs(vo.optimize().state.cpu().numpy() - gt).max())
+
+    reset_counts(fb)
+    err_plain = error()
+    check(fb.LAUNCHES == 2, "the occluded pair did not run through the GN kernel")
+    print(f"occluded VGA pair: 'none' max|state - truth| {err_plain:.4f} (must exceed 0.2) [{card}]")
+    check(err_plain > 0.2, "the quadratic cost did not fail on the occluded pair")
+    for loss, delta, bound, cut in OCCLUSION_CASES:
+        err = error(loss, delta)
+        print(f"occluded VGA pair: {loss} (delta {delta}) max|state - truth| {err:.4f} "
+              f"(bounds {err_plain / cut:.4f} and {bound}) [{card}]")
+        check(err < err_plain / cut and err < bound, f"{loss} did not resist the occluder")
+
+
+def phase_linearizer(fb, I8, D16, card):
+    """Phase 6d: one VGA pair through the per-linearization API
+    (gauss_newton_level over make_fused_linearizer, one launch of the
+    one-linearization kernel per iteration), huber with ESM, against
+    align_analytic on the GN kernel. Returns its launches."""
+    from phovo_tpu_torch.models import analytic
+    from phovo_tpu_torch.ops import fused as fused_ops
+    from phovo_tpu_torch.ops import pyramid as pyr
+    from phovo_tpu_torch.ops.camera import TUM_FR1
+    from phovo_tpu_torch.solvers.gauss_newton import gauss_newton_level
+    from phovo_tpu_torch.utils.config import config_from_dict
+
+    dev = torch.device("cuda", 0)
+    cfg = variant_config(variant_config(config_from_dict(ANALYTIC_PRESET), "huber"), "esm")
+    I = torch.from_numpy(I8[:2]).to(dev).to(torch.float32) * (1.0 / 255.0)
+    D = torch.from_numpy(D16[:2]).to(dev).to(torch.float32) * float(np.float32(DEPTH_SCALE))
+    L, scales = cfg.num_levels, cfg.gradient_scales
+    i0, d0, i1 = pyr.build_pyramid(I[0], L), pyr.build_pyramid(D[0], L), pyr.build_pyramid(I[1], L)
+    gx0, gy0 = pyr.build_gradient_pyramid(i0, scales)
+    gx1, gy1 = pyr.build_gradient_pyramid(i1, scales)
+    reset_counts(fb)
+    state, its = torch.zeros(6, device=dev), []
+    for level in range(L - 1, -1, -1):
+        if cfg.max_iterations[level] <= 0:
+            continue
+        linearize = fused_ops.make_fused_linearizer(
+            i0[level], d0[level], fused_ops.pack_target(i1[level], gx1[level], gy1[level]),
+            TUM_FR1.at_level(level), cfg.min_depth, cfg.max_depth, cfg.sampling,
+            cfg.robust_loss, cfg.robust_delta, (gx0[level], gy0[level]),
+        )
+        res = gauss_newton_level(linearize, state, cfg.max_iterations[level], cfg.min_gradient_norms[level],
+                                 cfg.lambda_steps[level])
+        state = res.state
+        its.append(res.iterations)
+    torch.cuda.synchronize()
+    launches, other = fb.LIN_LAUNCHES, fb.LAUNCHES + fb.TR_LAUNCHES
+    ref = analytic.align_analytic(I[0], D[0], I[1], D[1], TUM_FR1, torch.zeros(6, device=dev), cfg)
+    err = float((state - ref.state).abs().max())
+    print(f"per-linearization API (huber, ESM): one VGA pair, one-linearization launches {launches} "
+          f"(iterations {its}), other launches {other}, max|state diff| vs align_analytic {err:.3e} [{card}]")
+    check(launches == sum(its) and launches > 0 and other == 0, "the linearizer path did not launch once per iteration")
+    check(err <= STATE_ATOL, f"linearizer path vs align_analytic state diff {err}")
+    ref_its = [int(ref.iterations[lv]) for lv in range(L - 1, -1, -1) if cfg.max_iterations[lv] > 0]
+    check(ref_its == its, f"iteration counts {its} differ from align_analytic's {ref_its}")
+    return launches
 
 
 def main() -> int:
@@ -385,10 +908,13 @@ def main() -> int:
             level: n if sampling == "bilinear" else min(n, NEAREST_ITERATIONS)
             for level, n in enumerate(cfg_fixed.max_iterations)
         }
-        max_err = max(max_err, compare_levels(fb, pair_packs(prep), TUM_FR1, iterations, sampling, card))
+        max_err = max(max_err, compare_levels(fb, pair_packs(prep), TUM_FR1, iterations, sampling, card)[0])
     tr_packs = pair_packs(prep_frame_analytic(I9, D9, TUM_FR1, cfg_tr))
     tr_err = compare_tr_levels(fb, tr_packs, TUM_FR1, cfg_tr, card)
     del prep, tr_packs
+
+    # 3b. the loss and Jacobian variants vs plain versions
+    variants = phase_variants(fb, I9, D9, card)
 
     # 4. the analytic main path: 257 frames through align_sequence_chunk
     t0 = time.perf_counter()
@@ -503,6 +1029,12 @@ def main() -> int:
     )
     tr_err = max(tr_err, err)
 
+    # 6b-6d. the per-pair analytic API, the occluded pair, the
+    # per-linearization API
+    an_launches, an_err = phase_analytic_api(fb, I8, D16, card)
+    phase_occlusion(fb, card)
+    lin_launches = phase_linearizer(fb, I8, D16, card)
+
     # 7. timing, device-resident frames: the bench.py workload
     I0, D0, I1, D1, _ = make_pair(TUM_FR1, SHAPE)
     Is = torch.from_numpy(np.stack([I0, I1] * ((N_FRAMES + 1) // 2))[:N_FRAMES]).to(dev)
@@ -574,16 +1106,53 @@ def main() -> int:
     print(f"per-pair route: align_autodiff {ms_pair:.3f} ms a VGA pair; its 480x640 level "
           f"(B = 1, one SM) {ms_one:.3f} ms [{card}]")
 
+    # 7b. this slice's paths: the per-pair analytic route, the analytic
+    # chain with each variant, the ceres chain with huber, the
+    # one-linearization kernel at 480x640
+    cfg_an = config_from_dict(ANALYTIC_PRESET)
+    zero6 = torch.zeros(6, device=dev)
+    ms_an = cuda_ms(lambda: analytic.align_analytic(Is[0], Ds[0], Is[1], Ds[1], TUM_FR1, zero6, cfg_an), REPEATS)
+    print(f"per-pair analytic route: align_analytic {ms_an:.3f} ms a VGA pair (analytic preset, "
+          f"3 launches at B = 1) [{card}]")
+    for variant in ("none", "huber", "tdist", "esm"):
+        cfg = variant_config(cfg_ee, variant)
+        ms = cuda_ms(lambda: align_sequence(Is, Ds, TUM_FR1, cfg), REPEATS)
+        print(f"analytic chain {variant}, early exit at 300: {1e3 * n_pairs / ms:.1f} pairs/s "
+              f"({ms:.3f} ms / {n_pairs} pairs) [{card}]")
+    cfg = variant_config(cfg_tr, "huber")
+    ms = cuda_ms(lambda: autodiff.align_sequence_autodiff(Is, Ds, TUM_FR1, cfg), 3)
+    print(f"ceres chain huber: {1e3 * n_pairs / ms:.1f} pairs/s ({ms:.3f} ms / {n_pairs} pairs) [{card}]")
+    gn1 = (*one, TUM_FR1, torch.zeros((1, 6), device=dev), NEAREST_ITERATIONS, 0.0, 1.0)
+    gn1_kw = dict(H=SHAPE[0], W=SHAPE[1], sampling="nearest")
+    p1 = cuda_ms(lambda: fb.fused_gn_level_batch_reference(*gn1, **gn1_kw), 3)
+    k1 = cuda_ms(lambda: fb.fused_gn_level_batch(*gn1, **gn1_kw), REPEATS)
+    k2 = cuda_ms(lambda: fb.fused_gn_level_batch(*gn1, **gn1_kw), REPEATS)
+    p2 = cuda_ms(lambda: fb.fused_gn_level_batch_reference(*gn1, **gn1_kw), 3)
+    print(f"layer GN level kernel at B = 1 (the per-pair level): {SHAPE[0]}x{SHAPE[1]}, {NEAREST_ITERATIONS} nearest "
+          f"iterations, one SM: kernel {(k1 + k2) / 2:.3f} ms ({k1:.3f}, {k2:.3f}), plain "
+          f"{(p1 + p2) / 2:.3f} ms ({p1:.3f}, {p2:.3f}) [{card}]")
+    lin = (*one, TUM_FR1, torch.full((1, 6), 1e-3, device=dev))
+    lin_kw = dict(H=SHAPE[0], W=SHAPE[1], sampling="bilinear")
+    p1 = cuda_ms(lambda: fb.fused_lin_batch_reference(*lin, **lin_kw), REPEATS)
+    k1 = cuda_ms(lambda: fb.fused_lin_batch(*lin, **lin_kw), REPEATS)
+    k2 = cuda_ms(lambda: fb.fused_lin_batch(*lin, **lin_kw), REPEATS)
+    p2 = cuda_ms(lambda: fb.fused_lin_batch_reference(*lin, **lin_kw), REPEATS)
+    lin_ms, lin_plain_ms = (k1 + k2) / 2, (p1 + p2) / 2
+    print(f"layer one-linearization kernel: {SHAPE[0]}x{SHAPE[1]}, B = 1 (one SM): kernel {lin_ms:.3f} ms "
+          f"({k1:.3f}, {k2:.3f}), plain {lin_plain_ms:.3f} ms ({p1:.3f}, {p2:.3f}) [{card}]")
+
     record = {"kernels": [
         {
             "name": "fused_gn_level_batch",
             "route": "cuda",
             "source": "phovo_tpu_torch/csrc/fused_gn_batch.cu",
-            "replaces": "phovo_tpu/ops/fused_batch.py:607",
+            "replaces": "phovo_tpu/ops/fused_batch.py:607 and phovo_tpu/ops/fused.py:1103",
             "launches": launches,
-            "max_abs_err": max_err,
+            "max_abs_err": max(max_err, an_err, variants["fused_gn_level_batch"][0]),
             "ms": kernel_ms,
             "plain_ms": plain_ms,
+            "variants": variants["fused_gn_level_batch"][1],
+            "per_pair_launches": an_launches,
         },
         {
             "name": "fused_tr_level_batch",
@@ -591,9 +1160,21 @@ def main() -> int:
             "source": "phovo_tpu_torch/csrc/fused_tr_batch.cu",
             "replaces": "phovo_tpu/ops/fused_batch.py:922 and phovo_tpu/ops/fused.py:1011",
             "launches": tr_launches,
-            "max_abs_err": tr_err,
+            "max_abs_err": max(tr_err, variants["fused_tr_level_batch"][0]),
             "ms": tr_kernel_ms,
             "plain_ms": tr_plain_ms,
+            "variants": variants["fused_tr_level_batch"][1],
+        },
+        {
+            "name": "fused_lin",
+            "route": "cuda",
+            "source": "phovo_tpu_torch/csrc/fused_lin.cu",
+            "replaces": "phovo_tpu/ops/fused.py:735",
+            "launches": lin_launches,
+            "max_abs_err": variants["fused_lin"][0],
+            "ms": lin_ms,
+            "plain_ms": lin_plain_ms,
+            "variants": variants["fused_lin"][1],
         },
     ]}
     print(json.dumps(record))

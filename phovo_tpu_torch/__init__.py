@@ -6,14 +6,16 @@ NVIDIA H100. The JAX package phovo_tpu beside it is the reference this
 package is tested against; this one imports torch and numpy and never jax.
 
 Layout mirrors phovo_tpu:
-  ops/      SE(3), camera, pyramids, warping, residuals, the level-kernel
-            wrapper (ops/fused_batch.py) and its nvcc build (ops/_build.py)
+  ops/      SE(3), camera, pyramids, warping, residuals, robust weights,
+            the kernel wrappers (ops/fused_batch.py, ops/fused.py) and
+            their nvcc build (ops/_build.py)
   csrc/     the hand-written CUDA kernels
   solvers/  the exact per-pair Gauss-Newton and trust-region solvers
-  models/   the analytic frame chain (align_sequence, align_sequence_chunk)
-            and the trust-region ("ceres") backend (align_autodiff,
-            align_sequence_autodiff, align_sequence_chunk_autodiff,
-            PhotoconsistencyOdometryAutodiff)
+  models/   the analytic Gauss-Newton backend (align_analytic,
+            PhotoconsistencyOdometryAnalytic, align_sequence,
+            align_sequence_chunk) and the trust-region ("ceres") backend
+            (align_autodiff, align_sequence_autodiff,
+            align_sequence_chunk_autodiff, PhotoconsistencyOdometryAutodiff)
   utils/    config schedule and YAML presets, synthetic frames,
             trajectories and ATE
 """
@@ -32,7 +34,12 @@ _torch.backends.cuda.matmul.allow_tf32 = False
 from phovo_tpu_torch.ops import camera, fused_batch, pyramid, residuals, se3, warp  # noqa: E402,F401
 from phovo_tpu_torch.utils.config import PhovoConfig, load_config  # noqa: E402,F401
 from phovo_tpu_torch.models.base import AlignmentResult  # noqa: E402,F401
-from phovo_tpu_torch.models.analytic import align_sequence, align_sequence_chunk  # noqa: E402,F401
+from phovo_tpu_torch.models.analytic import (  # noqa: E402,F401
+    PhotoconsistencyOdometryAnalytic,
+    align_analytic,
+    align_sequence,
+    align_sequence_chunk,
+)
 from phovo_tpu_torch.models.autodiff import (  # noqa: E402,F401
     PhotoconsistencyOdometryAutodiff,
     align_autodiff,

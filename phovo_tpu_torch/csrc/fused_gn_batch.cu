@@ -1,9 +1,18 @@
-// One whole Gauss-Newton pyramid level for B independent frame pairs.
+// One whole Gauss-Newton pyramid level for B independent frame pairs (K-GN).
 //
-// Replaces the TPU kernel phovo_tpu/ops/fused_batch.py::_fused_gn_batch_kernel
-// (linearization _batch_linearize, solve phovo_tpu/ops/fused.py::_chol_solve6)
-// in its photometric form: nearest or bilinear sampling, no robust loss,
-// target gradient sampled at the warped point, one source per pair.
+// Replaces two TPU kernels, which compute the same per-pair level:
+//   phovo_tpu/ops/fused_batch.py::_fused_gn_batch_kernel (B pairs, the
+//     level-major sequence; linearization _batch_linearize, solve
+//     phovo_tpu/ops/fused.py::_chol_solve6), and
+//   phovo_tpu/ops/fused.py::_fused_gn_kernel with _run_gn_loop (one pair,
+//     the per-pair aligner): here that is this kernel launched with B = 1.
+// Photometric, one source per pair, nearest or bilinear sampling, the
+// target gradient at the warped point or averaged with the source gradient
+// (ESM, six geometry rows), and any robust loss as IRLS weights. For the
+// Student-t loss ('tdist') the scale sigma is per pair: it comes in, runs
+// `tdist_burnin` scale-only passes at the initial state, is re-estimated
+// after every linearization from its weighted cost and count
+// (phovo_tpu/ops/fused.py:865-879), and goes out.
 // It computes what the TPU kernel computes, not its block layout: the TPU
 // stacks 8-32 pairs on the sublane axis and samples through one-hot MXU
 // matmuls against a banded row window; here the target is read by direct
@@ -27,8 +36,9 @@
 //
 // The per-pixel code, the block reduction and the solve live in
 // phovo_linearize.cuh, shared with the trust-region kernel
-// (fused_tr_batch.cu); their arithmetic order follows
-// phovo_tpu_torch/ops/fused_batch.py::_linearize term by term.
+// (fused_tr_batch.cu) and the one-linearization kernel (fused_lin.cu);
+// their arithmetic order follows phovo_tpu_torch/ops/fused_batch.py::
+// _pixel_columns term by term.
 
 #include "phovo_linearize.cuh"
 
@@ -36,30 +46,33 @@ namespace {
 
 using namespace phovo;
 
-template <bool kBilinear>
+template <bool kBilinear, int kLoss, bool kEsm>
 __global__ void __launch_bounds__(kThreads)
 fused_gn_batch_kernel(const float* __restrict__ i0_all,     // (B, N)
-                      const float* __restrict__ geom_all,   // (B, 4, N)
+                      const float* __restrict__ geom_all,   // (B, 4|6, N)
                       const float* __restrict__ t_all,      // (B, 3, H, W)
                       const float* __restrict__ init_states,  // (B, 6)
+                      const float* __restrict__ scale_in,   // (B,) delta or sigma
                       float* __restrict__ states_out,       // (B, 6)
-                      float* __restrict__ diag_out,         // (B, 5)
+                      float* __restrict__ diag_out,         // (B, 6)
                       int H, int W, float fx, float fy, float cx, float cy,
                       int max_iterations, float min_gradient_norm,
-                      float lambda_step) {
+                      float lambda_step, int tdist_burnin) {
+  constexpr int kRows = kEsm ? 6 : 4;
   const int pair = blockIdx.x;
   const int tid = threadIdx.x;
   const int N = H * W;
   const float* i0 = i0_all + static_cast<size_t>(pair) * N;
-  const float* geom = geom_all + static_cast<size_t>(pair) * 4 * N;
+  const float* geom = geom_all + static_cast<size_t>(pair) * kRows * N;
   const float* tgt = t_all + static_cast<size_t>(pair) * 3 * N;
 
   __shared__ Terms terms;
   __shared__ float state[6];
   __shared__ float partial[kWarps][kSums];
   __shared__ float total[kSums];
-  // it, gnorm, cost, nvalid of the pair (fused_batch.py:659-686)
-  __shared__ float it, gnorm, cost, nvalid;
+  // it, gnorm, cost, nvalid of the pair (fused_batch.py:659-686), and the
+  // loss's scale (the Student-t sigma, carried; otherwise robust_delta)
+  __shared__ float it, gnorm, cost, nvalid, delta;
   __shared__ int active;
 
   if (tid == 0) {
@@ -68,14 +81,25 @@ fused_gn_batch_kernel(const float* __restrict__ i0_all,     // (B, N)
     gnorm = INFINITY;
     cost = 0.0f;
     nvalid = 0.0f;
+    delta = scale_in[pair];
     active = (it < static_cast<float>(max_iterations)) & (gnorm >= min_gradient_norm);
     make_terms(state, &terms);
   }
   __syncthreads();
 
+  if constexpr (kLoss == kTdist) {
+    // scale-only passes at the initial state (the first active level)
+    for (int b = 0; b < tdist_burnin && max_iterations > 0; ++b) {
+      linearize_block<kBilinear, kLoss, kEsm, kSums>(
+          terms, i0, geom, tgt, H, W, fx, fy, cx, cy, delta, partial, total);
+      if (tid == 0) delta = tdist_scale_update(total[27], total[28]);
+      __syncthreads();
+    }
+  }
+
   while (active) {
-    linearize_block<kBilinear>(terms, i0, geom, tgt, H, W, fx, fy, cx, cy,
-                               partial, total);
+    linearize_block<kBilinear, kLoss, kEsm, kSums>(
+        terms, i0, geom, tgt, H, W, fx, fy, cx, cy, delta, partial, total);
     if (tid == 0) {
       float A[6][6], b[6], x[6];
       unpack_jtj(total, A);
@@ -92,6 +116,7 @@ fused_gn_batch_kernel(const float* __restrict__ i0_all,     // (B, N)
       gnorm = sqrtf(g2);
       cost = total[27];
       nvalid = total[28];
+      if constexpr (kLoss == kTdist) delta = tdist_scale_update(cost, nvalid);
       active = (it < static_cast<float>(max_iterations)) & (gnorm >= min_gradient_norm);
       make_terms(state, &terms);
     }
@@ -100,33 +125,39 @@ fused_gn_batch_kernel(const float* __restrict__ i0_all,     // (B, N)
 
   if (tid == 0) {
     for (int k = 0; k < 6; ++k) states_out[pair * 6 + k] = state[k];
-    diag_out[pair * 5 + 0] = it;
-    diag_out[pair * 5 + 1] = isfinite(gnorm) ? gnorm : 0.0f;
-    diag_out[pair * 5 + 2] = cost;
-    diag_out[pair * 5 + 3] = nvalid;
-    diag_out[pair * 5 + 4] = 0.0f;
+    diag_out[pair * 6 + 0] = it;
+    diag_out[pair * 6 + 1] = isfinite(gnorm) ? gnorm : 0.0f;
+    diag_out[pair * 6 + 2] = cost;
+    diag_out[pair * 6 + 3] = nvalid;
+    diag_out[pair * 6 + 4] = 0.0f;
+    diag_out[pair * 6 + 5] = delta;
   }
 }
 
 }  // namespace
 
 // Launches the level kernel for B pairs on `stream` (a cudaStream_t); the
-// caller owns every buffer. Returns cudaGetLastError() after the launch.
+// caller owns every buffer. loss is a phovo::Loss, esm selects the six-row
+// geometry; scale_in holds each pair's loss scale (robust_delta, or the
+// Student-t sigma). diag_out rows are [it, ||J^T r||, cost, nvalid,
+// band_masked = 0, scale out]. Returns cudaGetLastError() after the launch,
+// or cudaErrorInvalidValue for a variant that does not exist.
 extern "C" int phovo_fused_gn_level_batch(
     const float* i0, const float* geom, const float* t_all,
-    const float* init_states, float* states_out, float* diag_out, int B, int H,
-    int W, int bilinear, float fx, float fy, float cx, float cy,
-    int max_iterations, float min_gradient_norm, float lambda_step,
+    const float* init_states, const float* scale_in, float* states_out,
+    float* diag_out, int B, int H, int W, int bilinear, int loss, int esm,
+    float fx, float fy, float cx, float cy, int max_iterations,
+    float min_gradient_norm, float lambda_step, int tdist_burnin,
     void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (bilinear) {
-    fused_gn_batch_kernel<true><<<B, kThreads, 0, s>>>(
-        i0, geom, t_all, init_states, states_out, diag_out, H, W, fx, fy, cx,
-        cy, max_iterations, min_gradient_norm, lambda_step);
-  } else {
-    fused_gn_batch_kernel<false><<<B, kThreads, 0, s>>>(
-        i0, geom, t_all, init_states, states_out, diag_out, H, W, fx, fy, cx,
-        cy, max_iterations, min_gradient_norm, lambda_step);
-  }
+  const bool known = dispatch_variant<kTdist, true>(
+      bilinear, loss, esm, [&](auto kb, auto kl, auto ke) {
+        fused_gn_batch_kernel<decltype(kb)::value, decltype(kl)::value,
+                              decltype(ke)::value><<<B, kThreads, 0, s>>>(
+            i0, geom, t_all, init_states, scale_in, states_out, diag_out, H,
+            W, fx, fy, cx, cy, max_iterations, min_gradient_norm, lambda_step,
+            tdist_burnin);
+      });
+  if (!known) return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(cudaGetLastError());
 }

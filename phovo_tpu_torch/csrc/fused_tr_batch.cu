@@ -14,7 +14,11 @@
 // and the function, gradient, parameter and radius termination tests.
 // Every option is a runtime float32 argument, as the TPU kernels bake them
 // in as float32 constants; sampling is bilinear or nearest, photometric,
-// no robust loss.
+// with the robust losses huber, cauchy and tukey as IRLS weights at a fixed
+// delta (phovo_tpu/ops/fused_batch.py:939-955): the cost is then the
+// weighted sum w r^2, and rho is a ratio of such costs, as in phovo_tpu.
+// The Student-t loss is refused: its scale changes the cost between
+// iterations, which breaks the accept/reject comparison.
 //
 // What bounds it on an H100: each LM iteration is one linearization (the
 // B1 per-pixel code, phovo_linearize.cuh) plus a serial 6x6 solve and a
@@ -48,14 +52,6 @@ struct TROptions {
   float min_relative_decrease;
 };
 
-__device__ __forceinline__ float nan_max(float a, float b) {
-  return isnan(a) ? a : (isnan(b) ? b : fmaxf(a, b));
-}
-
-__device__ __forceinline__ float nan_min(float a, float b) {
-  return isnan(a) ? a : (isnan(b) ? b : fminf(a, b));
-}
-
 // max |g_k| over the six gradient entries (NaN if any is NaN)
 __device__ __forceinline__ float max_abs6(const float* g) {
   float m = 0.0f;
@@ -63,7 +59,7 @@ __device__ __forceinline__ float max_abs6(const float* g) {
   return m;
 }
 
-template <bool kBilinear>
+template <bool kBilinear, int kLoss>
 __global__ void __launch_bounds__(kThreads)
 fused_tr_batch_kernel(const float* __restrict__ i0_all,     // (B, N)
                       const float* __restrict__ geom_all,   // (B, 4, N)
@@ -72,7 +68,7 @@ fused_tr_batch_kernel(const float* __restrict__ i0_all,     // (B, N)
                       float* __restrict__ states_out,       // (B, 6)
                       float* __restrict__ diag_out,         // (B, 6)
                       int H, int W, float fx, float fy, float cx, float cy,
-                      TROptions opts) {
+                      float delta, TROptions opts) {
   const int pair = blockIdx.x;
   const int tid = threadIdx.x;
   const int N = H * W;
@@ -96,8 +92,8 @@ fused_tr_batch_kernel(const float* __restrict__ i0_all,     // (B, N)
     make_terms(state, &terms);
   }
   __syncthreads();
-  linearize_block<kBilinear>(terms, i0, geom, tgt, H, W, fx, fy, cx, cy,
-                             partial, total);
+  linearize_block<kBilinear, kLoss, false, kSums>(
+      terms, i0, geom, tgt, H, W, fx, fy, cx, cy, delta, partial, total);
   if (tid == 0) {
     for (int k = 0; k < kSums; ++k) ne[k] = total[k];
     it = 0.0f;
@@ -130,8 +126,8 @@ fused_tr_batch_kernel(const float* __restrict__ i0_all,     // (B, N)
     }
     __syncthreads();
     // 3. linearize at the trial state
-    linearize_block<kBilinear>(terms, i0, geom, tgt, H, W, fx, fy, cx, cy,
-                               partial, total);
+    linearize_block<kBilinear, kLoss, false, kSums>(
+        terms, i0, geom, tgt, H, W, fx, fy, cx, cy, delta, partial, total);
     // 4-6. ratio test, radius rule, keep or drop the trial, termination
     if (tid == 0) {
       float A[6][6];
@@ -192,29 +188,29 @@ fused_tr_batch_kernel(const float* __restrict__ i0_all,     // (B, N)
 }  // namespace
 
 // Launches the trust-region level kernel for B pairs on `stream` (a
-// cudaStream_t); the caller owns every buffer. diag_out rows are [it,
-// max|J^T r|, 0.5 cost, nvalid, radius, band_masked = 0]. Returns
-// cudaGetLastError() after the launch.
+// cudaStream_t); the caller owns every buffer. loss is a phovo::Loss other
+// than kTdist, at scale delta. diag_out rows are [it, max|J^T r|, 0.5 cost,
+// nvalid, radius, band_masked = 0]. Returns cudaGetLastError() after the
+// launch, or cudaErrorInvalidValue for a variant that does not exist.
 extern "C" int phovo_fused_tr_level_batch(
     const float* i0, const float* geom, const float* t_all,
     const float* init_states, float* states_out, float* diag_out, int B, int H,
-    int W, int bilinear, float fx, float fy, float cx, float cy,
-    int max_iterations, float function_tolerance, float gradient_tolerance,
-    float parameter_tolerance, float initial_radius, float max_radius,
-    float min_radius, float min_relative_decrease, void* stream) {
+    int W, int bilinear, int loss, float delta, float fx, float fy, float cx,
+    float cy, int max_iterations, float function_tolerance,
+    float gradient_tolerance, float parameter_tolerance, float initial_radius,
+    float max_radius, float min_radius, float min_relative_decrease,
+    void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const TROptions opts{max_iterations,      function_tolerance,
                        gradient_tolerance,  parameter_tolerance,
                        initial_radius,      max_radius,
                        min_radius,          min_relative_decrease};
-  if (bilinear) {
-    fused_tr_batch_kernel<true><<<B, kThreads, 0, s>>>(
-        i0, geom, t_all, init_states, states_out, diag_out, H, W, fx, fy, cx,
-        cy, opts);
-  } else {
-    fused_tr_batch_kernel<false><<<B, kThreads, 0, s>>>(
-        i0, geom, t_all, init_states, states_out, diag_out, H, W, fx, fy, cx,
-        cy, opts);
-  }
+  const bool known = dispatch_variant<kTukey, false>(
+      bilinear, loss, 0, [&](auto kb, auto kl, auto) {
+        fused_tr_batch_kernel<decltype(kb)::value, decltype(kl)::value>
+            <<<B, kThreads, 0, s>>>(i0, geom, t_all, init_states, states_out,
+                                    diag_out, H, W, fx, fy, cx, cy, delta, opts);
+      });
+  if (!known) return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,18 +1,22 @@
 // Per-pixel device code shared by the level kernels (fused_gn_batch.cu,
-// fused_tr_batch.cu): the state's rotation terms, target sampling, one
-// pixel's residual and Jacobian row, the block reduction of the normal
-// equations and the 6x6 Cholesky solve.
+// fused_tr_batch.cu, fused_lin.cu): the state's rotation terms, target
+// sampling, one pixel's residual and Jacobian row with its robust (IRLS)
+// weight and ESM gradient, the block reduction of the normal equations, the
+// 6x6 Cholesky solve, and the host-side dispatch over the variants.
 //
-// Arithmetic order follows phovo_tpu_torch/ops/fused_batch.py::_linearize
-// term by term; build with -fmad=false so no multiply-add is contracted and
-// the per-pixel values equal the plain torch version's. Every function has
-// internal linkage, so each translation unit that includes this header gets
-// its own copy.
+// Arithmetic order follows phovo_tpu_torch/ops/fused_batch.py::
+// _pixel_columns and ops/robust.py term by term; build with -fmad=false and
+// IEEE division and square root (nvcc's defaults, no --use_fast_math) so no
+// multiply-add is contracted and the per-pixel values equal the plain torch
+// version's. Every function has internal linkage, so each translation unit
+// that includes this header gets its own copy.
 
 #pragma once
 
 #include <cuda_runtime.h>
 #include <math.h>
+
+#include <type_traits>
 
 namespace phovo {
 
@@ -20,6 +24,54 @@ constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 // 21 JtJ entries (upper triangle, row-major), 6 Jtr, cost, nvalid
 constexpr int kSums = 29;
+// kSums and the 6 sums J_i * valid: the whole 8x8 Gram of [J0..J5, r, valid]
+constexpr int kGramSums = 35;
+
+// Robust losses (ops/robust.py LOSSES, in its order), template parameters of
+// the per-pixel code: the loss-free kernels compile to the code they had
+// before the losses existed.
+enum Loss : int { kNone = 0, kHuber = 1, kCauchy = 2, kTukey = 3, kTdist = 4 };
+
+// Floor of the Student-t scale (ops/robust.py TDIST_MIN_SCALE).
+constexpr float kTdistMinScale = 1e-4f;
+
+// jnp.maximum / jnp.minimum: a NaN operand wins (fmaxf would drop it).
+static __device__ __forceinline__ float nan_max(float a, float b) {
+  return isnan(a) ? a : (isnan(b) ? b : fmaxf(a, b));
+}
+
+static __device__ __forceinline__ float nan_min(float a, float b) {
+  return isnan(a) ? a : (isnan(b) ? b : fminf(a, b));
+}
+
+// One fixed-point step of the Student-t scale from a linearization's
+// weighted cost sum w r^2 and valid count (ops/robust.py tdist_scale_update).
+static __device__ __forceinline__ float tdist_scale_update(float cost, float nvalid) {
+  return nan_max(sqrtf(cost / nan_max(nvalid, 1.0f)), kTdistMinScale);
+}
+
+// sqrt of the IRLS weight w(r) of one residual at scale delta (the loss's
+// delta, or the Student-t sigma), in ops/robust.py's order of operations.
+template <int kLoss>
+static __device__ __forceinline__ float sqrt_weight(float r, float delta) {
+  static_assert(kLoss != kNone, "loss 'none' has no weight");
+  if constexpr (kLoss == kHuber) {
+    return sqrtf(fminf(delta / fmaxf(fabsf(r), 1e-12f), 1.0f));
+  } else {
+    const float t = r / delta;
+    const float q = t * t;
+    if constexpr (kLoss == kCauchy) {
+      return sqrtf(1.0f / (1.0f + q));
+    } else if constexpr (kLoss == kTukey) {
+      const float c = fmaxf(1.0f - q, 0.0f);
+      return sqrtf(c * c);
+    } else {
+      // (nu + 1) / (nu + q), nu = 5, as torch evaluates a float over a
+      // tensor: the reciprocal, then the product
+      return sqrtf((1.0f / (5.0f + q)) * 6.0f);
+    }
+  }
+}
 
 // The state's ZYX rotation and the derivative rows of the Jacobian
 // (fused_batch.py:269-283), computed once per linearization by thread 0.
@@ -120,12 +172,15 @@ static __device__ __forceinline__ bool sample_target(const float* __restrict__ t
 }
 
 // Residual and the six Jacobian columns of one source pixel at the state
-// held in t, added into acc[kSums].
-template <bool kBilinear>
+// held in t, weighted by sqrt(w(r)) under kLoss (scale delta), added into
+// acc[kN]. kEsm averages the sampled target gradient with the source
+// gradient (sgx, sgy: geometry rows 4 and 5). kN == kGramSums also sums each
+// column times the valid flag (the Gram's last row).
+template <bool kBilinear, int kLoss, bool kEsm, int kN>
 static __device__ __forceinline__ void accumulate_pixel(
-    const Terms& t, float px, float py, float pz, float vd, float i0,
-    const float* __restrict__ tgt, int H, int W, float fx, float fy, float cx,
-    float cy, float* acc) {
+    const Terms& t, float px, float py, float pz, float vd, float sgx,
+    float sgy, float i0, const float* __restrict__ tgt, int H, int W,
+    float fx, float fy, float cx, float cy, float delta, float* acc) {
   const float tx = t.R[0] * px + t.R[1] * py + t.R[2] * pz + t.s0;
   const float ty = t.R[3] * px + t.R[4] * py + t.R[5] * pz + t.s1;
   const float tz = t.R[6] * px + t.R[7] * py + t.R[8] * pz + t.s2;
@@ -155,16 +210,29 @@ static __device__ __forceinline__ void accumulate_pixel(
 
   float i1w, gxw, gyw;
   const bool inb = sample_target<kBilinear>(tgt, H, W, u, v, &i1w, &gxw, &gyw);
+  if constexpr (kEsm) {
+    gxw = 0.5f * (gxw + sgx);
+    gyw = 0.5f * (gyw + sgy);
+  }
   const bool valid = (vd > 0.5f) & (tz > 0.0f) & inb;
   const float validf = valid ? 1.0f : 0.0f;
   const float resid = (i1w - i0) * validf;
+  // row scale s and weighted residual r_w (s = valid, r_w = r without a loss)
+  float s, rw;
+  if constexpr (kLoss == kNone) {
+    s = validf;
+    rw = resid;
+  } else {
+    s = validf * sqrt_weight<kLoss>(resid, delta);
+    rw = resid * s;
+  }
   float col[6];
-  col[0] = (gxw * a0) * validf;
-  col[1] = (gyw * b1) * validf;
-  col[2] = (gxw * a2 + gyw * b2) * validf;
-  col[3] = (gxw * Ju3 + gyw * Jv3) * validf;
-  col[4] = (gxw * Ju4 + gyw * Jv4) * validf;
-  col[5] = (gxw * Ju5 + gyw * Jv5) * validf;
+  col[0] = (gxw * a0) * s;
+  col[1] = (gyw * b1) * s;
+  col[2] = (gxw * a2 + gyw * b2) * s;
+  col[3] = (gxw * Ju3 + gyw * Jv3) * s;
+  col[4] = (gxw * Ju4 + gyw * Jv4) * s;
+  col[5] = (gxw * Ju5 + gyw * Jv5) * s;
   int k = 0;
 #pragma unroll
   for (int i = 0; i < 6; ++i) {
@@ -172,43 +240,53 @@ static __device__ __forceinline__ void accumulate_pixel(
     for (int j = i; j < 6; ++j) acc[k++] += col[i] * col[j];
   }
 #pragma unroll
-  for (int i = 0; i < 6; ++i) acc[21 + i] += col[i] * resid;
-  acc[27] += resid * resid;
+  for (int i = 0; i < 6; ++i) acc[21 + i] += col[i] * rw;
+  acc[27] += rw * rw;
   acc[28] += validf;
+  if constexpr (kN == kGramSums) {
+#pragma unroll
+    for (int i = 0; i < 6; ++i) acc[29 + i] += col[i] * validf;
+  }
 }
 
 // The normal equations of one pair at the state held in `terms`, summed
-// over the block into total[kSums]. Sums are per-thread in registers, then
-// warp shuffles, then a fixed-order pass over the warps in shared memory:
-// no atomics, so every run gives the same bits. Every thread of the block
-// calls it; it ends with a barrier, so total is ready for every thread.
-template <bool kBilinear>
+// over the block into total[kN]. geom holds kEsm ? 6 : 4 rows of N pixels
+// (ops/fused.py pack_geometry). Sums are per-thread in registers, then warp
+// shuffles, then a fixed-order pass over the warps in shared memory: no
+// atomics, so every run gives the same bits. Every thread of the block calls
+// it; it ends with a barrier, so total is ready for every thread.
+template <bool kBilinear, int kLoss, bool kEsm, int kN>
 static __device__ __forceinline__ void linearize_block(
     const Terms& terms, const float* __restrict__ i0,
     const float* __restrict__ geom, const float* __restrict__ tgt, int H,
-    int W, float fx, float fy, float cx, float cy,
-    float (*partial)[kSums], float* total) {
+    int W, float fx, float fy, float cx, float cy, float delta,
+    float (*partial)[kN], float* total) {
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
   const int N = H * W;
-  float acc[kSums];
+  float acc[kN];
 #pragma unroll
-  for (int k = 0; k < kSums; ++k) acc[k] = 0.0f;
+  for (int k = 0; k < kN; ++k) acc[k] = 0.0f;
   for (int p = tid; p < N; p += kThreads) {
-    accumulate_pixel<kBilinear>(terms, geom[p], geom[N + p], geom[2 * N + p],
-                                geom[3 * N + p], i0[p], tgt, H, W, fx, fy, cx,
-                                cy, acc);
+    float sgx = 0.0f, sgy = 0.0f;
+    if constexpr (kEsm) {
+      sgx = geom[4 * N + p];
+      sgy = geom[5 * N + p];
+    }
+    accumulate_pixel<kBilinear, kLoss, kEsm, kN>(
+        terms, geom[p], geom[N + p], geom[2 * N + p], geom[3 * N + p], sgx,
+        sgy, i0[p], tgt, H, W, fx, fy, cx, cy, delta, acc);
   }
 #pragma unroll
-  for (int k = 0; k < kSums; ++k) {
+  for (int k = 0; k < kN; ++k) {
     float a = acc[k];
 #pragma unroll
     for (int off = 16; off > 0; off >>= 1) a += __shfl_down_sync(0xffffffffu, a, off);
     if (lane == 0) partial[warp][k] = a;
   }
   __syncthreads();
-  if (tid < kSums) {
+  if (tid < kN) {
     float a = partial[0][tid];
     for (int w = 1; w < kWarps; ++w) a += partial[w][tid];
     total[tid] = a;
@@ -257,6 +335,49 @@ static __device__ void chol_solve6(const float A[6][6], const float b[6], float 
     for (int k = i + 1; k < 6; ++k) acc = acc - L[k][i] * x[k];
     x[i] = acc * inv_diag[i];
   }
+}
+
+// Host-side dispatch of a launch over the variants: f(bilinear, loss, esm)
+// is called with std::integral_constant arguments, so one generic lambda
+// instantiates each kernel variant. Losses above kMaxLoss and ESM where
+// kAllowEsm is false are refused (returns false, nothing launched).
+template <bool kB, bool kE, int kMaxLoss, typename F>
+static bool dispatch_loss(int loss, F& f) {
+  switch (loss) {
+    case kNone:
+      f(std::bool_constant<kB>{}, std::integral_constant<int, kNone>{}, std::bool_constant<kE>{});
+      return true;
+    case kHuber:
+      f(std::bool_constant<kB>{}, std::integral_constant<int, kHuber>{}, std::bool_constant<kE>{});
+      return true;
+    case kCauchy:
+      f(std::bool_constant<kB>{}, std::integral_constant<int, kCauchy>{}, std::bool_constant<kE>{});
+      return true;
+    case kTukey:
+      f(std::bool_constant<kB>{}, std::integral_constant<int, kTukey>{}, std::bool_constant<kE>{});
+      return true;
+    case kTdist:
+      if constexpr (kMaxLoss >= kTdist) {
+        f(std::bool_constant<kB>{}, std::integral_constant<int, kTdist>{}, std::bool_constant<kE>{});
+        return true;
+      }
+      return false;
+    default:
+      return false;
+  }
+}
+
+template <int kMaxLoss, bool kAllowEsm, typename F>
+static bool dispatch_variant(int bilinear, int loss, int esm, F&& f) {
+  if (esm) {
+    if constexpr (kAllowEsm) {
+      return bilinear ? dispatch_loss<true, true, kMaxLoss>(loss, f)
+                      : dispatch_loss<false, true, kMaxLoss>(loss, f);
+    }
+    return false;
+  }
+  return bilinear ? dispatch_loss<true, false, kMaxLoss>(loss, f)
+                  : dispatch_loss<false, false, kMaxLoss>(loss, f);
 }
 
 }  // namespace phovo

@@ -19,12 +19,15 @@ Routing follows phovo_tpu:
     align_autodiff calls (each pair starts where the last one ended);
   * levels with max_iterations 0 leave the state and report zero
     diagnostics on both routes.
-robust_loss='tdist' raises ValueError, as in phovo_tpu; huber, cauchy and
-tukey, and jacobian_mode='jacfwd', are not ported and raise
-NotImplementedError.
+Robust losses huber, cauchy and tukey weight the pixels at robust_delta
+inside the kernel (the costs, and rho, are then weighted sums, as in
+phovo_tpu); robust_loss='tdist' raises ValueError, as in phovo_tpu;
+jacobian_mode='jacfwd' is not ported and raises NotImplementedError.
 """
 
 from __future__ import annotations
+
+import dataclasses
 
 import torch
 
@@ -35,6 +38,7 @@ from phovo_tpu_torch.models.base import (
     chunk_device_prep,
     device_unit_intensity,
     sequence_scan,
+    stack_levels,
 )
 from phovo_tpu_torch.ops import pyramid as pyr
 from phovo_tpu_torch.ops.camera import Intrinsics
@@ -51,12 +55,6 @@ def _check_supported(config: PhovoConfig, jacobian_mode: str) -> None:
             "iterations, breaking the accept/reject comparison); use the "
             "'analytic' backend, or huber/cauchy/tukey here"
         )
-    if config.robust_loss != "none":
-        raise NotImplementedError(
-            f"robust_loss={config.robust_loss!r} is not ported to the "
-            "trust-region kernel yet (ROADMAP.md queue A, item 4: the robust "
-            "variants of K-GN and K-TR)"
-        )
     if jacobian_mode == "jacfwd":
         raise NotImplementedError(
             "jacobian_mode='jacfwd' (torch.func.jacfwd over the residual) "
@@ -66,14 +64,6 @@ def _check_supported(config: PhovoConfig, jacobian_mode: str) -> None:
         raise ValueError(
             f"jacobian_mode={jacobian_mode!r}; expected 'linearizer' or 'jacfwd'"
         )
-
-
-def _stack_levels(state, diags) -> AlignmentResult:
-    """Per-level (iterations, gradient_norm, cost, num_valid, band_masked)
-    -> AlignmentResult with the level axis last."""
-    dim = state.dim() - 1
-    cols = [torch.stack([d[k] for d in diags], dim=dim) for k in range(5)]
-    return AlignmentResult(state, cols[0].to(torch.int32), *cols[1:])
 
 
 def align_autodiff(
@@ -109,9 +99,10 @@ def align_autodiff(
             int0[level], dep0[level], t_all, intr.at_level(level), state,
             config.min_depth, config.max_depth,
             config.trust_region_options(level), sampling="bilinear",
+            robust_loss=config.robust_loss, robust_delta=config.robust_delta,
         )
         diags[level] = (its.to(torch.float32), gnorm, cost, nvalid, masked)
-    return _stack_levels(state, diags)
+    return stack_levels(state, diags)
 
 
 def align_sequence_autodiff_levelmajor(
@@ -124,7 +115,10 @@ def align_sequence_autodiff_levelmajor(
     then all B pairs' coarsest level in one kernel launch, then the next
     level, each pair with its own radius and termination."""
     intensities = device_unit_intensity(intensities).to(torch.float32)
-    prep = prep_frame_analytic(intensities, depths.to(torch.float32), intr, config)
+    # the 4-row geometry of the warped-point gradient whatever gradient_at
+    # says (an 'esm' config would pack six rows)
+    prep_cfg = dataclasses.replace(config, gradient_at="warped")
+    prep = prep_frame_analytic(intensities, depths.to(torch.float32), intr, prep_cfg)
     B = intensities.shape[0] - 1
     states = torch.zeros((B, 6), dtype=torch.float32, device=intensities.device)
     zero = torch.zeros(B, dtype=torch.float32, device=intensities.device)
@@ -137,13 +131,14 @@ def align_sequence_autodiff_levelmajor(
         res = fused_tr_level_batch(
             i0[:-1], geom[:-1], t_all[1:], intr.at_level(level), states,
             config.trust_region_options(level), H=H, W=W, sampling="bilinear",
+            robust_loss=config.robust_loss, robust_delta=config.robust_delta,
         )
         states = res.state
         diags[level] = (
             res.iterations.to(torch.float32), res.gradient_norm, res.cost,
             res.num_valid, res.band_masked,
         )
-    return _stack_levels(states, diags)
+    return stack_levels(states, diags)
 
 
 def align_sequence_autodiff(

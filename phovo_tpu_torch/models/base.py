@@ -35,6 +35,15 @@ class AlignmentResult(NamedTuple):
     band_masked: torch.Tensor
 
 
+def stack_levels(state: torch.Tensor, diags) -> AlignmentResult:
+    """Per-level (iterations, gradient_norm, cost, num_valid, band_masked)
+    float32 tensors, level 0 first -> AlignmentResult with the level axis
+    last (state (..., 6), diagnostics (..., L))."""
+    dim = state.dim() - 1
+    cols = [torch.stack([d[k] for d in diags], dim=dim) for k in range(5)]
+    return AlignmentResult(state, cols[0].to(torch.int32), *cols[1:])
+
+
 def as_float_intensity(img):
     """Normalize a host intensity image for the aligners: uint8 passes
     through unchanged (every backend converts it on the device, so the

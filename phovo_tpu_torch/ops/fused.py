@@ -1,5 +1,7 @@
 """Per-frame packs for the level kernels (torch port of the pack helpers in
-phovo_tpu/ops/fused.py), and the per-pair trust-region level.
+phovo_tpu/ops/fused.py), the per-pair Gauss-Newton and trust-region
+levels (the batched kernels at B = 1), the per-linearization API over the
+one-linearization kernel, and the normal-equation dispatch.
 
 The packs hoist everything state-invariant out of the Gauss-Newton loop:
 the back-projected source points with their depth-range mask, and the
@@ -14,7 +16,16 @@ from __future__ import annotations
 import torch
 
 from phovo_tpu_torch.ops.camera import Intrinsics
-from phovo_tpu_torch.ops.fused_batch import fused_tr_level_batch
+from phovo_tpu_torch.ops.fused_batch import (
+    fused_gn_level_batch,
+    fused_lin_batch,
+    fused_tr_level_batch,
+)
+from phovo_tpu_torch.ops.residuals import (
+    NormalEquations,
+    normal_equations,
+    photometric_residual_jacobian,
+)
 
 
 def pack_geometry(
@@ -22,9 +33,12 @@ def pack_geometry(
     intr: Intrinsics,
     min_depth: float,
     max_depth: float,
+    source_grads=None,  # (gx0, gy0), each (..., H, W): the ESM rows
 ) -> torch.Tensor:
     """(..., 4, H*W) rows [px, py, pz, valid_depth]: the back-projected
-    source point and the open (min_depth, max_depth) range mask."""
+    source point and the open (min_depth, max_depth) range mask. With
+    source_grads, the source intensity gradients of the ESM Jacobian
+    (gradient_at='esm') follow as rows 4 and 5: (..., 6, H*W)."""
     H, W = source_depth.shape[-2:]
     c = torch.arange(W, dtype=torch.float32, device=source_depth.device)
     r = torch.arange(H, dtype=torch.float32, device=source_depth.device)
@@ -32,7 +46,10 @@ def pack_geometry(
     px = (cc - intr.cx) * source_depth / intr.fx
     py = (rr - intr.cy) * source_depth / intr.fy
     valid = ((source_depth > min_depth) & (source_depth < max_depth)).to(torch.float32)
-    geom = torch.stack([px, py, source_depth, valid], dim=-3)
+    rows = [px, py, source_depth, valid]
+    if source_grads is not None:
+        rows += list(source_grads)
+    geom = torch.stack(rows, dim=-3)
     return geom.reshape(*geom.shape[:-2], H * W)
 
 
@@ -55,6 +72,8 @@ def fused_tr_level(
     max_depth: float,
     opts,  # solvers.trust_region.TROptions
     sampling: str = "bilinear",
+    robust_loss: str = "none",
+    robust_delta: float = 0.1,
 ):
     """One whole trust-region LM level for one pair (torch port of
     phovo_tpu/ops/fused.py::fused_tr_level): the pair is packed and run
@@ -69,6 +88,199 @@ def fused_tr_level(
         t_all[None].contiguous(),
         intr,
         init_state.to(torch.float32).reshape(1, 6).contiguous(),
-        opts, H=H, W=W, sampling=sampling,
+        opts, H=H, W=W, sampling=sampling, robust_loss=robust_loss,
+        robust_delta=robust_delta,
     )
     return tuple(x[0] for x in res)
+
+
+def _refuse_biobjective(what):
+    raise NotImplementedError(
+        f"{what}: the bi-objective (intensity + depth) level is not ported "
+        "yet (ROADMAP.md queue A, item 7)"
+    )
+
+
+def fused_gn_level_packs(
+    i0_flat: torch.Tensor,  # (H*W,) or (1, H*W) source intensity
+    geom: torch.Tensor,  # (4 | 6, H*W) pack_geometry rows (6 with ESM)
+    t_all: torch.Tensor,  # (3, H, W) pack_target of the target frame
+    intr: Intrinsics,  # at this level
+    init_state: torch.Tensor,  # (6,)
+    max_iterations: int,
+    min_gradient_norm: float,
+    lambda_step: float,
+    *,
+    H: int,
+    W: int,
+    sampling: str = "nearest",
+    bi: bool = False,
+    robust_loss: str = "none",
+    robust_delta: float = 0.1,
+    esm: bool = False,
+    robust_scale=None,  # tdist: the sigma carried from the level before
+    tdist_burnin: int = 0,
+):
+    """One whole Gauss-Newton level for one pair on pre-packed inputs
+    (torch port of phovo_tpu/ops/fused.py::fused_gn_level_packs): the
+    batched level (ops/fused_batch.fused_gn_level_batch) with B = 1, the
+    CUDA kernel for CUDA tensors and its plain version for CPU tensors.
+    robust_scale defaults to robust_delta. Returns (state (6,), iterations,
+    gradient_norm, cost, num_valid, band_masked, robust_scale), the last
+    the final Student-t sigma for 'tdist'."""
+    if bi:
+        _refuse_biobjective("fused_gn_level_packs(bi=True)")
+    scale = None
+    if robust_scale is not None:
+        scale = torch.as_tensor(robust_scale, dtype=torch.float32, device=i0_flat.device).reshape(1)
+    res = fused_gn_level_batch(
+        i0_flat.reshape(1, H * W).contiguous(),
+        geom[None].contiguous(),
+        t_all[None].contiguous(),
+        intr,
+        init_state.to(device=i0_flat.device, dtype=torch.float32).reshape(1, 6).contiguous(),
+        max_iterations, min_gradient_norm, lambda_step, H=H, W=W,
+        sampling=sampling, robust_loss=robust_loss, robust_delta=robust_delta,
+        esm=esm, robust_scale=scale, tdist_burnin=tdist_burnin,
+    )
+    return tuple(x[0] for x in res)
+
+
+def fused_gn_level(
+    source_intensity: torch.Tensor,  # (H, W)
+    source_depth: torch.Tensor,  # (H, W) metres
+    tgt_cols: torch.Tensor,  # (3, H, W) pack_target of the target frame
+    intr: Intrinsics,  # at this level
+    init_state: torch.Tensor,  # (6,)
+    min_depth: float,
+    max_depth: float,
+    max_iterations: int,
+    min_gradient_norm: float,
+    lambda_step: float,
+    sampling: str = "nearest",
+    depth_cols=None,
+    robust_loss: str = "none",
+    robust_delta: float = 0.1,
+    source_grads=None,  # (gx0, gy0): the ESM Jacobian
+    robust_scale=None,
+    tdist_burnin: int = 0,
+):
+    """One whole Gauss-Newton level for one pair (torch port of
+    phovo_tpu/ops/fused.py::fused_gn_level): packs the source and runs
+    fused_gn_level_packs. depth_cols (the bi-objective level) raises
+    NotImplementedError."""
+    if depth_cols is not None:
+        _refuse_biobjective("fused_gn_level(depth_cols=...)")
+    H, W = source_intensity.shape
+    return fused_gn_level_packs(
+        source_intensity.reshape(H * W),
+        pack_geometry(source_depth, intr, min_depth, max_depth, source_grads),
+        tgt_cols, intr, init_state, max_iterations, min_gradient_norm,
+        lambda_step, H=H, W=W, sampling=sampling, robust_loss=robust_loss,
+        robust_delta=robust_delta, esm=source_grads is not None,
+        robust_scale=robust_scale, tdist_burnin=tdist_burnin,
+    )
+
+
+def make_fused_linearizer(
+    source_intensity: torch.Tensor,  # (H, W)
+    source_depth: torch.Tensor,  # (H, W) metres
+    tgt_cols: torch.Tensor,  # (3, H, W) pack_target of the target frame
+    intr: Intrinsics,
+    min_depth: float,
+    max_depth: float,
+    sampling: str = "nearest",
+    robust_loss: str = "none",
+    robust_delta: float = 0.1,
+    source_grads=None,  # (gx0, gy0): the ESM Jacobian
+):
+    """linearize(state, robust_scale=None) -> NormalEquations, with the
+    packs built once (torch port of phovo_tpu/ops/fused.py::
+    make_fused_linearizer): each call is one launch of the
+    one-linearization kernel (ops/fused_batch.fused_lin_batch) at B = 1 on
+    CUDA tensors, its plain version on CPU tensors. robust_scale is the
+    loss's scale for this call (the solver's carried Student-t sigma);
+    robust_delta when None."""
+    H, W = source_intensity.shape
+    device = source_intensity.device
+    i0 = source_intensity.reshape(1, H * W).contiguous()
+    geom = pack_geometry(source_depth, intr, min_depth, max_depth, source_grads)[None].contiguous()
+    t_all = tgt_cols[None].contiguous()
+
+    def linearize(state, robust_scale=None) -> NormalEquations:
+        scale = None
+        if robust_scale is not None:
+            scale = torch.as_tensor(robust_scale, dtype=torch.float32, device=device).reshape(1)
+        gram = fused_lin_batch(
+            i0, geom, t_all, intr,
+            state.to(device=device, dtype=torch.float32).reshape(1, 6).contiguous(),
+            H=H, W=W, sampling=sampling, robust_loss=robust_loss,
+            robust_delta=robust_delta, esm=source_grads is not None,
+            robust_scale=scale,
+        )[0]
+        return NormalEquations(
+            gram[:6, :6], gram[:6, 6], gram[6, 6], gram[7, 7], gram[6, 7],
+        )
+
+    return linearize
+
+
+def fused_normal_equations_pallas(
+    source_intensity: torch.Tensor,
+    source_depth: torch.Tensor,
+    tgt_cols: torch.Tensor,  # (3, H, W) pack_target of the target frame
+    state: torch.Tensor,
+    intr: Intrinsics,
+    min_depth: float,
+    max_depth: float,
+    sampling: str = "nearest",
+    robust_loss: str = "none",
+    robust_delta: float = 0.1,
+    source_grads=None,
+) -> NormalEquations:
+    """One linearization through the one-linearization kernel (phovo_tpu's
+    name for its Pallas route, kept for the callers)."""
+    return make_fused_linearizer(
+        source_intensity, source_depth, tgt_cols, intr, min_depth, max_depth,
+        sampling, robust_loss, robust_delta, source_grads,
+    )(state)
+
+
+def fused_normal_equations(
+    source_intensity: torch.Tensor,
+    source_depth: torch.Tensor,
+    target_intensity: torch.Tensor,
+    target_grad_x: torch.Tensor,
+    target_grad_y: torch.Tensor,
+    state: torch.Tensor,
+    intr: Intrinsics,
+    min_depth: float = 0.3,
+    max_depth: float = 5.0,
+    sampling: str = "nearest",
+    gradient_at: str = "warped",
+    robust_loss: str = "none",
+    robust_delta: float = 0.1,
+    source_grads=None,
+) -> NormalEquations:
+    """Normal equations of one linearization, dispatched as phovo_tpu
+    dispatches (phovo_tpu/ops/fused.py::fused_normal_equations):
+    gradient_at='source' runs the exact torch path; 'warped' and 'esm'
+    (with source_grads) the one-linearization kernel, at every level size
+    (the GPU has no height cap)."""
+    if gradient_at not in ("warped", "esm"):
+        r, J, valid = photometric_residual_jacobian(
+            source_intensity, source_depth, target_intensity,
+            target_grad_x, target_grad_y, state, intr,
+            min_depth=min_depth, max_depth=max_depth,
+            sampling=sampling, gradient_at=gradient_at,
+        )
+        return normal_equations(r, J, valid, robust_loss, robust_delta)
+    sg = source_grads if gradient_at == "esm" else None
+    if gradient_at == "esm" and sg is None:
+        raise ValueError("gradient_at='esm' needs source_grads=(gx0, gy0)")
+    return fused_normal_equations_pallas(
+        source_intensity, source_depth,
+        pack_target(target_intensity, target_grad_x, target_grad_y), state,
+        intr, min_depth, max_depth, sampling, robust_loss=robust_loss,
+        robust_delta=robust_delta, source_grads=sg,
+    )

@@ -1,18 +1,22 @@
 """One whole pyramid level for B independent pairs: Gauss-Newton (torch
-port of phovo_tpu/ops/fused_batch.py::fused_gn_level_batch) and
-trust-region Levenberg-Marquardt (::fused_tr_level_batch).
+port of phovo_tpu/ops/fused_batch.py::fused_gn_level_batch and, at B = 1,
+phovo_tpu/ops/fused.py::fused_gn_level_packs) and trust-region
+Levenberg-Marquardt (::fused_tr_level_batch); and one linearization of B
+pairs (phovo_tpu/ops/fused.py::_fused_kernel).
 
 On a CUDA tensor each wrapper launches its hand-written kernel,
-csrc/fused_gn_batch.cu or csrc/fused_tr_batch.cu (one thread block per
-pair, the level's whole iteration loop inside the block). On a CPU tensor
+csrc/fused_gn_batch.cu, csrc/fused_tr_batch.cu (one thread block per
+pair, the level's whole iteration loop inside the block) or
+csrc/fused_lin.cu (one block per pair, one linearization). On a CPU tensor
 it runs the plain batched torch version of the same function
-(fused_gn_level_batch_reference, fused_tr_level_batch_reference): every
-pair advances in lockstep and freezes on its own once its termination
-test fires or its iteration budget is spent, exactly the per-pair
-semantics of the TPU kernels. Kernel and plain version write the per-pixel
-arithmetic in the same order (phovo_tpu/ops/fused_batch.py::
-_batch_linearize), so only the order of the pixel sums differs between
-them.
+(fused_gn_level_batch_reference, fused_tr_level_batch_reference,
+fused_lin_batch_reference): every pair advances in lockstep and freezes on
+its own once its termination test fires or its iteration budget is spent,
+exactly the per-pair semantics of the TPU kernels. Kernel and plain
+version write the per-pixel arithmetic, robust weights and ESM gradient
+included, in the same order (phovo_tpu/ops/fused_batch.py::
+_batch_linearize, ops/robust.py), so only the order of the pixel sums
+differs between them.
 """
 
 from __future__ import annotations
@@ -22,6 +26,7 @@ from typing import NamedTuple
 import torch
 
 from phovo_tpu_torch.ops.camera import Intrinsics
+from phovo_tpu_torch.ops.robust import LOSSES, sqrt_weight, tdist_scale_update
 
 # Launches of the CUDA kernel in this process. The wrapper adds one per
 # launch and nowhere else, so a caller can show that its run went through
@@ -29,8 +34,12 @@ from phovo_tpu_torch.ops.camera import Intrinsics
 LAUNCHES = 0
 # Launches of the trust-region kernel, with the same contract.
 TR_LAUNCHES = 0
+# Launches of the one-linearization kernel, with the same contract.
+LIN_LAUNCHES = 0
 
 _SAMPLINGS = ("nearest", "bilinear")
+# the kernels' loss codes (csrc/phovo_linearize.cuh enum Loss)
+_LOSS_CODES = {name: code for code, name in enumerate(LOSSES)}
 
 
 class LevelBatchResult(NamedTuple):
@@ -40,6 +49,10 @@ class LevelBatchResult(NamedTuple):
     cost: torch.Tensor  # (B,) sum r^2 at the last linearization
     num_valid: torch.Tensor  # (B,) valid pixels at the last linearization
     band_masked: torch.Tensor  # (B,) always 0: the GPU samples the whole target
+    # (B,) the loss's final scale: the Student-t sigma after the last
+    # linearization for 'tdist' (its robust_scale in when no iteration ran),
+    # the scale given in for every other loss
+    robust_scale: torch.Tensor
 
 
 class TRLevelBatchResult(NamedTuple):
@@ -54,13 +67,18 @@ class TRLevelBatchResult(NamedTuple):
     band_masked: torch.Tensor  # (B,) always 0: the GPU samples the whole target
 
 
-def _check_inputs(i0, geom, t_all, init_states, H, W, sampling):
-    """Raise on what the kernel does not take. Layouts of TPU-only variants
-    (bi-objective six-channel targets, ESM six-row geometry, one shared
-    source) are refused as not yet ported."""
+def _check_inputs(i0, geom, t_all, init_states, H, W, sampling, esm=False,
+                  robust_loss="none", robust_scale=None):
+    """Raise on what the kernels do not take. Layouts of variants not ported
+    yet (bi-objective six-channel targets, one shared source) are refused
+    as such."""
     if sampling not in _SAMPLINGS:
         raise ValueError(f"sampling={sampling!r}; expected one of {_SAMPLINGS}")
+    if robust_loss not in LOSSES:
+        raise ValueError(f"robust_loss={robust_loss!r}; expected one of {LOSSES}")
     tensors = {"i0": i0, "geom": geom, "t_all": t_all, "init_states": init_states}
+    if robust_scale is not None:
+        tensors["robust_scale"] = robust_scale
     for name, t in tensors.items():
         if not isinstance(t, torch.Tensor):
             raise TypeError(f"{name} must be a torch.Tensor, got {type(t).__name__}")
@@ -75,11 +93,6 @@ def _check_inputs(i0, geom, t_all, init_states, H, W, sampling):
             "bi-objective (six-channel) level batches are not ported yet "
             "(ROADMAP.md queue A, item 7)"
         )
-    if geom.dim() == 3 and geom.shape[1] == 6:
-        raise NotImplementedError(
-            "ESM geometry packs (gradient_at='esm') are not ported yet "
-            "(ROADMAP.md queue A, item 4)"
-        )
     B = t_all.shape[0] if t_all.dim() == 4 else -1
     if B > 1 and i0.dim() == 2 and i0.shape[0] == 1:
         raise NotImplementedError(
@@ -88,20 +101,28 @@ def _check_inputs(i0, geom, t_all, init_states, H, W, sampling):
         )
     N = H * W
     expected = {
-        "i0": (B, N), "geom": (B, 4, N), "t_all": (B, 3, H, W),
-        "init_states": (B, 6),
+        "i0": (B, N), "geom": (B, 6 if esm else 4, N), "t_all": (B, 3, H, W),
+        "init_states": (B, 6), "robust_scale": (B,),
     }
-    for name, shape in expected.items():
-        if tuple(tensors[name].shape) != shape:
+    for name, t in tensors.items():
+        if tuple(t.shape) != expected[name]:
             raise ValueError(
-                f"{name} has shape {tuple(tensors[name].shape)}, expected "
-                f"{shape} for B={B} pairs at {H}x{W}"
+                f"{name} has shape {tuple(t.shape)}, expected "
+                f"{expected[name]} for B={B} pairs at {H}x{W} (esm={esm})"
             )
+
+
+def _scales(robust_delta, robust_scale, B, device) -> torch.Tensor:
+    """(B,) float32 loss scale per pair: robust_scale (the carried Student-t
+    sigma) when given, else robust_delta for every pair."""
+    if robust_scale is not None:
+        return robust_scale
+    return torch.full((B,), float(robust_delta), dtype=torch.float32, device=device)
 
 
 def fused_gn_level_batch(
     i0: torch.Tensor,  # (B, H*W) source intensities
-    geom: torch.Tensor,  # (B, 4, H*W) pack_geometry rows
+    geom: torch.Tensor,  # (B, 4 | 6, H*W) pack_geometry rows (6 with ESM)
     t_all: torch.Tensor,  # (B, 3, H, W) pack_target stacks
     intr: Intrinsics,  # at this level
     init_states: torch.Tensor,  # (B, 6)
@@ -112,17 +133,31 @@ def fused_gn_level_batch(
     H: int,
     W: int,
     sampling: str = "nearest",
+    robust_loss: str = "none",
+    robust_delta: float = 0.1,
+    esm: bool = False,
+    robust_scale: torch.Tensor | None = None,  # (B,) tdist sigma in
+    tdist_burnin: int = 0,
 ) -> LevelBatchResult:
     """Run ONE whole GN level for B independent pairs: the CUDA kernel for
     CUDA tensors, the plain torch version for CPU tensors. Any other device
-    raises; so does a failed build or launch (there is no fallback)."""
+    raises; so does a failed build or launch (there is no fallback).
+
+    robust_loss weights every pixel by sqrt(w(r)) (ops/robust.py) at scale
+    robust_delta; for 'tdist' the scale is each pair's sigma, robust_scale
+    (default robust_delta), which runs tdist_burnin scale-only passes at
+    the initial state and is re-estimated after every linearization; the
+    result's robust_scale is the final sigma. esm takes the source
+    gradients from geometry rows 4 and 5 (ESM Jacobian)."""
     global LAUNCHES
     if i0.device.type == "cpu":
         return fused_gn_level_batch_reference(
             i0, geom, t_all, intr, init_states, max_iterations,
             min_gradient_norm, lambda_step, H=H, W=W, sampling=sampling,
+            robust_loss=robust_loss, robust_delta=robust_delta, esm=esm,
+            robust_scale=robust_scale, tdist_burnin=tdist_burnin,
         )
-    _check_inputs(i0, geom, t_all, init_states, H, W, sampling)
+    _check_inputs(i0, geom, t_all, init_states, H, W, sampling, esm, robust_loss, robust_scale)
     if i0.device.type != "cuda":
         raise ValueError(f"no level kernel for device {i0.device}")
 
@@ -130,28 +165,30 @@ def fused_gn_level_batch(
 
     lib = _build.library()
     B = i0.shape[0]
+    scale_in = _scales(robust_delta, robust_scale, B, i0.device)
     states = torch.empty((B, 6), dtype=torch.float32, device=i0.device)
-    diag = torch.empty((B, 5), dtype=torch.float32, device=i0.device)
+    diag = torch.empty((B, 6), dtype=torch.float32, device=i0.device)
     if B:
         with torch.cuda.device(i0.device):
             stream = torch.cuda.current_stream(i0.device).cuda_stream
             err = lib.phovo_fused_gn_level_batch(
                 i0.data_ptr(), geom.data_ptr(), t_all.data_ptr(),
-                init_states.data_ptr(), states.data_ptr(), diag.data_ptr(),
-                B, H, W, int(sampling == "bilinear"),
+                init_states.data_ptr(), scale_in.data_ptr(), states.data_ptr(),
+                diag.data_ptr(), B, H, W, int(sampling == "bilinear"),
+                _LOSS_CODES[robust_loss], int(esm),
                 intr.fx, intr.fy, intr.cx, intr.cy,
                 int(max_iterations), float(min_gradient_norm),
-                float(lambda_step), stream,
+                float(lambda_step), int(tdist_burnin), stream,
             )
         if err:
             raise RuntimeError(
                 f"fused_gn_batch kernel launch failed: CUDA error {err}"
             )
         LAUNCHES += 1
-    return LevelBatchResult(
-        states, diag[:, 0].to(torch.int32), diag[:, 1], diag[:, 2],
-        diag[:, 3], diag[:, 4],
-    )
+    # one contiguous (B,) row per diagnostic: the sigma out goes back in
+    # as the next level's robust_scale
+    cols = diag.t().contiguous()
+    return LevelBatchResult(states, cols[0].to(torch.int32), *cols[1:])
 
 
 def _rotation_terms(s3, s4, s5):
@@ -187,10 +224,15 @@ def _sample(t_flat, idx):
     return torch.gather(t_flat, 2, idx.unsqueeze(1).expand(-1, 3, -1))
 
 
-def _linearize(s, px, py, pz, vd, i0, t_flat, intr, H, W, bilinear):
-    """(B, 1) state columns -> (JtJ (B, 6, 6), Jtr (B, 6), cost (B,),
-    nvalid (B,)) of every pair at its current state."""
+def _pixel_columns(s, geom_rows, i0, t_flat, intr, H, W, bilinear,
+                   robust_loss="none", delta=None):
+    """(B, 1) state columns -> (J (B, 6, N), r_w (B, N), validf (B, N)): each
+    pixel's Jacobian row and residual, scaled by sqrt(w(r)) under
+    robust_loss at scale delta ((B, 1)), and its valid flag. geom_rows are
+    pack_geometry's rows; with six (ESM) the sampled target gradient is
+    averaged with the source gradient of rows 4 and 5."""
     fx, fy, cx, cy = intr
+    px, py, pz, vd = geom_rows[:4]
     (R00, R01, R02, R10, R11, R12, R20, R21, R22), dY, dP, dR = _rotation_terms(
         s[3], s[4], s[5]
     )
@@ -253,20 +295,39 @@ def _linearize(s, px, py, pz, vd, i0, t_flat, intr, H, W, bilinear):
     else:
         samp = _sample(t_flat, index(r0, c0))
     i1w, gxw, gyw = samp.unbind(1)
+    if len(geom_rows) == 6:  # ESM: average with the source gradient
+        gxw = 0.5 * (gxw + geom_rows[4])
+        gyw = 0.5 * (gyw + geom_rows[5])
 
     validf = valid.to(torch.float32)
     resid = (i1w - i0) * validf
+    if robust_loss == "none":
+        scale, r_w = validf, resid
+    else:
+        scale = validf * sqrt_weight(resid, robust_loss, delta)
+        r_w = resid * scale
     J = torch.stack([
-        (gxw * a0) * validf,
-        (gyw * b1) * validf,
-        (gxw * a2 + gyw * b2) * validf,
-        (gxw * Ju3 + gyw * Jv3) * validf,
-        (gxw * Ju4 + gyw * Jv4) * validf,
-        (gxw * Ju5 + gyw * Jv5) * validf,
+        (gxw * a0) * scale,
+        (gyw * b1) * scale,
+        (gxw * a2 + gyw * b2) * scale,
+        (gxw * Ju3 + gyw * Jv3) * scale,
+        (gxw * Ju4 + gyw * Jv4) * scale,
+        (gxw * Ju5 + gyw * Jv5) * scale,
     ], dim=1)  # (B, 6, N)
+    return J, r_w, validf
+
+
+def _linearize(s, geom_rows, i0, t_flat, intr, H, W, bilinear,
+               robust_loss="none", delta=None):
+    """(B, 1) state columns -> (JtJ (B, 6, 6), Jtr (B, 6), cost (B,),
+    nvalid (B,)) of every pair at its current state; cost is the weighted
+    sum w r^2 under a robust loss."""
+    J, r_w, validf = _pixel_columns(
+        s, geom_rows, i0, t_flat, intr, H, W, bilinear, robust_loss, delta
+    )
     JtJ = torch.bmm(J, J.transpose(1, 2))
-    Jtr = torch.bmm(J, resid.unsqueeze(2)).squeeze(2)
-    return JtJ, Jtr, torch.sum(resid * resid, dim=1), torch.sum(validf, dim=1)
+    Jtr = torch.bmm(J, r_w.unsqueeze(2)).squeeze(2)
+    return JtJ, Jtr, torch.sum(r_w * r_w, dim=1), torch.sum(validf, dim=1)
 
 
 def _chol_solve6(A, b):
@@ -316,26 +377,41 @@ def fused_gn_level_batch_reference(
     H: int,
     W: int,
     sampling: str = "nearest",
+    robust_loss: str = "none",
+    robust_delta: float = 0.1,
+    esm: bool = False,
+    robust_scale: torch.Tensor | None = None,
+    tdist_burnin: int = 0,
 ) -> LevelBatchResult:
     """Plain batched torch version of fused_gn_level_batch, on any device.
     A Python while loop over iterations runs until every pair froze; a
-    frozen pair's state and diagnostics stop changing."""
-    _check_inputs(i0, geom, t_all, init_states, H, W, sampling)
+    frozen pair's state, diagnostics and scale stop changing."""
+    _check_inputs(i0, geom, t_all, init_states, H, W, sampling, esm, robust_loss, robust_scale)
     B = i0.shape[0]
-    px, py, pz, vd = geom.unbind(1)
+    rows = geom.unbind(1)
     t_flat = t_all.reshape(B, 3, H * W)
     s = [init_states[:, k] for k in range(6)]
     zero = torch.zeros(B, dtype=torch.float32, device=i0.device)
     it, gnorm = zero, torch.full_like(zero, float("inf"))
     cost, nvalid = zero, zero
+    sigma = _scales(robust_delta, robust_scale, B, i0.device)
+    tdist = robust_loss == "tdist"
+
+    def linearize(s, sigma):
+        return _linearize(
+            [c.unsqueeze(1) for c in s], rows, i0, t_flat, intr, H, W,
+            sampling == "bilinear", robust_loss, sigma.unsqueeze(1),
+        )
+
+    if tdist and max_iterations > 0:
+        for _ in range(tdist_burnin):  # scale-only passes at the initial state
+            _, _, cost_b, nvalid_b = linearize(s, sigma)
+            sigma = tdist_scale_update(cost_b, nvalid_b)
     while True:
         act = (it < max_iterations) & (gnorm >= min_gradient_norm)
         if not bool(act.any()):
             break
-        JtJ, Jtr, cost_i, nvalid_i = _linearize(
-            [c.unsqueeze(1) for c in s], px, py, pz, vd, i0, t_flat, intr,
-            H, W, sampling == "bilinear",
-        )
+        JtJ, Jtr, cost_i, nvalid_i = linearize(s, sigma)
         xs = _chol_solve6(JtJ, Jtr)
         finite = torch.stack([torch.isfinite(x) for x in xs]).all(dim=0)
         upd = act & finite
@@ -347,6 +423,8 @@ def fused_gn_level_batch_reference(
         gnorm = torch.where(act, torch.sqrt(g2), gnorm)
         cost = torch.where(act, cost_i, cost)
         nvalid = torch.where(act, nvalid_i, nvalid)
+        if tdist:
+            sigma = torch.where(act, tdist_scale_update(cost_i, nvalid_i), sigma)
     return LevelBatchResult(
         torch.stack(s, dim=1),
         it.to(torch.int32),
@@ -354,7 +432,25 @@ def fused_gn_level_batch_reference(
         cost,
         nvalid,
         zero,
+        sigma,
     )
+
+
+def _check_tr_variant(geom, robust_loss):
+    """Raise on what the trust-region kernel has no variant for, as
+    phovo_tpu's has none: the Student-t loss and ESM geometry."""
+    if robust_loss == "tdist":
+        raise ValueError(
+            "robust_loss='tdist' has no trust-region kernel: its adaptive "
+            "scale changes the cost between iterations, which breaks the "
+            "accept/reject comparison; use the Gauss-Newton level"
+        )
+    if isinstance(geom, torch.Tensor) and geom.dim() == 3 and geom.shape[1] == 6:
+        raise NotImplementedError(
+            "ESM geometry packs (gradient_at='esm') have no trust-region "
+            "kernel: the ceres backend samples the target gradient at the "
+            "warped point whatever gradient_at says, as phovo_tpu's does"
+        )
 
 
 def fused_tr_level_batch(
@@ -368,17 +464,24 @@ def fused_tr_level_batch(
     H: int,
     W: int,
     sampling: str = "bilinear",
+    robust_loss: str = "none",
+    robust_delta: float = 0.1,
 ) -> TRLevelBatchResult:
     """Run ONE whole trust-region LM level for B independent pairs: the
     CUDA kernel for CUDA tensors, the plain torch version for CPU tensors.
     Any other device raises; so does a failed build or launch (there is no
-    fallback). Every option goes to the kernel as a float32 scalar."""
+    fallback). Every option goes to the kernel as a float32 scalar.
+    robust_loss huber, cauchy or tukey weights every pixel at scale
+    robust_delta, and the costs are then weighted sums; 'tdist' raises
+    ValueError."""
     global TR_LAUNCHES
     if i0.device.type == "cpu":
         return fused_tr_level_batch_reference(
             i0, geom, t_all, intr, init_states, opts, H=H, W=W, sampling=sampling,
+            robust_loss=robust_loss, robust_delta=robust_delta,
         )
-    _check_inputs(i0, geom, t_all, init_states, H, W, sampling)
+    _check_tr_variant(geom, robust_loss)
+    _check_inputs(i0, geom, t_all, init_states, H, W, sampling, robust_loss=robust_loss)
     if i0.device.type != "cuda":
         raise ValueError(f"no level kernel for device {i0.device}")
 
@@ -394,8 +497,8 @@ def fused_tr_level_batch(
             err = lib.phovo_fused_tr_level_batch(
                 i0.data_ptr(), geom.data_ptr(), t_all.data_ptr(),
                 init_states.data_ptr(), states.data_ptr(), diag.data_ptr(),
-                B, H, W, int(sampling == "bilinear"),
-                intr.fx, intr.fy, intr.cx, intr.cy,
+                B, H, W, int(sampling == "bilinear"), _LOSS_CODES[robust_loss],
+                float(robust_delta), intr.fx, intr.fy, intr.cx, intr.cy,
                 int(opts.max_iterations), *_tr_scalars(opts), stream,
             )
         if err:
@@ -430,6 +533,8 @@ def fused_tr_level_batch_reference(
     H: int,
     W: int,
     sampling: str = "bilinear",
+    robust_loss: str = "none",
+    robust_delta: float = 0.1,
 ) -> TRLevelBatchResult:
     """Plain batched torch version of fused_tr_level_batch, on any device,
     in the TPU kernel's order of operations (phovo_tpu/ops/fused_batch.py::
@@ -437,10 +542,12 @@ def fused_tr_level_batch_reference(
     rho and the tolerances compare in float32 as the kernels compare them.
     A Python while loop over iterations runs until every pair froze; a
     frozen pair's state and diagnostics stop changing."""
-    _check_inputs(i0, geom, t_all, init_states, H, W, sampling)
+    _check_tr_variant(geom, robust_loss)
+    _check_inputs(i0, geom, t_all, init_states, H, W, sampling, robust_loss=robust_loss)
     B = i0.shape[0]
-    px, py, pz, vd = geom.unbind(1)
+    rows = geom.unbind(1)
     t_flat = t_all.reshape(B, 3, H * W)
+    delta = _scales(robust_delta, None, B, i0.device).unsqueeze(1)
     ftol, gtol, ptol, radius0, rmax, rmin, mrd = (
         torch.tensor(v, dtype=torch.float32, device=i0.device)
         for v in _tr_scalars(opts)
@@ -450,8 +557,8 @@ def fused_tr_level_batch_reference(
 
     def linearize(s):
         return _linearize(
-            [s[:, k:k + 1] for k in range(6)], px, py, pz, vd, i0, t_flat,
-            intr, H, W, sampling == "bilinear",
+            [s[:, k:k + 1] for k in range(6)], rows, i0, t_flat, intr, H, W,
+            sampling == "bilinear", robust_loss, delta,
         )
 
     def dot6(a, b):
@@ -508,3 +615,89 @@ def fused_tr_level_batch_reference(
         state, it.to(torch.int32), 0.5 * cost_raw, Jtr.abs().amax(dim=1),
         radius, nvalid, torch.zeros_like(it),
     )
+
+
+def fused_lin_batch(
+    i0: torch.Tensor,  # (B, H*W) source intensities
+    geom: torch.Tensor,  # (B, 4 | 6, H*W) pack_geometry rows (6 with ESM)
+    t_all: torch.Tensor,  # (B, 3, H, W) pack_target stacks
+    intr: Intrinsics,  # at this level
+    states: torch.Tensor,  # (B, 6)
+    *,
+    H: int,
+    W: int,
+    sampling: str = "nearest",
+    robust_loss: str = "none",
+    robust_delta: float = 0.1,
+    esm: bool = False,
+    robust_scale: torch.Tensor | None = None,  # (B,) tdist sigma
+) -> torch.Tensor:
+    """ONE linearization of B pairs at their states: (B, 8, 8) Gram of the
+    per-pixel rows [J0..J5, r_w, valid] (phovo_tpu/ops/fused.py::
+    _fused_kernel), with slot (6, 7) and (7, 6) holding the band-masked
+    pixel count, always 0 here. The CUDA kernel for CUDA tensors, the plain
+    torch version for CPU tensors; any other device, a failed build or
+    launch raises. The loss's scale is robust_scale per pair when given
+    (the carried Student-t sigma), else robust_delta."""
+    global LIN_LAUNCHES
+    if i0.device.type == "cpu":
+        return fused_lin_batch_reference(
+            i0, geom, t_all, intr, states, H=H, W=W, sampling=sampling,
+            robust_loss=robust_loss, robust_delta=robust_delta, esm=esm,
+            robust_scale=robust_scale,
+        )
+    _check_inputs(i0, geom, t_all, states, H, W, sampling, esm, robust_loss, robust_scale)
+    if i0.device.type != "cuda":
+        raise ValueError(f"no level kernel for device {i0.device}")
+
+    from phovo_tpu_torch.ops import _build
+
+    lib = _build.library()
+    B = i0.shape[0]
+    scale_in = _scales(robust_delta, robust_scale, B, i0.device)
+    gram = torch.empty((B, 8, 8), dtype=torch.float32, device=i0.device)
+    if B:
+        with torch.cuda.device(i0.device):
+            stream = torch.cuda.current_stream(i0.device).cuda_stream
+            err = lib.phovo_fused_lin(
+                i0.data_ptr(), geom.data_ptr(), t_all.data_ptr(),
+                states.data_ptr(), scale_in.data_ptr(), gram.data_ptr(),
+                B, H, W, int(sampling == "bilinear"), _LOSS_CODES[robust_loss],
+                int(esm), intr.fx, intr.fy, intr.cx, intr.cy, stream,
+            )
+        if err:
+            raise RuntimeError(f"fused_lin kernel launch failed: CUDA error {err}")
+        LIN_LAUNCHES += 1
+    return gram
+
+
+def fused_lin_batch_reference(
+    i0: torch.Tensor,
+    geom: torch.Tensor,
+    t_all: torch.Tensor,
+    intr: Intrinsics,
+    states: torch.Tensor,
+    *,
+    H: int,
+    W: int,
+    sampling: str = "nearest",
+    robust_loss: str = "none",
+    robust_delta: float = 0.1,
+    esm: bool = False,
+    robust_scale: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """Plain torch version of fused_lin_batch, on any device: one batched
+    matrix product of the stacked rows."""
+    _check_inputs(i0, geom, t_all, states, H, W, sampling, esm, robust_loss, robust_scale)
+    B = i0.shape[0]
+    sigma = _scales(robust_delta, robust_scale, B, i0.device).unsqueeze(1)
+    J, r_w, validf = _pixel_columns(
+        [states[:, k:k + 1] for k in range(6)], geom.unbind(1), i0,
+        t_all.reshape(B, 3, H * W), intr, H, W, sampling == "bilinear",
+        robust_loss, sigma,
+    )
+    G = torch.cat([J, r_w.unsqueeze(1), validf.unsqueeze(1)], dim=1)  # (B, 8, N)
+    gram = torch.bmm(G, G.transpose(1, 2))
+    gram[:, 6, 7] = 0.0  # band_masked: the whole target is sampled
+    gram[:, 7, 6] = 0.0
+    return gram

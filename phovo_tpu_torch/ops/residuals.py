@@ -5,7 +5,9 @@ is held against.
 Residual i lives at SOURCE pixel i and compares the target sampled at the
 warped coordinates with I0(i); the Jacobian is the exact separated chain
 d(u, v)/d(point) @ d(point)/d(state), chained with the target gradient
-sampled at the warped coordinates.
+sampled at the warped coordinates ('warped'), read at the source pixel
+('source', the reference analytic kernel's convention) or averaged with
+the source gradient ('esm').
 """
 
 from __future__ import annotations
@@ -26,6 +28,9 @@ class NormalEquations(NamedTuple):
     Jtr: torch.Tensor  # (6,)
     cost: torch.Tensor  # sum of squared (weighted) residuals
     num_valid: torch.Tensor  # number of contributing pixels
+    # pixels a banded sampling window dropped (phovo_tpu's TPU kernels);
+    # always 0 here
+    band_masked: torch.Tensor | float = 0.0
 
 
 def rigid_jacobian(points: torch.Tensor, state: torch.Tensor) -> torch.Tensor:
@@ -80,18 +85,38 @@ def photometric_residual_jacobian(
     min_depth: float = 0.3,
     max_depth: float = 5.0,
     sampling: str = "nearest",
+    gradient_at: str = "warped",
+    source_grad_x: torch.Tensor | None = None,
+    source_grad_y: torch.Tensor | None = None,
 ):
-    """Photometric residual field and analytic Jacobian rows, with the
-    target gradient sampled at the warped coordinates
-    (gradient_at='warped'). Returns (residual (H, W), J (H, W, 6),
-    valid (H, W))."""
+    """Photometric residual field and analytic Jacobian rows. gradient_at:
+    'warped' samples the target gradient at the warped coordinates;
+    'source' reads it at the source pixel index (the reference analytic
+    kernel, CPhotoconsistencyOdometryAnalytic.h:346-347); 'esm' averages
+    the warped target gradient with the source gradient source_grad_x/y
+    (Scharr of the source intensity at the same scale). Returns
+    (residual (H, W), J (H, W, 6), valid (H, W))."""
     col, row, _, J_pix, valid_src = warp_and_jacobian(
         source_depth, state, intr, min_depth, max_depth
     )
     sample = sample_bilinear if sampling == "bilinear" else sample_nearest
     tgt_val, inb = sample(target_intensity, col, row)
-    gx, _ = sample(target_grad_x, col, row)
-    gy, _ = sample(target_grad_y, col, row)
+    if gradient_at == "warped":
+        gx, _ = sample(target_grad_x, col, row)
+        gy, _ = sample(target_grad_y, col, row)
+    elif gradient_at == "esm":
+        if source_grad_x is None or source_grad_y is None:
+            raise ValueError("gradient_at='esm' needs source_grad_x/y")
+        gx1, _ = sample(target_grad_x, col, row)
+        gy1, _ = sample(target_grad_y, col, row)
+        gx = 0.5 * (gx1 + source_grad_x)
+        gy = 0.5 * (gy1 + source_grad_y)
+    elif gradient_at == "source":
+        gx, gy = target_grad_x, target_grad_y
+    else:
+        raise ValueError(
+            f"gradient_at={gradient_at!r}; expected 'warped', 'source' or 'esm'"
+        )
     valid = valid_src & inb
     residual = torch.where(valid, tgt_val - source_intensity, torch.zeros_like(tgt_val))
     grad = torch.stack([gx, gy], dim=-1)  # (..., 2)

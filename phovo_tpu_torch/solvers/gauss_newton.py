@@ -55,21 +55,44 @@ def solve6(A: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 
 def gauss_newton_level(
-    linearize: Callable[[torch.Tensor], NormalEquations],
+    linearize: Callable[..., NormalEquations],
     init_state: torch.Tensor,
     max_iterations: int,
     min_gradient_norm: float,
     lambda_step: float = 1.0,
+    adaptive_scale=None,
+    adaptive_burnin: int = 0,
 ) -> GNLevelResult:
     """Run Gauss-Newton at one pyramid level. linearize(state) returns the
     level's NormalEquations; a non-finite step leaves the state where it
-    is. max_iterations == 0 leaves the state untouched (skipped level)."""
+    is. max_iterations == 0 leaves the state untouched (skipped level).
+
+    adaptive_scale (robust_loss='tdist'): the initial residual scale sigma;
+    linearize is then called as linearize(state, sigma), and sigma is
+    re-estimated after every linearization from its weighted cost and valid
+    count (ops/robust.tdist_scale_update). adaptive_burnin runs that update
+    that many times at the initial state before iterating. The final sigma
+    is tdist_scale_update(result.cost, result.num_valid)."""
     state = init_state.to(torch.float32)
     zero = torch.zeros((), dtype=torch.float32, device=state.device)
     it, gnorm, cost, nvalid = 0, float("inf"), zero, zero
     gnorm_t = zero
+    if max_iterations <= 0:
+        return GNLevelResult(state, it, gnorm_t, cost, nvalid)
+    tdist = adaptive_scale is not None
+    if tdist:
+        from phovo_tpu_torch.ops.robust import tdist_scale_update
+
+        sigma = torch.as_tensor(adaptive_scale, dtype=torch.float32, device=state.device)
+        for _ in range(adaptive_burnin):
+            ne = linearize(state, sigma)
+            sigma = tdist_scale_update(ne.cost, ne.num_valid)
     while it < max_iterations and gnorm >= min_gradient_norm:
-        ne = linearize(state)
+        if tdist:
+            ne = linearize(state, sigma)
+            sigma = tdist_scale_update(ne.cost, ne.num_valid)
+        else:
+            ne = linearize(state)
         step = solve6(ne.JtJ, ne.Jtr)
         if bool(torch.all(torch.isfinite(step))):
             state = state - lambda_step * step

@@ -1,5 +1,6 @@
-"""The CUDA level kernels (Gauss-Newton and trust-region) against their
-plain torch versions, on the card.
+"""The CUDA kernels (the Gauss-Newton and trust-region levels with their
+loss and Jacobian variants, and the one linearization) against their plain
+torch versions, on the card.
 
 Needs an NVIDIA GPU and nvcc; skipped elsewhere. Run on the card with
     python -m pytest --noconftest -m cuda tests/test_torch_kernel_cuda.py
@@ -155,3 +156,140 @@ def test_tr_kernel_single_pair_equals_batch():
         one = fused_tr_level(It[j], Dt[j], t_all[j + 1], INTR, args[4][j], 0.3, 5.0, opts)
         for x, y in zip(one, batch):
             assert torch.equal(x, y[j])
+
+
+# -- the loss and Jacobian variants -------------------------------------------
+
+DELTAS = {"none": 0.1, "huber": 0.02, "cauchy": 0.02, "tukey": 0.1, "tdist": 0.1}
+
+
+def _variant_packs(esm, H=96, W=128, n=6):
+    """_packs with a bright occluder in every target (so the robust
+    weights bite) and, for ESM, the source gradients as geometry rows."""
+    I, D, _, _ = make_sequence(INTR, (H, W), n)
+    I = np.stack(I)
+    I[1:, 10:30, 70:100] = 0.95
+    dev = torch.device("cuda")
+    It = torch.from_numpy(I).to(dev)
+    Dt = torch.from_numpy(np.stack(D)).to(dev)
+    gx, gy = pyr.scharr(It, "x", 0.0625), pyr.scharr(It, "y", 0.0625)
+    init = torch.from_numpy(
+        (np.random.default_rng(0).standard_normal((n - 1, 6)) * 1e-3).astype(np.float32)
+    ).to(dev)
+    sg = (gx[:-1], gy[:-1]) if esm else None
+    return (
+        It[:-1].reshape(n - 1, -1).contiguous(),
+        pack_geometry(Dt[:-1], INTR, 0.3, 5.0, sg).contiguous(),
+        pack_target(It, gx, gy)[1:].contiguous(), INTR, init,
+    )
+
+
+@pytest.mark.parametrize("loss,esm,sampling,iterations", [
+    ("huber", False, "bilinear", 8), ("cauchy", False, "bilinear", 8),
+    ("tukey", False, "bilinear", 8), ("tdist", False, "bilinear", 8),
+    ("none", True, "bilinear", 8), ("huber", True, "nearest", 2),
+    ("tdist", True, "nearest", 2),
+])
+def test_gn_kernel_variants_match_plain(loss, esm, sampling, iterations):
+    """K-GN with each loss and ESM against its plain version; tdist with a
+    per-pair sigma in, 4 burn-in passes, and the sigma out."""
+    args = _variant_packs(esm)
+    kw = dict(H=96, W=128, sampling=sampling, robust_loss=loss, robust_delta=DELTAS[loss], esm=esm)
+    if loss == "tdist":
+        kw.update(robust_scale=torch.linspace(0.05, 0.2, 5, device="cuda"), tdist_burnin=4)
+    before = FB.LAUNCHES
+    k = FB.fused_gn_level_batch(*args, iterations, 0.0, 1.0, **kw)
+    assert FB.LAUNCHES == before + 1
+    p = FB.fused_gn_level_batch_reference(*args, iterations, 0.0, 1.0, **kw)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(k.state, p.state, rtol=0, atol=2e-4)
+    assert torch.equal(k.iterations, p.iterations)
+    assert torch.equal(k.num_valid, p.num_valid)
+    torch.testing.assert_close(k.cost, p.cost, rtol=1e-4, atol=0)
+    torch.testing.assert_close(k.robust_scale, p.robust_scale, rtol=1e-4, atol=0)
+
+
+def test_gn_kernel_single_pair_equals_batch():
+    """B = 1 (the per-pair level, ops/fused.fused_gn_level_packs) runs each
+    pair through the same block code as the batch, per-pair sigma too: the
+    same bits."""
+    from phovo_tpu_torch.ops.fused import fused_gn_level_packs
+
+    args = _variant_packs(True)
+    scale = torch.linspace(0.05, 0.2, 5, device="cuda")
+    kw = dict(H=96, W=128, sampling="bilinear", robust_loss="tdist", esm=True, tdist_burnin=4)
+    batch = FB.fused_gn_level_batch(*args, 6, 0.0, 1.0, robust_scale=scale, **kw)
+    for j in range(5):
+        one = fused_gn_level_packs(
+            args[0][j], args[1][j], args[2][j], INTR, args[4][j], 6, 0.0, 1.0,
+            robust_scale=scale[j], **kw,
+        )
+        for x, y in zip(one, batch):
+            assert torch.equal(x, y[j])
+
+
+@pytest.mark.parametrize("loss", ["huber", "cauchy", "tukey"])
+def test_tr_kernel_robust_losses_match_plain(loss):
+    args = _variant_packs(False)
+    before = FB.TR_LAUNCHES
+    opts = TROptions(4, **TESTS_OFF)
+    kw = dict(H=96, W=128, robust_loss=loss, robust_delta=0.05)
+    k = FB.fused_tr_level_batch(*args, opts, **kw)
+    assert FB.TR_LAUNCHES == before + 1
+    p = FB.fused_tr_level_batch_reference(*args, opts, **kw)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(k.state, p.state, rtol=0, atol=2e-4)
+    assert torch.equal(k.iterations, p.iterations)
+    assert torch.equal(k.num_valid, p.num_valid)
+    torch.testing.assert_close(k.cost, p.cost, rtol=1e-4, atol=0)
+    torch.testing.assert_close(k.gradient_norm, p.gradient_norm, rtol=1e-3, atol=0)
+
+
+@pytest.mark.parametrize("loss,esm,sampling", [
+    ("none", False, "nearest"), ("huber", False, "bilinear"), ("cauchy", True, "nearest"),
+    ("tukey", False, "bilinear"), ("tdist", True, "bilinear"),
+])
+def test_lin_kernel_matches_plain(loss, esm, sampling):
+    """K-LIN's Gram within 1e-4 of its largest entry, the valid count and
+    the band slot (always 0) equal."""
+    args = _variant_packs(esm)
+    kw = dict(H=96, W=128, sampling=sampling, robust_loss=loss, robust_delta=DELTAS[loss], esm=esm)
+    before = FB.LIN_LAUNCHES
+    k = FB.fused_lin_batch(*args, **kw)
+    assert FB.LIN_LAUNCHES == before + 1
+    p = FB.fused_lin_batch_reference(*args, **kw)
+    torch.cuda.synchronize()
+    scale = p.abs().amax(dim=(1, 2), keepdim=True)
+    assert bool(((k - p).abs() <= 1e-4 * scale).all()), float(((k - p).abs() / scale).max())
+    assert torch.equal(k[:, 7, 7], p[:, 7, 7])
+    assert float(k[:, 6, 7].abs().sum()) == 0.0
+    assert torch.equal(k, k.transpose(1, 2))
+
+
+def test_analytic_object_api_launches_once_per_level():
+    """PhotoconsistencyOdometryAnalytic on the card: one K-GN launch per
+    active level, the states of the plain per-pair route."""
+    from unittest import mock
+
+    from phovo_tpu_torch.models import analytic
+    from phovo_tpu_torch.utils.config import PhovoConfig
+
+    cfg = PhovoConfig(
+        num_levels=3, blur_filter_sizes=(0,) * 3, gradient_scales=(0.0625,) * 3,
+        max_iterations=(0, 4, 6), lambda_steps=(1.0,) * 3, min_gradient_norms=(0.0,) * 3,
+        sampling="bilinear", robust_loss="tdist", gradient_at="esm",
+    )
+    I, D, _, _ = make_sequence(INTR, (96, 128), 2)
+    vo = analytic.PhotoconsistencyOdometryAnalytic(cfg, device="cuda")
+    vo.set_intrinsic_matrix([[INTR.fx, 0, INTR.cx], [0, INTR.fy, INTR.cy], [0, 0, 1]])
+    vo.set_source_frame((I[0] * 255).astype(np.uint8), D[0])
+    vo.set_target_frame((I[1] * 255).astype(np.uint8), D[1])
+    before = FB.LAUNCHES
+    k = vo.optimize()
+    torch.cuda.synchronize()
+    assert FB.LAUNCHES == before + 2
+    with mock.patch("phovo_tpu_torch.ops.fused.fused_gn_level_batch", FB.fused_gn_level_batch_reference):
+        p = vo.optimize()
+    assert FB.LAUNCHES == before + 2
+    torch.testing.assert_close(k.state, p.state, rtol=0, atol=2e-4)
+    assert torch.equal(k.iterations, p.iterations)

@@ -1,10 +1,10 @@
 """phovo_tpu_torch never imports jax, never falls back silently, and
 refuses what it has not ported.
 
-The level kernels (Gauss-Newton and trust-region) run only on CUDA
-tensors; on CPU tensors the wrappers take the plain versions and launch
-nothing; any other device, a missing nvcc, or a card that is not there
-raises instead of computing elsewhere.
+The kernels (the Gauss-Newton and trust-region levels, the one
+linearization) run only on CUDA tensors; on CPU tensors the wrappers take
+the plain versions and launch nothing; any other device, a missing nvcc,
+or a card that is not there raises instead of computing elsewhere.
 """
 
 import dataclasses
@@ -132,43 +132,29 @@ def test_chip_smoke_without_a_card_fails(tmp_path):
 
 
 @pytest.mark.parametrize(
-    "kwargs",
-    [
-        dict(warm_start=True),
-        dict(robust_loss="tdist"),
-        dict(robust_loss="huber"),
-        dict(gradient_at="esm"),
-        dict(gradient_at="source"),
-    ],
-    ids=lambda kw: "-".join(f"{k}={v}" for k, v in kw.items()),
-)
-def test_unported_routes_raise(kwargs):
-    import dataclasses
-
-    warm = kwargs.pop("warm_start", False)
-    cfg = dataclasses.replace(CONFIG, **kwargs)
-    I, D = _frames()
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        align_sequence(I, D, INTR, cfg, warm_start=warm)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        align_sequence_chunk(I[0], D[0], I[1:], D[1:], INTR, cfg, warm_start=warm)
-
-
-@pytest.mark.parametrize(
     "layout,what",
     [
         (dict(channels=6), "bi-objective"),
-        (dict(rows=6), "ESM"),
+        (dict(rows=6), "esm=False"),
         (dict(), "shared"),
     ],
     ids=["biobjective", "esm", "shared-source"],
 )
 def test_unported_kernel_layouts_raise(layout, what):
+    """The GN kernel refuses only the layouts not ported: bi-objective
+    targets (queue A item 7) and a shared source (item 5). ESM geometry
+    is ported: six rows are read with esm=True and are a shape error
+    without it."""
     i0, geom, t_all, intr, states = _level_inputs(**layout)
     if what == "shared":
         i0 = i0[:1].contiguous()
-    with pytest.raises(NotImplementedError, match=what):
-        FB.fused_gn_level_batch(i0, geom, t_all, intr, states, 1, 0.0, 1.0, H=H, W=W)
+    error = ValueError if what == "esm=False" else NotImplementedError
+    for fn in (FB.fused_gn_level_batch, FB.fused_gn_level_batch_reference):
+        with pytest.raises(error, match=what):
+            fn(i0, geom, t_all, intr, states, 1, 0.0, 1.0, H=H, W=W)
+    if what == "esm=False":
+        res = FB.fused_gn_level_batch(i0, geom, t_all, intr, states, 1, 0.0, 1.0, H=H, W=W, esm=True)
+        assert bool(torch.isfinite(res.state).all())
 
 
 @pytest.mark.parametrize("fault", ["dtype", "contiguity", "shape", "sampling"])
@@ -210,6 +196,20 @@ def test_cpu_trust_region_calls_launch_nothing():
     assert ci.device.type == "cpu"
 
 
+def test_lin_kernel_cpu_and_other_devices():
+    """The one-linearization wrapper: the plain Gram on CPU tensors,
+    launching nothing; another device raises."""
+    before = FB.LIN_LAUNCHES
+    i0, geom, t_all, intr, states = _level_inputs()
+    gram = FB.fused_lin_batch(i0, geom, t_all, intr, states, H=H, W=W, robust_loss="tukey")
+    assert torch.equal(gram, FB.fused_lin_batch_reference(
+        i0, geom, t_all, intr, states, H=H, W=W, robust_loss="tukey"))
+    assert gram.shape == (2, 8, 8) and float(gram[:, 6, 7].abs().sum()) == 0.0
+    with pytest.raises(ValueError, match="no level kernel for device"):
+        FB.fused_lin_batch(*_level_inputs(device="meta"), H=H, W=W)
+    assert FB.LIN_LAUNCHES == before
+
+
 def test_trust_region_other_devices_raise():
     before = FB.TR_LAUNCHES
     i0, geom, t_all, intr, states = _level_inputs(device="meta")
@@ -221,21 +221,20 @@ def test_trust_region_other_devices_raise():
 @pytest.mark.parametrize(
     "kwargs,error",
     [
-        (dict(robust_loss="huber"), NotImplementedError),
-        (dict(robust_loss="cauchy"), NotImplementedError),
-        (dict(robust_loss="tukey"), NotImplementedError),
         (dict(jacobian_mode="jacfwd"), NotImplementedError),
         (dict(jacobian_mode="numeric"), ValueError),
+        (dict(robust_loss="tdist"), ValueError),
     ],
     ids=lambda v: "-".join(f"{k}={x}" for k, x in v.items()) if isinstance(v, dict) else "",
 )
 def test_unported_trust_region_routes_raise(kwargs, error):
-    """Robust losses and the jacfwd Jacobian are not ported: every entry
-    point refuses them, naming the ROADMAP item."""
+    """The jacfwd Jacobian is not ported, and the Student-t loss has no
+    trust-region solver (phovo_tpu raises the same ValueError): every
+    entry point refuses them, and the kernel wrappers refuse tdist."""
     mode = kwargs.pop("jacobian_mode", "linearizer")
     cfg = dataclasses.replace(TR_CONFIG, **kwargs)
     I, D = _frames()
-    match = "ROADMAP.md" if error is NotImplementedError else "jacobian_mode"
+    match = {"jacfwd": "ROADMAP.md", "numeric": "jacobian_mode"}.get(mode, "tdist")
     calls = [
         lambda: tad.align_autodiff(I[0], D[0], I[1], D[1], INTR, torch.zeros(6), cfg, mode),
         lambda: tad.align_sequence_autodiff(I, D, INTR, cfg, mode),
@@ -247,6 +246,33 @@ def test_unported_trust_region_routes_raise(kwargs, error):
     for call in calls:
         with pytest.raises(error, match=match):
             call()
+    if mode == "linearizer":
+        args = _level_inputs()
+        for fn in (FB.fused_tr_level_batch, FB.fused_tr_level_batch_reference):
+            with pytest.raises(ValueError, match="tdist"):
+                fn(*args, TROptions(2), H=H, W=W, robust_loss="tdist")
+
+
+@pytest.mark.parametrize("loss", ["huber", "cauchy", "tukey"])
+def test_trust_region_robust_losses_run_on_the_plain_version(loss):
+    """huber, cauchy and tukey run on every trust-region entry point (an
+    'esm' config too: the ceres backend reads the warped-point gradient
+    whatever gradient_at says); on CPU tensors through the plain version,
+    launching nothing."""
+    before = (FB.LAUNCHES, FB.TR_LAUNCHES, FB.LIN_LAUNCHES)
+    cfg = dataclasses.replace(TR_CONFIG, robust_loss=loss, robust_delta=0.05, gradient_at="esm")
+    I, D = _frames()
+    results = [
+        tad.align_sequence_autodiff(I, D, INTR, cfg),
+        tad.align_sequence_autodiff(I, D, INTR, cfg, warm_start=True),
+        tad.align_sequence_chunk_autodiff(I[0], D[0], I[1:], D[1:], INTR, cfg)[0],
+        tad.align_autodiff(I[0], D[0], I[1], D[1], INTR, torch.zeros(6), cfg),
+    ]
+    for res in results:
+        assert bool(torch.isfinite(res.state).all())
+    plain = tad.align_sequence_autodiff(I, D, INTR, TR_CONFIG)
+    assert not torch.equal(results[0].cost, plain.cost)  # the weights reached the level
+    assert (FB.LAUNCHES, FB.TR_LAUNCHES, FB.LIN_LAUNCHES) == before
 
 
 @pytest.mark.parametrize(
@@ -294,8 +320,9 @@ def test_library_path_hashes_headers(tmp_path, monkeypatch):
     monkeypatch.setattr(_build.subprocess, "run", fake_run)
     with pytest.raises(RuntimeError, match="nvcc failed"):
         _build.build()
-    cmd = seen[0]
-    assert cmd[cmd.index("-I") + 1] == str(csrc)
-    assert sorted(Path(c).name for c in cmd if c.endswith(".cu")) == [
-        "fused_gn_batch.cu", "fused_tr_batch.cu",
+    # one nvcc per source, every one started
+    assert all(cmd[cmd.index("-I") + 1] == str(csrc) for cmd in seen)
+    assert sorted(Path(c).name for cmd in seen for c in cmd if c.endswith(".cu")) == [
+        "fused_gn_batch.cu", "fused_lin.cu", "fused_tr_batch.cu",
     ]
+    assert not list((tmp_path / "build").iterdir())  # nothing left behind

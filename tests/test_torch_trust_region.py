@@ -260,6 +260,67 @@ def test_chip_smoke_early_exit_tolerance(frames, name):
     assert port.iterations.tolist() == stops.tolist()
 
 
+@pytest.mark.parametrize("sampling", ["nearest", "bilinear"])
+def test_chip_smoke_warped_uv_is_the_plain_validity(frames, sampling):
+    """chip_smoke.warped_uv, which names the pixels behind a count or cost
+    difference on the card, flags the pixels the plain version counts."""
+    smoke = _chip_smoke()
+    args, kw = _port_args(frames, 0)
+    gram = FB.fused_lin_batch_reference(*args, sampling=sampling, **kw)
+    valid = smoke.warped_uv(FB, args[1], args[4], args[3], kw["H"], kw["W"], sampling)[2]
+    assert torch.equal(valid.sum(dim=1).to(torch.float32), gram[:, 7, 7])
+
+
+class _ShiftedKernel:
+    """fused_batch with its GN 'kernel' replaced by the plain version from
+    a shifted start: another trajectory, the same sums."""
+
+    def __getattr__(self, name):
+        return getattr(FB, name)
+
+    def fused_gn_level_batch(self, i0, geom, t_all, intr, init, *args, **kw):
+        return FB.fused_gn_level_batch_reference(i0, geom, t_all, intr, init + 1e-3, *args, **kw)
+
+
+def test_chip_smoke_attribute_nearest_cost(frames, monkeypatch):
+    """chip_smoke.attribute_nearest_cost passes a nearest cost difference
+    that sample flips make while the sums agree at the same state, and
+    refuses one whose cost is off at its own state."""
+    smoke = _chip_smoke()
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
+    args, kw = _port_args(frames, 0)
+    gn_args = (*args[:4], torch.zeros((B, 6)), 3, 0.0, 1.0)
+    kw = dict(kw, sampling="nearest", robust_loss="huber", robust_delta=0.02)
+    fake = _ShiftedKernel()
+    k = fake.fused_gn_level_batch(*gn_args, **kw)
+    p = FB.fused_gn_level_batch_reference(*gn_args, **kw)
+    assert float(((k.cost - p.cost).abs() / p.cost).max()) > smoke.COST_RTOL
+    smoke.attribute_nearest_cost(fake, gn_args, kw, k, p, "shifted start", "CPU")
+    with pytest.raises(RuntimeError, match="same-state cost"):
+        smoke.attribute_nearest_cost(fake, gn_args, kw, k._replace(cost=k.cost * 1.001), p, "cost off", "CPU")
+
+
+def test_chip_smoke_explain_valid_diff(frames, monkeypatch):
+    """chip_smoke.explain_valid_diff accepts a valid-count difference only
+    where pixels across the in-bounds edge, moved at most EDGE_SHIFT_PX,
+    account for it exactly."""
+    smoke = _chip_smoke()
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
+    args, kw = _port_args(frames, 0)
+    geom, intr, H, W = args[1], args[3], kw["H"], kw["W"]
+    p = FB.fused_tr_level_batch_reference(*args, ttr.TROptions(2, **TIGHT), **kw)
+    moved = p.state + torch.tensor([1e-2, 1e-2, 0, 0, 0, 0])
+    nv = smoke.warped_uv(FB, geom, moved, intr, H, W, "bilinear")[2].sum(dim=1).to(torch.float32)
+    assert not torch.equal(nv, p.num_valid)
+    k = p._replace(state=moved, num_valid=nv)
+    with pytest.raises(RuntimeError, match="away from the in-bounds edge"):
+        smoke.explain_valid_diff(FB, geom, intr, H, W, k, p, "moved")
+    monkeypatch.setattr(smoke, "EDGE_SHIFT_PX", 10.0)
+    smoke.explain_valid_diff(FB, geom, intr, H, W, k, p, "moved")
+    with pytest.raises(RuntimeError, match="account for"):
+        smoke.explain_valid_diff(FB, geom, intr, H, W, k._replace(num_valid=nv + 1), p, "count off")
+
+
 def test_cpu_wrapper_is_the_reference(frames):
     """On CPU tensors the wrapper returns the plain version's numbers and
     launches nothing."""
