@@ -50,10 +50,27 @@ Phases, each of which raises on failure (exit code 1, no result line):
      huber, tdist and ESM beside 'none', the ceres chain with huber, and
      the GN kernel at B = 1 and the one-linearization kernel vs their
      plain versions at 480x640
-Each of the paths of phases 4, 5, 6, 6b and 6d runs with the launch counts
-set to 0 just before it and read just after. The line before the last is
-the kernels' JSON record (for fused_lin, max_abs_err is the largest Gram
-difference over the Gram's largest entry); the last line is
+ 3c. the inverse-compositional kernels vs plain: K-ICpre on 8 VGA frames
+     at all five levels (rows within 1e-6, the factor within 1e-4 of its
+     largest entry); K-IC on 8 VGA pairs at every active level of the
+     bench schedule, bilinear over the whole schedule, nearest over 3
+     iterations, and an early-exit case per sampling
+ 4b. IC main path: the 257 frames through align_sequence_chunk_ic in the
+     two chunks, early exit at 300 and fixed-75: launch counts, kernel vs
+     plain, the ATE
+ 6e. IC object API: 4 pairs through PhotoconsistencyOdometryIC.optimize()
+     against the level-major chain; one 480x640 pair of
+     config_only_level_0_analytic
+ 7c. IC timing: the IC chain beside the analytic chain (fixed-75, early
+     exit), the IC prep layer, K-IC and K-ICpre per level vs their plain
+     versions, align_ic a VGA pair
+Each of the paths of phases 4, 4b, 5, 6, 6b, 6d and 6e runs with the
+launch counts set to 0 just before it and read just after. A line
+"[t s] phase" marks each phase's start. The line before the last is the
+kernels' JSON record (for fused_lin, max_abs_err is the largest Gram
+difference over the Gram's largest entry; bound_ms is the least time the
+card could take for the timed work, from the bytes it must move and the
+float32 operations it does); the last line is
 {"ok": true, "device": {...}}.
 """
 
@@ -862,6 +879,366 @@ def phase_linearizer(fb, I8, D16, card):
     return launches
 
 
+# The card's peaks behind each kernel's bound (NVIDIA's H100 SXM data sheet,
+# dense, at 700 W): device memory bytes/s and float32 operations/s outside
+# the tensor cores. Every kernel here is float32 CUDA-core work.
+H100_BYTES_PER_S = 3.35e12
+H100_F32_FLOPS = 67e12
+# float32 operations a kernel does per pixel and pass, counted from its
+# per-pixel code (compares, selects, index arithmetic and rounding not
+# counted): the level kernels' linearization (phovo_linearize.cuh
+# accumulate_pixel: warp 25, rotation-derivative rows 34, chain terms 22,
+# residual and columns 22, Gram, J^T r, cost and count 57; bilinear
+# sampling of three channels 40 more), K-LIN's 6 sums more, K-IC's pass
+# (ic_gn_batch.cu: warp 25, residual 2, J0^T r, cost and count 15; one
+# bilinear channel 14 more) and K-ICpre's (ic_precompute.cu: geometry and
+# chain terms 23, rows 22, Gram 42).
+GN_FLOPS = {"nearest": 160, "bilinear": 200}
+LIN_EXTRA_FLOPS = 12
+IC_FLOPS = {"nearest": 42, "bilinear": 56}
+IC_PRE_FLOPS = 87
+# K-ICpre against its plain version: the rows are the same expressions in
+# the same order (so the same bits, or an ulp apart); the factor comes from
+# the Gram's pixel sums taken in another order, relative to its largest
+# entry.
+IC_J8_ATOL = 1e-6
+IC_L_RTOL = 1e-4
+
+
+def nbytes(*tensors) -> int:
+    """Bytes of the tensors among the arguments (None and other values
+    count nothing)."""
+    return sum(t.numel() * t.element_size() for t in tensors if isinstance(t, torch.Tensor))
+
+
+def bound(n_bytes: float, flops: float) -> tuple[float, str]:
+    """(the least ms the card could take, what sets it): the larger of the
+    bytes over the memory rate and the operations over the float32 rate."""
+    ms_bytes = 1e3 * n_bytes / H100_BYTES_PER_S
+    ms_ops = 1e3 * flops / H100_F32_FLOPS
+    return (ms_bytes, "bytes") if ms_bytes >= ms_ops else (ms_ops, "operations")
+
+
+def reset_ic_counts(IC, ICB) -> None:
+    IC.IC_PRE_LAUNCHES = 0
+    ICB.IC_LAUNCHES = 0
+
+
+def ic_pair_args(prep: dict, level: int, intr):
+    """K-IC's inputs for the pairs of per-frame IC products (source k,
+    target k + 1) at one level, from the identity."""
+    from phovo_tpu_torch.ops.pyramid import level_shape
+
+    geom, J8, L, img = prep[level]
+    B = geom.shape[0] - 1
+    H, W = level_shape(SHAPE, level)
+    Ts = torch.eye(4, device=geom.device).repeat(B, 1, 1)
+    return (Ts, geom[:-1], J8[:-1], L[:-1], img[1:], intr.at_level(level)), dict(H=H, W=W)
+
+
+def compare_ic_level(ICB, args, kw, n, threshold, sampling, what, card):
+    """K-IC against its plain version on the same inputs, n iterations at
+    most with the gradient-norm threshold: poses within STATE_ATOL, equal
+    iteration and valid counts, nothing band-masked. Returns the kernel's
+    result and the largest pose difference."""
+    k = ICB.ic_gn_level_batch(*args, n, threshold, 1.0, sampling=sampling, **kw)
+    p = ICB.ic_gn_level_batch_reference(*args, n, threshold, 1.0, sampling=sampling, **kw)
+    torch.cuda.synchronize()
+    err = float((k.T - p.T).abs().max())
+    cost_rel = float(((k.cost - p.cost).abs() / p.cost.abs().clamp_min(1e-30)).max())
+    same = torch.equal(k.iterations, p.iterations) and torch.equal(k.num_valid, p.num_valid)
+    print(f"IC kernel vs plain: {what} {kw['H']}x{kw['W']} {sampling} {args[0].shape[0]} pairs, budget {n}, "
+          f"threshold {threshold:.6g}: max|pose diff| {err:.3e}, iterations {k.iterations.tolist()}, "
+          f"iterations and valid counts equal {same}, max cost rel diff {cost_rel:.3e} [{card}]")
+    check(err <= STATE_ATOL, f"IC {what}: pose diff {err} > {STATE_ATOL}")
+    check(same, f"IC {what}: iterations or valid counts differ")
+    check(float(k.band_masked.abs().sum()) == 0.0, f"IC {what}: band_masked not 0")
+    return k, err
+
+
+def phase_ic_kernels(I9, D9, card):
+    """Phase 3c: K-ICpre against its plain version on 8 VGA frames at all
+    five levels; K-IC against its plain version on 8 VGA pairs at every
+    active level of the bench schedule from the identity: bilinear over
+    the whole schedule, nearest over NEAREST_ITERATIONS, and per sampling
+    an early-exit case whose threshold lies at least EARLY_EXIT_MARGIN
+    from every ||g|| the plain version reads before a stop. Returns the
+    largest differences: (J8, L relative, pose)."""
+    from phovo_tpu_torch.models.ic import prep_frame_ic
+    from phovo_tpu_torch.ops import ic as IC
+    from phovo_tpu_torch.ops import ic_batch as ICB
+    from phovo_tpu_torch.ops import pyramid as pyr
+    from phovo_tpu_torch.ops.camera import TUM_FR1
+
+    cfg = bench_config(0.0)
+    ints = pyr.build_pyramid(I9[:8], cfg.num_levels, cfg.blur_filter_sizes, blur_type=cfg.blur_type)
+    deps = pyr.build_pyramid(D9[:8], cfg.num_levels)
+    j8_err = l_err = 0.0
+    for level in range(cfg.num_levels):
+        img, dep = ints[level].contiguous(), deps[level].contiguous()
+        scale = cfg.gradient_scales[level]
+        args = (img, dep, pyr.scharr(img, "x", scale), pyr.scharr(img, "y", scale), TUM_FR1.at_level(level),
+                cfg.min_depth, cfg.max_depth)
+        J8, L = IC.ic_precompute_batch(*args)
+        pJ8, pL = IC.ic_precompute_batch_reference(*args)
+        torch.cuda.synchronize()
+        j8 = float((J8 - pJ8).abs().max())
+        l_rel = float(((L - pL).abs() / pL.abs().amax(dim=1, keepdim=True)).max())
+        print(f"IC precompute kernel vs plain: level {level} {img.shape[1]}x{img.shape[2]}, 8 frames: "
+              f"max|J8 diff| {j8:.3e} ({int((J8 != pJ8).sum())} of {J8.numel()} entries differ), max|L diff| / "
+              f"max|L| {l_rel:.3e} [{card}]")
+        check(j8 <= IC_J8_ATOL, f"IC precompute J8 diff {j8} > {IC_J8_ATOL}")
+        check(l_rel <= IC_L_RTOL, f"IC precompute factor rel diff {l_rel} > {IC_L_RTOL}")
+        j8_err, l_err = max(j8_err, j8), max(l_err, l_rel)
+    del ints, deps
+
+    prep = prep_frame_ic(I9, D9, TUM_FR1, cfg)
+    pose_err = 0.0
+    for sampling in ("nearest", "bilinear"):
+        for level in sorted(prep, reverse=True):
+            args, kw = ic_pair_args(prep, level, TUM_FR1)
+            n = cfg.max_iterations[level]
+            n = n if sampling == "bilinear" else min(n, NEAREST_ITERATIONS)
+            pose_err = max(pose_err, compare_ic_level(ICB, args, kw, n, 0.0, sampling, f"level {level}", card)[1])
+    for sampling in ("nearest", "bilinear"):
+        budget = EARLY_EXIT_ITERATIONS if sampling == "bilinear" else NEAREST_ITERATIONS
+        for level in sorted(prep, reverse=True):
+            args, kw = ic_pair_args(prep, level, TUM_FR1)
+            B = args[0].shape[0]
+            values = [torch.full((B,), float("inf"), dtype=torch.float64)]
+            values += [
+                ICB.ic_gn_level_batch_reference(*args, m, 0.0, 1.0, sampling=sampling, **kw).gradient_norm.double().cpu()
+                for m in range(1, budget + 1)
+            ]
+            tol, stops = early_exit_tolerance(torch.stack(values))
+            k, err = compare_ic_level(ICB, args, kw, budget, tol, sampling, f"early exit, level {level}", card)
+            check(k.iterations.cpu().tolist() == stops.tolist(),
+                  f"IC early exit level {level} {sampling}: stopped after {k.iterations.tolist()}, predicted {stops.tolist()}")
+            pose_err = max(pose_err, err)
+    return j8_err, l_err, pose_err
+
+
+def phase_ic_main(run_chain, fb, se3, traj, gts, ts, card):
+    """Phase 4b: the IC main path, the 257 frames through
+    align_sequence_chunk_ic in the two chunks with the bench schedule, early
+    exit at 300 and fixed-75, each with the launch counts set to 0 just
+    before and read just after; then once more through the plain versions.
+    Early exit: per-pair agreement on the pairs whose every level ran at
+    most NEAREST_ITERATIONS iterations (further nearest iterations are
+    chaotic); fixed-75: the difference is printed, not held. Both: finite
+    states and the ATE below standing still. Returns the early-exit run's
+    launches (K-ICpre, K-IC) and its largest compared pose difference."""
+    from phovo_tpu_torch.models import ic
+    from phovo_tpu_torch.ops import ic as IC
+    from phovo_tpu_torch.ops import ic_batch as ICB
+
+    out = None
+    for name, cfg in (("early exit at 300", bench_config(300.0)), ("fixed-75", bench_config(0.0))):
+        active = sum(1 for n in cfg.max_iterations if n > 0)
+        reset_ic_counts(IC, ICB)
+        reset_counts(fb)
+        kern = run_chain(ic.align_sequence_chunk_ic, cfg)
+        launches = (IC.IC_PRE_LAUNCHES, ICB.IC_LAUNCHES)
+        other = fb.LAUNCHES + fb.TR_LAUNCHES + fb.LIN_LAUNCHES
+        print(f"IC path, {name}: K-ICpre launches {launches[0]}, K-IC launches {launches[1]} (expected {active} "
+              f"levels x {len(CHUNKS)} chunks each), other kernels {other}")
+        check(launches == (active * len(CHUNKS),) * 2 and other == 0,
+              "the IC path did not launch K-ICpre and K-IC once per active level of every chunk")
+        with mock.patch.object(IC, "ic_precompute_batch", IC.ic_precompute_batch_reference), \
+                mock.patch.object(ic, "ic_gn_level_batch", ICB.ic_gn_level_batch_reference):
+            plain = run_chain(ic.align_sequence_chunk_ic, cfg)
+        check((IC.IC_PRE_LAUNCHES, ICB.IC_LAUNCHES) == launches, "the plain IC run launched a kernel")
+        diff = (kern.state - plain.state).abs().amax(dim=1)
+        its = kern.iterations.cpu()
+        short = (kern.iterations <= NEAREST_ITERATIONS).all(dim=1)
+        err = float(diff[short].max()) if bool(short.any()) else float("nan")
+        same = torch.equal(kern.iterations[short], plain.iterations[short]) and torch.equal(
+            kern.num_valid[short], plain.num_valid[short])
+        print(f"IC path, {name}: {kern.state.shape[0]} pairs, iterations per level (mean) "
+              f"{its.double().mean(dim=0).numpy().round(3).tolist()} (max {its.max(dim=0).values.tolist()}); "
+              f"kernel vs plain on the {int(short.sum())} pairs of at most {NEAREST_ITERATIONS} iterations a level: "
+              f"max|state diff| {err:.3e}, iterations and valid counts equal {same}; over all pairs "
+              f"{float(diff.max()):.3e} [{card}]")
+        if name.startswith("early"):
+            check(bool(short.any()) and err <= STATE_ATOL and same, "IC early-exit chain differs from plain")
+            out = (launches, err)
+        check(bool(torch.isfinite(kern.state).all()), "non-finite IC states")
+        check(tuple(kern.state.shape) == (N_FRAMES - 1, 6), f"IC state shape {tuple(kern.state.shape)}")
+        ate, still = trajectory_ate(se3, traj, kern.state, gts, ts)
+        print(f"IC path, {name}: ATE rmse {ate:.6f} m (identity trajectory {still:.6f} m)")
+        check(np.isfinite(ate) and ate < still, "IC ATE not finite or not below standing still")
+    return out
+
+
+def phase_ic_api(I8, D16, card):
+    """Phase 6e: N_API_PAIRS pairs through PhotoconsistencyOdometryIC on the
+    card (one K-ICpre and one K-IC launch per active level a pair) against
+    the level-major chain on the same frames; one 480x640 pair of
+    config_only_level_0_analytic. Returns (K-IC launches of the per-pair
+    run, largest state difference)."""
+    from phovo_tpu_torch.models import ic
+    from phovo_tpu_torch.models.base import device_unit_intensity
+    from phovo_tpu_torch.ops import ic as IC
+    from phovo_tpu_torch.ops import ic_batch as ICB
+    from phovo_tpu_torch.ops import pyramid as pyr
+    from phovo_tpu_torch.ops.camera import TUM_FR1
+    from phovo_tpu_torch.utils.config import config_from_dict
+
+    dev = torch.device("cuda", 0)
+    cfg = bench_config(300.0)
+    active = sum(1 for n in cfg.max_iterations if n > 0)
+    n = N_API_PAIRS + 1
+    depth_m = [torch.from_numpy(D16[k]).to(dev).to(torch.float32) * float(np.float32(DEPTH_SCALE)) for k in range(n)]
+    Iapi, Dapi = torch.from_numpy(I8[:n]).to(dev), torch.stack(depth_m)
+    K = [[TUM_FR1.fx, 0, TUM_FR1.cx], [0, TUM_FR1.fy, TUM_FR1.cy], [0, 0, 1]]
+
+    def per_pair(cfg, pairs):
+        vo = ic.PhotoconsistencyOdometryIC(cfg)
+        check(vo.device.type == "cuda", f"the IC object API defaults to {vo.device}, not the card")
+        vo.set_intrinsic_matrix(K)
+        res = []
+        for k in pairs:
+            vo.set_source_frame(I8[k], depth_m[k])
+            vo.set_target_frame(I8[k + 1], depth_m[k + 1])
+            vo.set_initial_state_vector(np.zeros(6))
+            res.append(vo.optimize())
+        torch.cuda.synchronize()
+        return type(res[0])(*(torch.stack(x) for x in zip(*res)))
+
+    lm = ic.align_sequence_ic(Iapi, Dapi, TUM_FR1, cfg)
+    reset_ic_counts(IC, ICB)
+    kern = per_pair(cfg, range(N_API_PAIRS))
+    launches = (IC.IC_PRE_LAUNCHES, ICB.IC_LAUNCHES)
+    bits = all(torch.equal(a, b) for a, b in zip(kern, lm))
+    err = float((kern.state - lm.state).abs().max())
+    # where a difference can come from: K-ICpre and K-IC give the same bits
+    # for the same inputs whatever B is, so from the pyramids, built per
+    # pair here and for all frames at once there
+    Ifl = device_unit_intensity(Iapi).to(torch.float32)
+    pyr_one = pyr.build_pyramid(Ifl[0], cfg.num_levels)
+    pyr_all = pyr.build_pyramid(Ifl, cfg.num_levels)
+    pyr_diff = max(float((pyr_one[lv] - pyr_all[lv][0]).abs().max())
+                   for lv in range(cfg.num_levels) if cfg.max_iterations[lv] > 0)
+    print(f"IC per-pair API: {N_API_PAIRS} pairs, K-ICpre launches {launches[0]}, K-IC launches {launches[1]} "
+          f"(expected {active} x {N_API_PAIRS} each), iterations {kern.iterations.tolist()}; against the level-major "
+          f"chain: the same bits {bits}, max|state diff| {err:.3e}; source pyramid, one frame vs all frames at once: "
+          f"max|diff| {pyr_diff:.3e} [{card}]")
+    check(launches == (active * N_API_PAIRS,) * 2, "optimize() did not launch the IC kernels once per level per pair")
+    check(err <= STATE_ATOL and torch.equal(kern.iterations, lm.iterations), "IC per-pair route differs from the level-major chain")
+
+    cfg0 = config_from_dict(LEVEL0_PRESET)
+    reset_ic_counts(IC, ICB)
+    t0 = time.perf_counter()
+    one = per_pair(cfg0, [0])
+    wall = time.perf_counter() - t0
+    its = int(one.iterations[0, 0])
+    print(f"IC config_only_level_0_analytic: one {SHAPE[0]}x{SHAPE[1]} pair, K-ICpre launches {IC.IC_PRE_LAUNCHES}, "
+          f"K-IC launches {ICB.IC_LAUNCHES}, iterations {its}, {wall:.3f} s, final ||J0^T r|| "
+          f"{float(one.gradient_norm[0, 0]):.3f} [{card}]")
+    check((IC.IC_PRE_LAUNCHES, ICB.IC_LAUNCHES) == (1, 1) and bool(torch.isfinite(one.state).all()),
+          "the level-0 preset did not run once through the IC kernels")
+    return launches[1], err
+
+
+def phase_ic_timing(Is, Ds, card):
+    """Phase 7c: the IC chain per 256 pairs (fixed-75 and early exit at 300)
+    beside the analytic chain at the same config, in turns (analytic, IC,
+    IC, analytic); the IC prep layer; K-IC per level and K-ICpre per level
+    against their plain versions (plain, kernel, kernel, plain); align_ic a
+    VGA pair. Returns the kernels' record fields."""
+    from phovo_tpu_torch.models import ic
+    from phovo_tpu_torch.models.analytic import align_sequence
+    from phovo_tpu_torch.models.ic import prep_frame_ic
+    from phovo_tpu_torch.ops import ic as IC
+    from phovo_tpu_torch.ops import ic_batch as ICB
+    from phovo_tpu_torch.ops import pyramid as pyr
+    from phovo_tpu_torch.ops.camera import TUM_FR1
+
+    dev = Is.device
+    n_pairs = Is.shape[0] - 1
+    cfg_fixed, cfg_ee = bench_config(0.0), bench_config(300.0)
+    for name, cfg in (("fixed-75", cfg_fixed), ("early exit at 300", cfg_ee)):
+        a1 = cuda_ms(lambda: align_sequence(Is, Ds, TUM_FR1, cfg), REPEATS)
+        i1 = cuda_ms(lambda: ic.align_sequence_ic(Is, Ds, TUM_FR1, cfg), REPEATS)
+        i2 = cuda_ms(lambda: ic.align_sequence_ic(Is, Ds, TUM_FR1, cfg), REPEATS)
+        a2 = cuda_ms(lambda: align_sequence(Is, Ds, TUM_FR1, cfg), REPEATS)
+        print(f"IC chain {name}: {1e3 * n_pairs / ((i1 + i2) / 2):.1f} pairs/s ({i1:.3f}, {i2:.3f} ms / {n_pairs} "
+              f"pairs); analytic chain beside it {a1:.3f}, {a2:.3f} ms [{card}]")
+    ms_prep = cuda_ms(lambda: prep_frame_ic(Is, Ds, TUM_FR1, cfg_fixed), REPEATS)
+    print(f"layer IC prep (pyramids, source Scharr, K-ICpre, geometry of {Is.shape[0]} frames): {ms_prep:.3f} ms [{card}]")
+
+    prep = prep_frame_ic(Is, Ds, TUM_FR1, cfg_fixed)
+    rec = {"ic_gn_level_batch": dict(ms=0.0, plain_ms=0.0, bytes=0, flops=0),
+           "ic_precompute": dict(ms=0.0, plain_ms=0.0, bytes=0, flops=0)}
+    ints = pyr.build_pyramid(Is, cfg_fixed.num_levels)
+    deps = pyr.build_pyramid(Ds, cfg_fixed.num_levels)
+    for level in sorted(prep, reverse=True):
+        args, kw = ic_pair_args(prep, level, TUM_FR1)
+        n = cfg_fixed.max_iterations[level]
+        kw.update(sampling="nearest")
+        p1 = cuda_ms(lambda: ICB.ic_gn_level_batch_reference(*args, n, 0.0, 1.0, **kw), 2)
+        k1 = cuda_ms(lambda: ICB.ic_gn_level_batch(*args, n, 0.0, 1.0, **kw), REPEATS)
+        k2 = cuda_ms(lambda: ICB.ic_gn_level_batch(*args, n, 0.0, 1.0, **kw), REPEATS)
+        p2 = cuda_ms(lambda: ICB.ic_gn_level_batch_reference(*args, n, 0.0, 1.0, **kw), 2)
+        res = ICB.ic_gn_level_batch(*args, n, 0.0, 1.0, **kw)
+        N = kw["H"] * kw["W"]
+        r = rec["ic_gn_level_batch"]
+        r["ms"] += (k1 + k2) / 2
+        r["plain_ms"] += (p1 + p2) / 2
+        r["bytes"] += nbytes(args[0], args[1][:, :3], *args[2:5], *res[:5])
+        r["flops"] += float(res.iterations.double().sum()) * N * IC_FLOPS["nearest"]
+        print(f"layer IC level kernel: level {level} {kw['H']}x{kw['W']}, {n_pairs} pairs x {n} it: kernel "
+              f"{(k1 + k2) / 2:.3f} ms ({k1:.3f}, {k2:.3f}), plain {(p1 + p2) / 2:.3f} ms ({p1:.3f}, {p2:.3f}) [{card}]")
+
+        img, dep = ints[level].contiguous(), deps[level].contiguous()
+        scale = cfg_fixed.gradient_scales[level]
+        pre = (img, dep, pyr.scharr(img, "x", scale), pyr.scharr(img, "y", scale), TUM_FR1.at_level(level),
+               cfg_fixed.min_depth, cfg_fixed.max_depth)
+        p1 = cuda_ms(lambda: IC.ic_precompute_batch_reference(*pre), 2)
+        k1 = cuda_ms(lambda: IC.ic_precompute_batch(*pre), REPEATS)
+        k2 = cuda_ms(lambda: IC.ic_precompute_batch(*pre), REPEATS)
+        p2 = cuda_ms(lambda: IC.ic_precompute_batch_reference(*pre), 2)
+        r = rec["ic_precompute"]
+        r["ms"] += (k1 + k2) / 2
+        r["plain_ms"] += (p1 + p2) / 2
+        r["bytes"] += nbytes(*pre[:4], *IC.ic_precompute_batch(*pre))
+        r["flops"] += img.numel() * IC_PRE_FLOPS
+        print(f"layer IC precompute kernel: level {level} {kw['H']}x{kw['W']}, {img.shape[0]} frames: kernel "
+              f"{(k1 + k2) / 2:.3f} ms ({k1:.3f}, {k2:.3f}), plain {(p1 + p2) / 2:.3f} ms ({p1:.3f}, {p2:.3f}) [{card}]")
+    # K-IC at B = 1 (the per-pair level): one pair's 120x160 level
+    level = 2
+    args, kw = ic_pair_args({level: tuple(x[:2] for x in prep[level])}, level, TUM_FR1)
+    n = cfg_fixed.max_iterations[level]
+    p1 = cuda_ms(lambda: ICB.ic_gn_level_batch_reference(*args, n, 0.0, 1.0, **kw), 3)
+    k1 = cuda_ms(lambda: ICB.ic_gn_level_batch(*args, n, 0.0, 1.0, **kw), REPEATS)
+    k2 = cuda_ms(lambda: ICB.ic_gn_level_batch(*args, n, 0.0, 1.0, **kw), REPEATS)
+    p2 = cuda_ms(lambda: ICB.ic_gn_level_batch_reference(*args, n, 0.0, 1.0, **kw), 3)
+    res = ICB.ic_gn_level_batch(*args, n, 0.0, 1.0, **kw)
+    one_bound = bound(nbytes(args[0], args[1][:, :3], *args[2:5], *res[:5]),
+                      float(res.iterations.double().sum()) * kw["H"] * kw["W"] * IC_FLOPS["nearest"])
+    print(f"layer IC level kernel at B = 1 (the per-pair level): level {level} {kw['H']}x{kw['W']}, {n} nearest "
+          f"iterations, one SM: kernel {(k1 + k2) / 2:.4f} ms ({k1:.4f}, {k2:.4f}), plain {(p1 + p2) / 2:.3f} ms "
+          f"({p1:.3f}, {p2:.3f}), bound {one_bound[0]:.5f} ms ({one_bound[1]}) [{card}]")
+    del prep, ints, deps
+    zero6 = torch.zeros(6, device=dev)
+    ms_pair = cuda_ms(lambda: ic.align_ic(Is[0], Ds[0], Is[1], Ds[1], TUM_FR1, zero6, cfg_ee), REPEATS)
+    print(f"per-pair IC route: align_ic {ms_pair:.3f} ms a VGA pair (bench schedule, early exit at 300, "
+          f"3 launches of each kernel at B = 1) [{card}]")
+    for name, r in rec.items():
+        r["bound_ms"], r["bound_by"] = bound(r.pop("bytes"), r.pop("flops"))
+        print(f"{name}: bench chain {r['ms']:.3f} ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']}) [{card}]")
+    return rec
+
+
+T_START = time.perf_counter()
+
+
+def stamp(phase: str) -> None:
+    """One line with the seconds since the script started, as a phase
+    begins."""
+    print(f"[{time.perf_counter() - T_START:.1f} s] {phase}", flush=True)
+
+
 def main() -> int:
     # 1. device
     if not torch.cuda.is_available():
@@ -897,6 +1274,7 @@ def main() -> int:
     print(f"build: {time.perf_counter() - t0:.2f} s -> {lib_path.name}")
 
     # 3. kernels vs plain versions at the VGA levels
+    stamp("3. kernels vs plain")
     cfg_fixed, cfg_ee = bench_config(0.0), bench_config(300.0)
     cfg_tr = config_from_dict(CERES_PRESET)
     I, D, _, _ = make_sequence(TUM_FR1, SHAPE, 9)
@@ -914,9 +1292,15 @@ def main() -> int:
     del prep, tr_packs
 
     # 3b. the loss and Jacobian variants vs plain versions
+    stamp("3b. variants vs plain")
     variants = phase_variants(fb, I9, D9, card)
 
+    # 3c. the inverse-compositional kernels vs plain versions
+    stamp("3c. IC kernels vs plain")
+    ic_j8_err, ic_l_err, ic_pose_err = phase_ic_kernels(I9, D9, card)
+
     # 4. the analytic main path: 257 frames through align_sequence_chunk
+    stamp("4. analytic main path")
     t0 = time.perf_counter()
     I, D, gts, ts = make_sequence(TUM_FR1, SHAPE, N_FRAMES)
     I8 = np.round(np.stack(I) * 255.0).astype(np.uint8)
@@ -965,7 +1349,12 @@ def main() -> int:
     print(f"main path: ATE rmse {ate:.6f} m (identity trajectory {ate_still:.6f} m)")
     check(np.isfinite(ate) and ate < ate_still, "ATE not finite or not below standing still")
 
+    # 4b. the IC main path: the same frames through align_sequence_chunk_ic
+    stamp("4b. IC main path")
+    (ic_pre_launches, ic_launches), ic_chain_err = phase_ic_main(run_chain, fb, se3, traj, gts, ts, card)
+
     # 5. the ceres main path: the same frames, the shipped ceres preset
+    stamp("5. ceres main path")
     t0 = time.perf_counter()
     reset_counts(fb)
     tr_kern = run_chain(autodiff.align_sequence_chunk_autodiff, cfg_tr)
@@ -993,6 +1382,7 @@ def main() -> int:
     check(np.isfinite(ate) and ate < ate_still, "ceres ATE not finite or not below standing still")
 
     # 6. the per-pair object API and the warm-started chain
+    stamp("6. per-pair APIs")
     n = N_API_PAIRS + 1
     depth_m = [torch.from_numpy(D16[k]).to(dev).to(torch.float32) * float(np.float32(DEPTH_SCALE)) for k in range(n)]
     Iapi, Dapi = torch.from_numpy(I8[:n]).to(dev), torch.stack(depth_m)
@@ -1034,8 +1424,11 @@ def main() -> int:
     an_launches, an_err = phase_analytic_api(fb, I8, D16, card)
     phase_occlusion(fb, card)
     lin_launches = phase_linearizer(fb, I8, D16, card)
+    # 6e. the IC object API
+    ic_api_launches, ic_api_err = phase_ic_api(I8, D16, card)
 
     # 7. timing, device-resident frames: the bench.py workload
+    stamp("7. timing")
     I0, D0, I1, D1, _ = make_pair(TUM_FR1, SHAPE)
     Is = torch.from_numpy(np.stack([I0, I1] * ((N_FRAMES + 1) // 2))[:N_FRAMES]).to(dev)
     Ds = torch.from_numpy(np.stack([D0, D1] * ((N_FRAMES + 1) // 2))[:N_FRAMES]).to(dev)
@@ -1048,7 +1441,7 @@ def main() -> int:
     ms_prep = cuda_ms(lambda: prep_frame_analytic(Is, Ds, TUM_FR1, cfg_fixed), REPEATS)
     print(f"layer prep (pyramids, Scharr, packs of {N_FRAMES} frames): {ms_prep:.3f} ms [{card}]")
     packs = pair_packs(prep_frame_analytic(Is, Ds, TUM_FR1, cfg_fixed))
-    kernel_ms = plain_ms = 0.0
+    kernel_ms = plain_ms = gn_bytes = gn_flops = 0.0
     for level, (i0, geom, t_all) in sorted(packs.items(), reverse=True):
         H, W = level_shape(SHAPE, level)
         args = (i0, geom, t_all, TUM_FR1.at_level(level), torch.zeros((n_pairs, 6), device=dev),
@@ -1062,6 +1455,9 @@ def main() -> int:
         k, p = (k1 + k2) / 2, (p1 + p2) / 2
         kernel_ms += k
         plain_ms += p
+        res = fb.fused_gn_level_batch(*args, **kw)
+        gn_bytes += nbytes(i0, geom, t_all, args[4], *res)
+        gn_flops += float(res.iterations.double().sum()) * H * W * GN_FLOPS["nearest"]
         print(f"layer level kernel: level {level} {H}x{W}, {n_pairs} pairs x {cfg_fixed.max_iterations[level]} it: "
               f"kernel {k:.3f} ms ({k1:.3f}, {k2:.3f}), plain {p:.3f} ms ({p1:.3f}, {p2:.3f}) [{card}]")
     del packs
@@ -1075,7 +1471,7 @@ def main() -> int:
     ms_prep = cuda_ms(lambda: prep_frame_analytic(Is, Ds, TUM_FR1, cfg_tr), 3)
     print(f"layer prep, all 5 levels ({N_FRAMES} frames): {ms_prep:.3f} ms [{card}]")
     packs = pair_packs(prep_frame_analytic(Is, Ds, TUM_FR1, cfg_tr))
-    tr_kernel_ms = tr_plain_ms = 0.0
+    tr_kernel_ms = tr_plain_ms = tr_bytes = tr_flops = 0.0
     init = torch.zeros((n_pairs, 6), device=dev)
     torch.cuda.reset_peak_memory_stats()
     for level, (i0, geom, t_all) in sorted(packs.items(), reverse=True):
@@ -1089,6 +1485,9 @@ def main() -> int:
         k, p = (k1 + k2) / 2, (p1 + p2) / 2
         tr_kernel_ms += k
         tr_plain_ms += p
+        # one linearization at the start and one a trial step
+        tr_bytes += nbytes(i0, geom, t_all, init, *res)
+        tr_flops += float(n_pairs + res.iterations.double().sum()) * H * W * GN_FLOPS[cfg_tr.sampling]
         print(f"layer trust-region kernel: level {level} {H}x{W}, {n_pairs} pairs, iterations mean "
               f"{float(res.iterations.double().mean()):.3f} max {int(res.iterations.max())}: "
               f"kernel {k:.3f} ms ({k1:.3f}, {k2:.3f}), plain {p:.3f} ms ({p1:.3f}, {p2:.3f}) [{card}]")
@@ -1100,11 +1499,20 @@ def main() -> int:
     pair = (Is[0], Ds[0], Is[1], Ds[1], TUM_FR1, torch.zeros(6, device=dev), cfg_tr)
     ms_pair = cuda_ms(lambda: autodiff.align_autodiff(*pair), 3)
     one = pair_packs(prep_frame_analytic(Is[:2], Ds[:2], TUM_FR1, cfg_tr))[0]
-    ms_one = cuda_ms(lambda: fb.fused_tr_level_batch(
-        *one, TUM_FR1, torch.zeros((1, 6), device=dev), cfg_tr.trust_region_options(0),
-        H=SHAPE[0], W=SHAPE[1]), 3)
+    init1 = torch.zeros((1, 6), device=dev)
+    tr1 = (*one, TUM_FR1, init1, cfg_tr.trust_region_options(0))
+    tr1_kw = dict(H=SHAPE[0], W=SHAPE[1])
+    p1 = cuda_ms(lambda: fb.fused_tr_level_batch_reference(*tr1, **tr1_kw), 3)
+    k1 = cuda_ms(lambda: fb.fused_tr_level_batch(*tr1, **tr1_kw), 3)
+    k2 = cuda_ms(lambda: fb.fused_tr_level_batch(*tr1, **tr1_kw), 3)
+    p2 = cuda_ms(lambda: fb.fused_tr_level_batch_reference(*tr1, **tr1_kw), 3)
+    one_tr = fb.fused_tr_level_batch(*tr1, **tr1_kw)
+    one_tr_bound = bound(nbytes(*one, init1, *one_tr),
+                         float(1 + one_tr.iterations.double().sum()) * SHAPE[0] * SHAPE[1] * GN_FLOPS[cfg_tr.sampling])
     print(f"per-pair route: align_autodiff {ms_pair:.3f} ms a VGA pair; its 480x640 level "
-          f"(B = 1, one SM) {ms_one:.3f} ms [{card}]")
+          f"(B = 1, one SM, {int(one_tr.iterations.sum())} iterations): kernel {(k1 + k2) / 2:.3f} ms ({k1:.3f}, "
+          f"{k2:.3f}), plain {(p1 + p2) / 2:.3f} ms ({p1:.3f}, {p2:.3f}), bound {one_tr_bound[0]:.4f} ms "
+          f"({one_tr_bound[1]}) [{card}]")
 
     # 7b. this slice's paths: the per-pair analytic route, the analytic
     # chain with each variant, the ceres chain with huber, the
@@ -1128,9 +1536,11 @@ def main() -> int:
     k1 = cuda_ms(lambda: fb.fused_gn_level_batch(*gn1, **gn1_kw), REPEATS)
     k2 = cuda_ms(lambda: fb.fused_gn_level_batch(*gn1, **gn1_kw), REPEATS)
     p2 = cuda_ms(lambda: fb.fused_gn_level_batch_reference(*gn1, **gn1_kw), 3)
+    gn1_bound = bound(nbytes(*gn1[:3], gn1[4], *fb.fused_gn_level_batch(*gn1, **gn1_kw)),
+                      NEAREST_ITERATIONS * SHAPE[0] * SHAPE[1] * GN_FLOPS["nearest"])
     print(f"layer GN level kernel at B = 1 (the per-pair level): {SHAPE[0]}x{SHAPE[1]}, {NEAREST_ITERATIONS} nearest "
           f"iterations, one SM: kernel {(k1 + k2) / 2:.3f} ms ({k1:.3f}, {k2:.3f}), plain "
-          f"{(p1 + p2) / 2:.3f} ms ({p1:.3f}, {p2:.3f}) [{card}]")
+          f"{(p1 + p2) / 2:.3f} ms ({p1:.3f}, {p2:.3f}), bound {gn1_bound[0]:.4f} ms ({gn1_bound[1]}) [{card}]")
     lin = (*one, TUM_FR1, torch.full((1, 6), 1e-3, device=dev))
     lin_kw = dict(H=SHAPE[0], W=SHAPE[1], sampling="bilinear")
     p1 = cuda_ms(lambda: fb.fused_lin_batch_reference(*lin, **lin_kw), REPEATS)
@@ -1138,9 +1548,18 @@ def main() -> int:
     k2 = cuda_ms(lambda: fb.fused_lin_batch(*lin, **lin_kw), REPEATS)
     p2 = cuda_ms(lambda: fb.fused_lin_batch_reference(*lin, **lin_kw), REPEATS)
     lin_ms, lin_plain_ms = (k1 + k2) / 2, (p1 + p2) / 2
+    lin_bound = bound(nbytes(*lin, fb.fused_lin_batch(*lin, **lin_kw)),
+                      SHAPE[0] * SHAPE[1] * (GN_FLOPS["bilinear"] + LIN_EXTRA_FLOPS))
     print(f"layer one-linearization kernel: {SHAPE[0]}x{SHAPE[1]}, B = 1 (one SM): kernel {lin_ms:.3f} ms "
-          f"({k1:.3f}, {k2:.3f}), plain {lin_plain_ms:.3f} ms ({p1:.3f}, {p2:.3f}) [{card}]")
+          f"({k1:.3f}, {k2:.3f}), plain {lin_plain_ms:.3f} ms ({p1:.3f}, {p2:.3f}), bound {lin_bound[0]:.4f} ms "
+          f"({lin_bound[1]}) [{card}]")
 
+    # 7c. the IC chain, its prep and its kernels
+    stamp("7c. IC timing")
+    ic_rec = phase_ic_timing(Is, Ds, card)
+    stamp("done")
+
+    gn_bound, tr_bound = bound(gn_bytes, gn_flops), bound(tr_bytes, tr_flops)
     record = {"kernels": [
         {
             "name": "fused_gn_level_batch",
@@ -1151,6 +1570,9 @@ def main() -> int:
             "max_abs_err": max(max_err, an_err, variants["fused_gn_level_batch"][0]),
             "ms": kernel_ms,
             "plain_ms": plain_ms,
+            "bound_ms": gn_bound[0],
+            "bound_by": gn_bound[1],
+            "library_ms": None,
             "variants": variants["fused_gn_level_batch"][1],
             "per_pair_launches": an_launches,
         },
@@ -1163,6 +1585,9 @@ def main() -> int:
             "max_abs_err": max(tr_err, variants["fused_tr_level_batch"][0]),
             "ms": tr_kernel_ms,
             "plain_ms": tr_plain_ms,
+            "bound_ms": tr_bound[0],
+            "bound_by": tr_bound[1],
+            "library_ms": None,
             "variants": variants["fused_tr_level_batch"][1],
         },
         {
@@ -1174,7 +1599,32 @@ def main() -> int:
             "max_abs_err": variants["fused_lin"][0],
             "ms": lin_ms,
             "plain_ms": lin_plain_ms,
+            "bound_ms": lin_bound[0],
+            "bound_by": lin_bound[1],
+            "library_ms": None,
             "variants": variants["fused_lin"][1],
+        },
+        {
+            "name": "ic_precompute",
+            "route": "cuda",
+            "source": "phovo_tpu_torch/csrc/ic_precompute.cu",
+            "replaces": "phovo_tpu/ops/ic.py:517",
+            "launches": ic_pre_launches,
+            "max_abs_err": ic_j8_err,
+            "factor_rel_err": ic_l_err,
+            **ic_rec["ic_precompute"],
+            "library_ms": None,
+        },
+        {
+            "name": "ic_gn_level_batch",
+            "route": "cuda",
+            "source": "phovo_tpu_torch/csrc/ic_gn_batch.cu",
+            "replaces": "phovo_tpu/ops/ic.py:156 and phovo_tpu/ops/ic_batch.py:78",
+            "launches": ic_launches,
+            "max_abs_err": max(ic_pose_err, ic_chain_err, ic_api_err),
+            **ic_rec["ic_gn_level_batch"],
+            "library_ms": None,
+            "per_pair_launches": ic_api_launches,
         },
     ]}
     print(json.dumps(record))

@@ -7,15 +7,19 @@ package is tested against; this one imports torch and numpy and never jax.
 
 Layout mirrors phovo_tpu:
   ops/      SE(3), camera, pyramids, warping, residuals, robust weights,
-            the kernel wrappers (ops/fused_batch.py, ops/fused.py) and
-            their nvcc build (ops/_build.py)
+            the kernel wrappers (ops/fused_batch.py, ops/fused.py,
+            ops/ic.py, ops/ic_batch.py) and their nvcc build
+            (ops/_build.py)
   csrc/     the hand-written CUDA kernels
   solvers/  the exact per-pair Gauss-Newton and trust-region solvers
   models/   the analytic Gauss-Newton backend (align_analytic,
             PhotoconsistencyOdometryAnalytic, align_sequence,
-            align_sequence_chunk) and the trust-region ("ceres") backend
+            align_sequence_chunk), the trust-region ("ceres") backend
             (align_autodiff, align_sequence_autodiff,
             align_sequence_chunk_autodiff, PhotoconsistencyOdometryAutodiff)
+            and the inverse-compositional backend (align_ic,
+            align_sequence_ic, align_sequence_chunk_ic,
+            PhotoconsistencyOdometryIC)
   utils/    config schedule and YAML presets, synthetic frames,
             trajectories and ATE
 """
@@ -45,5 +49,11 @@ from phovo_tpu_torch.models.autodiff import (  # noqa: E402,F401
     align_autodiff,
     align_sequence_autodiff,
     align_sequence_chunk_autodiff,
+)
+from phovo_tpu_torch.models.ic import (  # noqa: E402,F401
+    PhotoconsistencyOdometryIC,
+    align_ic,
+    align_sequence_chunk_ic,
+    align_sequence_ic,
 )
 from phovo_tpu_torch.models import BACKENDS  # noqa: E402,F401

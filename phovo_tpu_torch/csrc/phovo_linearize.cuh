@@ -2,7 +2,9 @@
 // fused_tr_batch.cu, fused_lin.cu): the state's rotation terms, target
 // sampling, one pixel's residual and Jacobian row with its robust (IRLS)
 // weight and ESM gradient, the block reduction of the normal equations, the
-// 6x6 Cholesky solve, and the host-side dispatch over the variants.
+// 6x6 Cholesky solve, and the host-side dispatch over the variants. The
+// inverse-compositional kernels (ic_precompute.cu, ic_gn_batch.cu) share
+// its block size, block_sum, clamp_index and nan_max.
 //
 // Arithmetic order follows phovo_tpu_torch/ops/fused_batch.py::
 // _pixel_columns and ops/robust.py term by term; build with -fmad=false and
@@ -249,35 +251,17 @@ static __device__ __forceinline__ void accumulate_pixel(
   }
 }
 
-// The normal equations of one pair at the state held in `terms`, summed
-// over the block into total[kN]. geom holds kEsm ? 6 : 4 rows of N pixels
-// (ops/fused.py pack_geometry). Sums are per-thread in registers, then warp
-// shuffles, then a fixed-order pass over the warps in shared memory: no
-// atomics, so every run gives the same bits. Every thread of the block calls
-// it; it ends with a barrier, so total is ready for every thread.
-template <bool kBilinear, int kLoss, bool kEsm, int kN>
-static __device__ __forceinline__ void linearize_block(
-    const Terms& terms, const float* __restrict__ i0,
-    const float* __restrict__ geom, const float* __restrict__ tgt, int H,
-    int W, float fx, float fy, float cx, float cy, float delta,
-    float (*partial)[kN], float* total) {
+// Sum each thread's acc[kN] over the block into total[kN]: warp shuffles,
+// then a fixed-order pass over the warps in shared memory; no atomics, so
+// every run gives the same bits. Every thread of the block calls it; it
+// ends with a barrier, so total is ready for every thread.
+template <int kN>
+static __device__ __forceinline__ void block_sum(const float (&acc)[kN],
+                                                 float (*partial)[kN],
+                                                 float* total) {
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
-  const int N = H * W;
-  float acc[kN];
-#pragma unroll
-  for (int k = 0; k < kN; ++k) acc[k] = 0.0f;
-  for (int p = tid; p < N; p += kThreads) {
-    float sgx = 0.0f, sgy = 0.0f;
-    if constexpr (kEsm) {
-      sgx = geom[4 * N + p];
-      sgy = geom[5 * N + p];
-    }
-    accumulate_pixel<kBilinear, kLoss, kEsm, kN>(
-        terms, geom[p], geom[N + p], geom[2 * N + p], geom[3 * N + p], sgx,
-        sgy, i0[p], tgt, H, W, fx, fy, cx, cy, delta, acc);
-  }
 #pragma unroll
   for (int k = 0; k < kN; ++k) {
     float a = acc[k];
@@ -292,6 +276,35 @@ static __device__ __forceinline__ void linearize_block(
     total[tid] = a;
   }
   __syncthreads();
+}
+
+// The normal equations of one pair at the state held in `terms`, summed
+// over the block into total[kN] (block_sum). geom holds kEsm ? 6 : 4 rows
+// of N pixels (ops/fused.py pack_geometry); per-thread sums are kept in
+// registers. Every thread of the block calls it; it ends with a barrier,
+// so total is ready for every thread.
+template <bool kBilinear, int kLoss, bool kEsm, int kN>
+static __device__ __forceinline__ void linearize_block(
+    const Terms& terms, const float* __restrict__ i0,
+    const float* __restrict__ geom, const float* __restrict__ tgt, int H,
+    int W, float fx, float fy, float cx, float cy, float delta,
+    float (*partial)[kN], float* total) {
+  const int tid = threadIdx.x;
+  const int N = H * W;
+  float acc[kN];
+#pragma unroll
+  for (int k = 0; k < kN; ++k) acc[k] = 0.0f;
+  for (int p = tid; p < N; p += kThreads) {
+    float sgx = 0.0f, sgy = 0.0f;
+    if constexpr (kEsm) {
+      sgx = geom[4 * N + p];
+      sgy = geom[5 * N + p];
+    }
+    accumulate_pixel<kBilinear, kLoss, kEsm, kN>(
+        terms, geom[p], geom[N + p], geom[2 * N + p], geom[3 * N + p], sgx,
+        sgy, i0[p], tgt, H, W, fx, fy, cx, cy, delta, acc);
+  }
+  block_sum<kN>(acc, partial, total);
 }
 
 // Unpack the 21 upper-triangle sums into a full symmetric 6x6 matrix.

@@ -28,6 +28,7 @@ from __future__ import annotations
 import torch
 
 from phovo_tpu_torch.models.base import (
+    DEFAULT_DEVICE,
     AlignmentResult,
     PhotoconsistencyOdometryBase,
     chunk_device_prep,
@@ -325,7 +326,7 @@ class PhotoconsistencyOdometryAnalytic(PhotoconsistencyOdometryBase):
     """Object API over align_analytic (reference class
     CPhotoconsistencyOdometryAnalytic, ...Analytic.h:57)."""
 
-    def __init__(self, config: PhovoConfig | None = None, use_fused: bool = True, device="cpu"):
+    def __init__(self, config: PhovoConfig | None = None, use_fused: bool = True, device=DEFAULT_DEVICE):
         super().__init__(config, device)
         self.use_fused = use_fused
 

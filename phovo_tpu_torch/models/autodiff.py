@@ -33,6 +33,7 @@ import torch
 
 from phovo_tpu_torch.models.analytic import prep_frame_analytic
 from phovo_tpu_torch.models.base import (
+    DEFAULT_DEVICE,
     AlignmentResult,
     PhotoconsistencyOdometryBase,
     chunk_device_prep,
@@ -194,7 +195,7 @@ class PhotoconsistencyOdometryAutodiff(PhotoconsistencyOdometryBase):
         self,
         config: PhovoConfig | None = None,
         jacobian_mode: str = "linearizer",
-        device="cpu",
+        device=DEFAULT_DEVICE,
     ):
         super().__init__(config, device)
         self.jacobian_mode = jacobian_mode

@@ -3,7 +3,10 @@ phovo_tpu/models/base.py): results, input conversion, the serial pair loop
 and the reference's object interface (CPhotoconsistencyOdometry.h:137-179).
 
 The object API is a thin host-side holder of frames over a backend's
-functional `align`; it runs on the device it is given. phovo_tpu's
+functional `align`; it runs on the CUDA card unless the caller names
+another device (device="cpu"), and raises where there is no card rather
+than run elsewhere. The functional entries run wherever their tensors
+live. phovo_tpu's
 band-fallback re-run has no counterpart: the GPU kernels sample the whole
 target, so band_masked is always 0.
 """
@@ -103,17 +106,26 @@ def sequence_scan(align_one, intensities, depths, warm_start: bool) -> Alignment
     return AlignmentResult(*(torch.stack(x) for x in zip(*results)))
 
 
+# The object API's device unless the caller names another.
+DEFAULT_DEVICE = torch.device("cuda")
+
+
 class PhotoconsistencyOdometryBase:
     """Host-side stateful wrapper over a backend's functional aligner, on
-    one torch device."""
+    one torch device: the CUDA card by default."""
 
     # AlignmentResult.cost convention: GN backends report sum r^2, the
     # trust-region backend 0.5 * sum r^2 (Ceres's)
     COST_IS_HALF_SUM_SQ = False
 
-    def __init__(self, config: PhovoConfig | None = None, device="cpu"):
+    def __init__(self, config: PhovoConfig | None = None, device=DEFAULT_DEVICE):
         self.config = config or PhovoConfig()
         self.device = torch.device(device)
+        if self.device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError(
+                f"{type(self).__name__} runs on the CUDA card by default and "
+                "torch finds none; pass device=\"cpu\" to run on the CPU"
+            )
         self.intrinsics: Intrinsics | None = None
         self._source = None  # (intensity, depth) tensors on self.device
         self._target = None

@@ -49,6 +49,14 @@ _ENTRIES = {
         [_P] * 6 + [_I] * 6 + [_F] * 4 + [_P],
         _I,
     ),
+    "phovo_ic_precompute": (
+        [_P] * 6 + [_I] * 3 + [_F] * 6 + [_P],
+        _I,
+    ),
+    "phovo_ic_gn_level_batch": (
+        [_P] * 7 + [_I] * 4 + [_F] * 4 + [_I, _F, _F, _P],
+        _I,
+    ),
 }
 
 
@@ -97,8 +105,8 @@ def _run(cmd: list[str]) -> None:
 def build() -> Path:
     """Compile the sources unless the library for them exists; returns its
     path. Each source compiles in its own nvcc process, all started
-    together (the three sources: ~12.5 s, against ~31 s in one nvcc, on
-    an 8-core H100 host); then one nvcc links the objects. Writes to
+    together (the five sources: 14-17 s on an 8-core H100 host, where
+    three took ~31 s in one nvcc); then one nvcc links the objects. Writes to
     temporary names first, so a cut build leaves no library behind."""
     so = library_path()
     if so.is_file():
@@ -112,8 +120,12 @@ def build() -> Path:
         for src, obj in zip(_sources(), objs)
     ]
     try:
+        # every compile runs to its end (pool.map would cancel the ones not
+        # yet started once one fails); then the first failure raises
         with ThreadPoolExecutor(len(compiles)) as pool:
-            list(pool.map(_run, compiles))
+            futures = [pool.submit(_run, cmd) for cmd in compiles]
+        for future in futures:
+            future.result()
         _run([exe, *NVCC_FLAGS, "-shared", "-o", str(tmp), *map(str, objs)])
         os.replace(tmp, so)
     finally:

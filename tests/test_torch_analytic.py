@@ -161,7 +161,7 @@ def test_use_fused_false_matches_jax(frames, name):
     before = FB.LAUNCHES
     port = tan.align_sequence(_t(frames["I"]), _t(frames["D"]), INTR, _tcfg(name), use_fused=False)
     _assert_match(port, ref)
-    vo = tan.PhotoconsistencyOdometryAnalytic(_tcfg(name))
+    vo = tan.PhotoconsistencyOdometryAnalytic(_tcfg(name), device="cpu")
     full = vo.align_full_band(_t(frames["I"][0]), _t(frames["D"][0]), _t(frames["I"][1]),
                               _t(frames["D"][1]), INTR, torch.zeros(6))
     np.testing.assert_array_equal(full.state.numpy(), port.state[0].numpy())
@@ -230,8 +230,9 @@ def test_object_api_matches_jax(frames):
     K = [[INTR.fx, 0.0, INTR.cx], [0.0, INTR.fy, INTR.cy], [0.0, 0.0, 1.0]]
     init = np.array([0.002, -0.001, 0.003, 0.001, 0.0, -0.002], np.float32)
     out = []
-    for cls, cfg in ((JaxAnalytic, _jcfg("huber")), (tan.PhotoconsistencyOdometryAnalytic, _tcfg("huber"))):
-        vo = cls(cfg)
+    for make in (lambda: JaxAnalytic(_jcfg("huber")),
+                 lambda: tan.PhotoconsistencyOdometryAnalytic(_tcfg("huber"), device="cpu")):
+        vo = make()
         vo.set_intrinsic_matrix(np.asarray(K))
         vo.set_source_frame(frames["I8"][0], frames["D"][0])
         vo.set_target_frame(frames["I8"][1], frames["D"][1])
@@ -247,7 +248,7 @@ def test_object_api_matches_jax(frames):
 
 
 def test_object_api_refuses_before_setup_and_reads_presets(tmp_path):
-    vo = BACKENDS["analytic"]()
+    vo = BACKENDS["analytic"](device="cpu")
     with pytest.raises(RuntimeError, match="set_intrinsic_matrix"):
         vo.optimize()
     with pytest.raises(RuntimeError, match="optimize"):

@@ -1,6 +1,7 @@
 """The CUDA kernels (the Gauss-Newton and trust-region levels with their
-loss and Jacobian variants, and the one linearization) against their plain
-torch versions, on the card.
+loss and Jacobian variants, the one linearization, and the
+inverse-compositional precompute and level) against their plain torch
+versions, on the card.
 
 Needs an NVIDIA GPU and nvcc; skipped elsewhere. Run on the card with
     python -m pytest --noconftest -m cuda tests/test_torch_kernel_cuda.py
@@ -21,7 +22,10 @@ cost changes) halves or grows the radius by chance. Its stopping tests
 are held by early-exit
 cases whose tolerances chip_smoke.py's early_exit_tolerance sets at least
 7% from every value the test reads, so both versions must stop where the
-plain version's values predict.
+plain version's values predict. The inverse-compositional precompute's
+J8 rows are held to 1e-6 (the same expressions) and its factor to 1e-4 of
+its largest entry (the Gram's sums in another order); its level kernel to
+the Gauss-Newton kernel's bounds, nearest over 2 iterations.
 """
 
 import importlib.util
@@ -291,5 +295,134 @@ def test_analytic_object_api_launches_once_per_level():
     with mock.patch("phovo_tpu_torch.ops.fused.fused_gn_level_batch", FB.fused_gn_level_batch_reference):
         p = vo.optimize()
     assert FB.LAUNCHES == before + 2
+    torch.testing.assert_close(k.state, p.state, rtol=0, atol=2e-4)
+    assert torch.equal(k.iterations, p.iterations)
+
+
+# -- the inverse-compositional kernels ----------------------------------------
+
+
+def _ic_frames(H=96, W=128, n=6):
+    """n make_sequence frames on the card with the source Scharr gradients
+    (scale 1/32, the IC backend's convention)."""
+    I, D, _, _ = make_sequence(INTR, (H, W), n)
+    dev = torch.device("cuda")
+    It = torch.from_numpy(np.stack(I)).to(dev)
+    Dt = torch.from_numpy(np.stack(D)).to(dev)
+    return It, Dt, pyr.scharr(It, "x", 0.03125), pyr.scharr(It, "y", 0.03125)
+
+
+def test_ic_precompute_kernel_matches_plain():
+    from phovo_tpu_torch.ops import ic as IC
+
+    frames = _ic_frames()
+    before = IC.IC_PRE_LAUNCHES
+    J8, L = IC.ic_precompute_batch(*frames, INTR, 0.3, 5.0)
+    assert IC.IC_PRE_LAUNCHES == before + 1
+    pJ8, pL = IC.ic_precompute_batch_reference(*frames, INTR, 0.3, 5.0)
+    assert IC.IC_PRE_LAUNCHES == before + 1
+    torch.cuda.synchronize()
+    torch.testing.assert_close(J8, pJ8, rtol=0, atol=1e-6)
+    scale = pL.abs().amax(dim=1, keepdim=True)
+    assert bool(((L - pL).abs() <= 1e-4 * scale).all()), float(((L - pL).abs() / scale).max())
+    assert torch.equal(L.reshape(-1, 6, 6).triu(1), torch.zeros_like(L.reshape(-1, 6, 6)))
+
+
+def _ic_level_args(n=6):
+    """K-IC's inputs for n - 1 pairs at 96x128 (frame k to k + 1), the
+    constants from the plain precompute."""
+    from phovo_tpu_torch.ops import ic as IC
+
+    It, Dt, gx, gy = _ic_frames(n=n)
+    J8, L = IC.ic_precompute_batch_reference(It, Dt, gx, gy, INTR, 0.3, 5.0)
+    geom = pack_geometry(Dt, INTR, 0.3, 5.0)
+    eye = torch.eye(4, device="cuda").repeat(n - 1, 1, 1)
+    return (eye, geom[:-1].contiguous(), J8[:-1].contiguous(), L[:-1].contiguous(), It[1:].contiguous(), INTR)
+
+
+def _assert_ic_kernel_matches_plain(args, iterations, threshold, sampling):
+    from phovo_tpu_torch.ops import ic_batch as ICB
+
+    before = ICB.IC_LAUNCHES
+    k = ICB.ic_gn_level_batch(*args, iterations, threshold, 1.0, H=96, W=128, sampling=sampling)
+    assert ICB.IC_LAUNCHES == before + 1
+    p = ICB.ic_gn_level_batch_reference(*args, iterations, threshold, 1.0, H=96, W=128, sampling=sampling)
+    assert ICB.IC_LAUNCHES == before + 1
+    torch.cuda.synchronize()
+    torch.testing.assert_close(k.T, p.T, rtol=0, atol=2e-4)
+    assert torch.equal(k.iterations, p.iterations)
+    assert torch.equal(k.num_valid, p.num_valid)
+    torch.testing.assert_close(k.cost, p.cost, rtol=1e-4, atol=0)
+    assert float(k.band_masked.abs().sum()) == 0.0
+    return k
+
+
+@pytest.mark.parametrize("sampling,iterations", [("nearest", 2), ("bilinear", 8)])
+def test_ic_kernel_matches_plain(sampling, iterations):
+    _assert_ic_kernel_matches_plain(_ic_level_args(), iterations, 0.0, sampling)
+
+
+@pytest.mark.parametrize("sampling", ["nearest", "bilinear"])
+def test_ic_kernel_stops_early_like_plain(sampling):
+    """A gradient-norm threshold at least 7% from every ||g|| the plain
+    version reads before a stop: both versions stop after the predicted
+    counts."""
+    from phovo_tpu_torch.ops import ic_batch as ICB
+
+    smoke = _chip_smoke()
+    args, n = _ic_level_args(), 2
+    gnorms = [torch.full((5,), float("inf"), dtype=torch.float64)]
+    gnorms += [
+        ICB.ic_gn_level_batch_reference(*args, m, 0.0, 1.0, H=96, W=128, sampling=sampling).gradient_norm.double().cpu()
+        for m in range(1, n + 1)
+    ]
+    tol, stops = smoke.early_exit_tolerance(torch.stack(gnorms))
+    k = _assert_ic_kernel_matches_plain(args, n, tol, sampling)
+    assert k.iterations.cpu().tolist() == stops.tolist()
+
+
+def test_ic_kernel_single_pair_equals_batch():
+    """B = 1 (the per-pair level, ops/ic.ic_gn_level) runs each pair through
+    the same block code as the batch: the same bits."""
+    from phovo_tpu_torch.ops import ic as IC
+    from phovo_tpu_torch.ops import ic_batch as ICB
+
+    Ts, geom, J8, L, t_i, intr = _ic_level_args()
+    batch = ICB.ic_gn_level_batch(Ts, geom, J8, L, t_i, intr, 6, 0.0, 1.0, H=96, W=128, sampling="bilinear")
+    for j in range(Ts.shape[0]):
+        one = IC.ic_gn_level(Ts[j], geom[j], J8[j], L[j], t_i[j], intr, 6, 0.0, 1.0, "bilinear")
+        for x, y in zip(one, batch):
+            assert torch.equal(x, y[j])
+
+
+def test_ic_object_api_launches_once_per_level():
+    """PhotoconsistencyOdometryIC on the card: one K-ICpre and one K-IC
+    launch per active level, the states of the plain per-pair route."""
+    from unittest import mock
+
+    from phovo_tpu_torch.models import ic
+    from phovo_tpu_torch.ops import ic as IC
+    from phovo_tpu_torch.ops import ic_batch as ICB
+    from phovo_tpu_torch.utils.config import PhovoConfig
+
+    cfg = PhovoConfig(
+        num_levels=3, blur_filter_sizes=(0,) * 3, gradient_scales=(0.03125,) * 3,
+        max_iterations=(0, 4, 6), lambda_steps=(1.0,) * 3, min_gradient_norms=(0.0,) * 3,
+        sampling="bilinear",
+    )
+    I, D, _, _ = make_sequence(INTR, (96, 128), 2)
+    vo = ic.PhotoconsistencyOdometryIC(cfg)
+    assert vo.device.type == "cuda"
+    vo.set_intrinsic_matrix([[INTR.fx, 0, INTR.cx], [0, INTR.fy, INTR.cy], [0, 0, 1]])
+    vo.set_source_frame((I[0] * 255).astype(np.uint8), D[0])
+    vo.set_target_frame((I[1] * 255).astype(np.uint8), D[1])
+    before = (IC.IC_PRE_LAUNCHES, ICB.IC_LAUNCHES)
+    k = vo.optimize()
+    torch.cuda.synchronize()
+    assert (IC.IC_PRE_LAUNCHES, ICB.IC_LAUNCHES) == (before[0] + 2, before[1] + 2)
+    with mock.patch.object(IC, "ic_precompute_batch", IC.ic_precompute_batch_reference), \
+            mock.patch.object(ICB, "ic_gn_level_batch", ICB.ic_gn_level_batch_reference):
+        p = vo.optimize()
+    assert (IC.IC_PRE_LAUNCHES, ICB.IC_LAUNCHES) == (before[0] + 2, before[1] + 2)
     torch.testing.assert_close(k.state, p.state, rtol=0, atol=2e-4)
     assert torch.equal(k.iterations, p.iterations)

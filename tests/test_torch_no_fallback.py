@@ -2,12 +2,15 @@
 refuses what it has not ported.
 
 The kernels (the Gauss-Newton and trust-region levels, the one
-linearization) run only on CUDA tensors; on CPU tensors the wrappers take
-the plain versions and launch nothing; any other device, a missing nvcc,
-or a card that is not there raises instead of computing elsewhere.
+linearization, the inverse-compositional precompute and level) run only
+on CUDA tensors; on CPU tensors the wrappers take the plain versions and
+launch nothing; any other device, a missing nvcc, or a card that is not
+there raises instead of computing elsewhere. The object API runs on the
+card unless the caller names another device.
 """
 
 import dataclasses
+import inspect
 import shutil
 import subprocess
 import sys
@@ -18,10 +21,13 @@ import pytest
 import torch
 
 import phovo_tpu_torch
+from phovo_tpu_torch.models import BACKENDS
 from phovo_tpu_torch.models import autodiff as tad
 from phovo_tpu_torch.models.analytic import align_sequence, align_sequence_chunk
 from phovo_tpu_torch.ops import _build
 from phovo_tpu_torch.ops import fused_batch as FB
+from phovo_tpu_torch.ops import ic as IC
+from phovo_tpu_torch.ops import ic_batch as ICB
 from phovo_tpu_torch.ops.camera import Intrinsics
 from phovo_tpu_torch.solvers.trust_region import TROptions
 from phovo_tpu_torch.utils.config import PhovoConfig
@@ -102,12 +108,81 @@ def test_other_devices_raise():
 
 
 def test_missing_nvcc_raises(tmp_path, monkeypatch):
+    """No nvcc: the build raises, and so does loading the library, which
+    every wrapper does on a CUDA tensor before its launch."""
     monkeypatch.setenv("CUDA_HOME", str(tmp_path))
     monkeypatch.setenv("PATH", str(tmp_path))
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
     with pytest.raises(RuntimeError, match="nvcc not found"):
         _build.nvcc()
     with pytest.raises(RuntimeError, match="nvcc not found"):
         _build.build()
+    _build.library.cache_clear()
+    try:
+        with pytest.raises(RuntimeError, match="nvcc not found"):
+            _build.library()
+    finally:
+        _build.library.cache_clear()
+
+
+def _ic_inputs(B=2, device="cpu"):
+    rng = np.random.default_rng(2)
+
+    def t(*shape):
+        return torch.from_numpy(rng.random(shape, dtype=np.float32)).to(device)
+
+    frames = [t(B, H, W) for _ in range(4)]  # intensity, depth, grad_x, grad_y
+    level = (torch.eye(4).repeat(B, 1, 1).to(device), t(B, 4, H * W), t(B, 8, H * W), t(B, 36), t(B, H, W))
+    return frames, level
+
+
+def test_ic_kernels_other_devices_raise():
+    """The inverse-compositional wrappers refuse a tensor on neither the
+    CPU nor a CUDA card, launching nothing; on CPU tensors they return
+    their plain versions' results."""
+    before = (IC.IC_PRE_LAUNCHES, ICB.IC_LAUNCHES)
+    frames, level = _ic_inputs(device="meta")
+    with pytest.raises(ValueError, match="no IC precompute kernel for device"):
+        IC.ic_precompute_batch(*frames, INTR, 0.3, 5.0)
+    with pytest.raises(ValueError, match="no IC level kernel for device"):
+        ICB.ic_gn_level_batch(*level, INTR, 2, 0.0, 1.0, H=H, W=W)
+    frames, level = _ic_inputs()
+    J8, L = IC.ic_precompute_batch(*frames, INTR, 0.3, 5.0)
+    assert all(torch.equal(a, b) for a, b in zip(
+        (J8, L), IC.ic_precompute_batch_reference(*frames, INTR, 0.3, 5.0)))
+    res = ICB.ic_gn_level_batch(*level, INTR, 2, 0.0, 1.0, H=H, W=W, sampling="bilinear")
+    ref = ICB.ic_gn_level_batch_reference(*level, INTR, 2, 0.0, 1.0, H=H, W=W, sampling="bilinear")
+    assert all(torch.equal(a, b) for a, b in zip(res, ref))
+    assert (IC.IC_PRE_LAUNCHES, ICB.IC_LAUNCHES) == before
+
+
+@pytest.mark.parametrize("fault", ["dtype", "contiguity", "shape", "sampling"])
+def test_ic_kernel_input_checks(fault):
+    _, (Ts, geom, J8, L, t_i) = _ic_inputs()
+    kw = dict(H=H, W=W)
+    if fault == "dtype":
+        J8 = J8.double()
+    elif fault == "contiguity":
+        t_i = t_i.transpose(1, 2).contiguous().transpose(1, 2)
+    elif fault == "shape":
+        kw["W"] = W - 1
+    else:
+        kw["sampling"] = "bicubic"
+    with pytest.raises(ValueError):
+        ICB.ic_gn_level_batch(Ts, geom, J8, L, t_i, INTR, 1, 0.0, 1.0, **kw)
+
+
+def test_object_api_defaults_to_the_card():
+    """Every object-API backend defaults to the CUDA card; where torch finds
+    none, the default raises (naming device="cpu") instead of running on
+    the CPU, and device="cpu" runs there."""
+    for name, cls in BACKENDS.items():
+        default = inspect.signature(cls.__init__).parameters["device"].default
+        assert torch.device(default) == torch.device("cuda"), name
+        assert cls(device="cpu").device == torch.device("cpu")
+        if not torch.cuda.is_available():
+            with pytest.raises(RuntimeError, match='device="cpu"'):
+                cls()
 
 
 def _run_smoke(cwd):
@@ -240,7 +315,7 @@ def test_unported_trust_region_routes_raise(kwargs, error):
         lambda: tad.align_sequence_autodiff(I, D, INTR, cfg, mode),
         lambda: tad.align_sequence_autodiff(I, D, INTR, cfg, mode, warm_start=True),
         lambda: tad.align_sequence_chunk_autodiff(I[0], D[0], I[1:], D[1:], INTR, cfg, mode),
-        lambda: tad.PhotoconsistencyOdometryAutodiff(cfg, mode).align(
+        lambda: tad.PhotoconsistencyOdometryAutodiff(cfg, mode, device="cpu").align(
             I[0], D[0], I[1], D[1], INTR, torch.zeros(6)),
     ]
     for call in calls:
@@ -323,6 +398,7 @@ def test_library_path_hashes_headers(tmp_path, monkeypatch):
     # one nvcc per source, every one started
     assert all(cmd[cmd.index("-I") + 1] == str(csrc) for cmd in seen)
     assert sorted(Path(c).name for cmd in seen for c in cmd if c.endswith(".cu")) == [
-        "fused_gn_batch.cu", "fused_lin.cu", "fused_tr_batch.cu",
+        "fused_gn_batch.cu", "fused_lin.cu", "fused_tr_batch.cu", "ic_gn_batch.cu",
+        "ic_precompute.cu",
     ]
     assert not list((tmp_path / "build").iterdir())  # nothing left behind

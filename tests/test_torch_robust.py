@@ -371,7 +371,7 @@ def _occluded_pair(occ_frac):
 
 def _occ_error(pair, cfg):
     I0, D0, I1, D1, gt = pair
-    vo = PhotoconsistencyOdometryAnalytic(cfg)
+    vo = PhotoconsistencyOdometryAnalytic(cfg, device="cpu")
     vo.set_intrinsic_matrix(K_OCC)
     vo.set_source_frame((I0 * 255).astype(np.uint8), D0)
     vo.set_target_frame((I1 * 255).astype(np.uint8), D1)
@@ -410,7 +410,7 @@ def test_robust_matches_plain_on_clean_data():
     states = {}
     for name, cfg in {"none": _occ_cfg(), "huber": _occ_cfg("huber", 0.3),
                       "tdist": _occ_cfg("tdist", 0.1)}.items():
-        vo = PhotoconsistencyOdometryAnalytic(cfg)
+        vo = PhotoconsistencyOdometryAnalytic(cfg, device="cpu")
         vo.set_intrinsic_matrix(K_OCC)
         vo.set_source_frame((I0 * 255).astype(np.uint8), D0)
         vo.set_target_frame((I1 * 255).astype(np.uint8), D1)
