@@ -64,8 +64,25 @@ Phases, each of which raises on failure (exit code 1, no result line):
  7c. IC timing: the IC chain beside the analytic chain (fixed-75, early
      exit), the IC prep layer, K-IC and K-ICpre per level vs their plain
      versions, align_ic a VGA pair
-Each of the paths of phases 4, 4b, 5, 6, 6b, 6d and 6e runs with the
-launch counts set to 0 just before it and read just after. A line
+ 3d. the bi-objective level kernel (K-GN-bi) vs plain: 8 VGA pairs at all
+     five levels with 'none', huber, cauchy and tukey: bilinear over the
+     bench schedule's iterations (3 at 480x640 and 240x320), nearest over
+     3 iterations with the cost held and split by attribute_nearest_cost,
+     and per level and sampling an early-exit case from zero
+ 4c. bi-objective main path: the 257 frames through
+     align_sequence_chunk_biobjective in the two chunks, early exit at 300
+     and fixed-75: launch counts, kernel vs plain, the ATE beside the
+     analytic chain's
+ 6f. bi-objective object API: 4 pairs through
+     PhotoconsistencyOdometryBiObjective.optimize() with the analytic
+     preset against the level-major chain and the plain version; the
+     warm-started chain; one 480x640 pair of config_only_level_0_analytic
+ 7d. bi-objective timing: the bi chain beside the analytic chain
+     (fixed-75, early exit), the bi prep layer, K-GN-bi per level vs its
+     plain version and vs K-GN on the same frames, K-GN-bi at B = 1 on a
+     480x640 level, align_biobjective a VGA pair
+Each of the paths of phases 4, 4b, 4c, 5, 6, 6b, 6d, 6e and 6f runs with
+the launch counts set to 0 just before it and read just after. A line
 "[t s] phase" marks each phase's start. The line before the last is the
 kernels' JSON record (for fused_lin, max_abs_err is the largest Gram
 difference over the Gram's largest entry; bound_ms is the least time the
@@ -230,10 +247,12 @@ def cuda_ms(fn, repeats: int) -> float:
 
 
 def pair_packs(prep: dict) -> dict:
-    """Per-frame packs -> per-pair packs (source k, target k+1)."""
+    """Per-frame packs -> per-pair packs (source k, target k+1): the
+    source's (i0, geom) and the target's t_all and, for the bi-objective
+    level, its depth gain."""
     return {
-        level: (i0[:-1], geom[:-1], t_all[1:])
-        for level, (i0, geom, t_all) in prep.items()
+        level: (i0[:-1], geom[:-1], *(x[1:] for x in target))
+        for level, (i0, geom, *target) in prep.items()
     }
 
 
@@ -291,9 +310,12 @@ def attribute_nearest_cost(fb, args, kw, k, p, what, card):
       plus sample flips: pixels whose nearest sample or validity differs
         between the two versions' states after 1..n-1 iterations.
     Checks the first; that, but for 'tdist' (whose sigma carries the
-    earlier linearizations' flips), the plain costs at the two last states
-    are the same bits on every pair without a flip there; and that every
-    pair whose cost differs by more than COST_RTOL has a flip. Prints the
+    earlier linearizations' flips) and the bi-objective level (whose depth
+    residual gain (D - tz) moves with the state through tz), the plain
+    costs at the two last states are the same bits on every pair without
+    a flip there; that every pair whose cost differs by more than
+    COST_RTOL has a flip; and that the valid counts differ by exactly the
+    pixels whose validity flips between the two last states. Prints the
     worst pair's flips, with one pixel named."""
     i0, geom, t_all, intr, init, n = args[:6]
     H, W = kw["H"], kw["W"]
@@ -310,6 +332,7 @@ def attribute_nearest_cost(fb, args, kw, k, p, what, card):
         moved = (torch.round(uk) != torch.round(up)) | (torch.round(vk) != torch.round(vp))
         flips.append((ok != op) | (ok & op & moved))
         coords.append((uk, vk, up, vp))
+    nv_flips = (ok.sum(dim=1) - op.sum(dim=1)).to(k.num_valid.dtype)  # at the last linearization
     # km, pm: the states and scales of the last linearization
     same_kw = dict(kw, robust_scale=km.robust_scale, tdist_burnin=0)
     at_k = fb.fused_gn_level_batch_reference(i0, geom, t_all, intr, km.state, 1, *args[6:], **same_kw).cost
@@ -331,15 +354,21 @@ def attribute_nearest_cost(fb, args, kw, k, p, what, card):
           f"the sums (plain at the kernel's state) {float(same.max()):.3e}; flipped samples per pair at the "
           f"last linearization {n_last.tolist()}, at any {n_any.tolist()}; worst pair {b}: {named} [{card}]")
     check(float(same.max()) <= COST_RTOL, f"{what}: same-state cost rel diff {float(same.max())} > {COST_RTOL}")
-    if kw.get("robust_loss") != "tdist":
+    if kw.get("robust_loss") != "tdist" and kw.get("depth_gains") is None:
         unflipped = n_last == 0
         check(torch.equal(at_k[unflipped], p.cost[unflipped]),
               f"{what}: plain costs at the two states differ on a pair without a flipped sample")
     check(bool((n_any[total > COST_RTOL] > 0).all()),
           f"{what}: a pair's cost differs by more than {COST_RTOL} without a flipped sample")
+    nv_diff = k.num_valid - p.num_valid
+    if bool(nv_diff.any()):
+        print(f"nearest valid counts {what}: kernel minus plain {nv_diff.tolist()}, pixels whose validity flips "
+              f"between the last states {nv_flips.tolist()} [{card}]")
+    check(torch.equal(nv_flips, nv_diff), f"{what}: valid counts differ by more than the flipped pixels")
 
 
-def compare_levels(fb, packs, intr, iterations, sampling, card, cfg=None, check_cost=False, attribute=False):
+def compare_levels(fb, packs, intr, iterations, sampling, card, cfg=None, check_cost=False, attribute=False,
+                   explain_edge=False):
     """GN kernel vs plain version on the same packs at every active level,
     `iterations[level]` fixed iterations from the zero state, with cfg's
     variant (gn_variant_kw; none without cfg). With 'tdist' the first
@@ -348,7 +377,10 @@ def compare_levels(fb, packs, intr, iterations, sampling, card, cfg=None, check_
     out must agree within SIGMA_RTOL (bilinear, or one linearization:
     after a few nearest iterations a sample flip moves sigma as it moves
     the cost). check_cost: costs within COST_RTOL. attribute (nearest,
-    2 or more iterations): attribute_nearest_cost.
+    2 or more iterations): attribute_nearest_cost, which then holds the
+    valid counts too. explain_edge (bilinear):
+    valid counts may differ where explain_valid_diff accounts for it at
+    the states of the last linearization.
     Returns (the largest state difference, the largest cost rel diff)."""
     from phovo_tpu_torch.ops.pyramid import level_shape
     from phovo_tpu_torch.ops.robust import TDIST_BURNIN
@@ -358,7 +390,7 @@ def compare_levels(fb, packs, intr, iterations, sampling, card, cfg=None, check_
     name = "none" if cfg is None else (cfg.robust_loss if cfg.robust_loss != "none" else ("esm" if vkw["esm"] else "none"))
     worst = worst_cost = 0.0
     sigma = None
-    for level, (i0, geom, t_all) in sorted(packs.items(), reverse=True):
+    for level, (i0, geom, t_all, *gains) in sorted(packs.items(), reverse=True):
         H, W = level_shape(SHAPE, level)
         args = (
             i0, geom, t_all, intr.at_level(level),
@@ -366,6 +398,9 @@ def compare_levels(fb, packs, intr, iterations, sampling, card, cfg=None, check_
             iterations[level], 0.0, 1.0,
         )
         kw = dict(H=H, W=W, sampling=sampling, **vkw)
+        if gains:  # the bi-objective level (K-GN-bi)
+            kw["depth_gains"] = gains[0]
+            name = f"bi-objective {cfg.robust_loss}"
         if tdist:
             kw.update(robust_scale=sigma, tdist_burnin=TDIST_BURNIN if sigma is None else 0)
         k = fb.fused_gn_level_batch(*args, **kw)
@@ -391,7 +426,11 @@ def compare_levels(fb, packs, intr, iterations, sampling, card, cfg=None, check_
             f"nvalid equal {same_nv}, max cost rel diff {cost_rel:.3e}{extra} [{card}]"
         )
         check(err <= STATE_ATOL, f"state diff {err} > {STATE_ATOL}")
-        check(same_its and same_nv, "iterations or valid counts differ")
+        if not same_nv and explain_edge and sampling == "bilinear" and same_its:
+            explain_gn_valid_diff(fb, args, kw, k, p, f"kernel vs plain {name}: level {level} {H}x{W} bilinear")
+            same_nv = True
+        # with attribute, attribute_nearest_cost holds the valid counts
+        check(same_its and (same_nv or attribute), "iterations or valid counts differ")
         if check_cost:
             check(cost_rel <= COST_RTOL, f"{name}: cost rel diff {cost_rel} > {COST_RTOL}")
         if attribute:
@@ -516,6 +555,32 @@ def explain_valid_diff(fb, geom, intr, H, W, k, p, what):
     check(torch.equal(explained, k.num_valid - p.num_valid),
           f"{what}: valid counts differ by {(k.num_valid - p.num_valid).tolist()}, the edge pixels "
           f"account for {explained.tolist()}")
+
+
+def explain_gn_valid_diff(fb, args, kw, k, p, what):
+    """GN kernel (k) and plain (p) results of one run (args, kw) with equal
+    iteration counts and differing valid counts: the counts are the last
+    linearization's, at each pair's state one iteration before its end,
+    so explain_valid_diff (bilinear) must account for them at those
+    states; nearest, the pixels whose rounded sample changes validity
+    between them must."""
+    i0, geom, t_all, intr, init, n, threshold, lam = args
+    ks, ps = k.state.clone(), p.state.clone()
+    for m in k.iterations.unique().tolist():
+        sel = k.iterations == m
+        before = (i0, geom, t_all, intr, init, m - 1, threshold, lam)
+        ks[sel] = fb.fused_gn_level_batch(*before, **kw).state[sel]
+        ps[sel] = fb.fused_gn_level_batch_reference(*before, **kw).state[sel]
+    H, W = kw["H"], kw["W"]
+    if kw["sampling"] == "bilinear":
+        explain_valid_diff(fb, geom, intr, H, W, k._replace(state=ks), p._replace(state=ps), what)
+        return
+    ok = warped_uv(fb, geom, ks, intr, H, W, "nearest")[2]
+    op = warped_uv(fb, geom, ps, intr, H, W, "nearest")[2]
+    flips = (ok.sum(dim=1) - op.sum(dim=1)).to(k.num_valid.dtype)
+    print(f"{what}: valid counts kernel minus plain {(k.num_valid - p.num_valid).tolist()}, pixels whose validity "
+          f"flips between the last states {flips.tolist()}")
+    check(torch.equal(flips, k.num_valid - p.num_valid), f"{what}: valid counts differ by more than the flipped pixels")
 
 
 def compare_tr_results(k, p, what, strict, settled=None, explain_valid=None):
@@ -894,6 +959,10 @@ H100_F32_FLOPS = 67e12
 # bilinear channel 14 more) and K-ICpre's (ic_precompute.cu: geometry and
 # chain terms 23, rows 22, Gram 42).
 GN_FLOPS = {"nearest": 160, "bilinear": 200}
+# K-GN-bi's depth row on top of GN_FLOPS (accumulate_pixel with kBi: the
+# residual 3, the six columns 29, their Gram, J^T r and cost 56; bilinear
+# sampling of the three depth channels 40 more)
+BI_EXTRA_FLOPS = {"nearest": 88, "bilinear": 128}
 LIN_EXTRA_FLOPS = 12
 IC_FLOPS = {"nearest": 42, "bilinear": 56}
 IC_PRE_FLOPS = 87
@@ -1230,6 +1299,319 @@ def phase_ic_timing(Is, Ds, card):
     return rec
 
 
+# The losses the bi-objective level takes (no Student-t, no ESM)
+BI_LOSSES = ("none", "huber", "cauchy", "tukey")
+
+
+def bi_early_exit(fb, packs, intr, cfg, sampling, card):
+    """K-GN-bi early-exit cases from zero, one per level of packs: a
+    gradient-norm threshold at least EARLY_EXIT_MARGIN from every ||g||
+    the plain version reads before a stop (early_exit_tolerance), over
+    EARLY_EXIT_ITERATIONS bilinear or NEAREST_ITERATIONS nearest; kernel
+    and plain must stop after the predicted counts with states within
+    STATE_ATOL; valid counts may differ only where explain_gn_valid_diff
+    accounts for them by edge pixels or flipped samples. Returns the
+    largest state difference."""
+    from phovo_tpu_torch.ops.pyramid import level_shape
+
+    budget = EARLY_EXIT_ITERATIONS if sampling == "bilinear" else NEAREST_ITERATIONS
+    worst = 0.0
+    for level, (i0, geom, t6, gains) in sorted(packs.items(), reverse=True):
+        H, W = level_shape(SHAPE, level)
+        args = (i0, geom, t6, intr.at_level(level), torch.zeros((i0.shape[0], 6), device=i0.device))
+        kw = dict(H=H, W=W, sampling=sampling, depth_gains=gains, **gn_variant_kw(cfg))
+        values = [torch.full((i0.shape[0],), float("inf"), dtype=torch.float64)]
+        values += [fb.fused_gn_level_batch_reference(*args, m, 0.0, 1.0, **kw).gradient_norm.double().cpu()
+                   for m in range(1, budget + 1)]
+        tol, stops = early_exit_tolerance(torch.stack(values))
+        k = fb.fused_gn_level_batch(*args, budget, tol, 1.0, **kw)
+        p = fb.fused_gn_level_batch_reference(*args, budget, tol, 1.0, **kw)
+        torch.cuda.synchronize()
+        err = float((k.state - p.state).abs().max())
+        what = (f"bi-objective kernel vs plain {cfg.robust_loss}, early exit: level {level} {H}x{W} {sampling} "
+                f"{i0.shape[0]} pairs, budget {budget}, threshold {tol:.6g}")
+        print(f"{what}: iterations {k.iterations.tolist()} (predicted {stops.tolist()}), max|state diff| "
+              f"{err:.3e} [{card}]")
+        check(k.iterations.cpu().tolist() == stops.tolist() and p.iterations.cpu().tolist() == stops.tolist(),
+              f"bi-objective early exit level {level} {sampling}: did not stop where predicted")
+        check(err <= STATE_ATOL, "bi-objective early exit differs from plain")
+        if not torch.equal(k.num_valid, p.num_valid):
+            explain_gn_valid_diff(fb, args + (budget, tol, 1.0), kw, k, p, what)
+        worst = max(worst, err)
+    return worst
+
+
+def phase_bi_kernels(fb, I9, D9, card):
+    """Phase 3d: K-GN-bi against its plain version on 8 VGA pairs at all
+    five levels, with each loss of BI_LOSSES at its LOSS_DELTAS scale:
+    bilinear over the bench schedule's iterations (3 at the two finest
+    levels), states within STATE_ATOL and equal counts (valid counts that
+    explain_valid_diff accounts for by edge pixels); nearest over
+    NEAREST_ITERATIONS, the cost split by attribute_nearest_cost; and an
+    early-exit case from zero per level and sampling. Returns the largest
+    state difference."""
+    from phovo_tpu_torch.models.biobjective import prep_frame_biobjective
+    from phovo_tpu_torch.ops.camera import TUM_FR1
+    from phovo_tpu_torch.utils.config import config_from_dict
+
+    cfg_all = config_from_dict(dict(ANALYTIC_PRESET, max_iterations=[3, 3, 5, 20, 50]))
+    worst = 0.0
+    for loss in BI_LOSSES:
+        cfg = variant_config(cfg_all, loss)
+        packs = pair_packs(prep_frame_biobjective(I9, D9, TUM_FR1, cfg))
+        whole = dict(enumerate(cfg.max_iterations))
+        worst = max(worst, compare_levels(fb, packs, TUM_FR1, whole, "bilinear", card, cfg, explain_edge=True)[0])
+        short = {level: min(n, NEAREST_ITERATIONS) for level, n in whole.items()}
+        worst = max(worst, compare_levels(fb, packs, TUM_FR1, short, "nearest", card, cfg, attribute=True)[0])
+        for sampling in ("nearest", "bilinear"):
+            worst = max(worst, bi_early_exit(fb, packs, TUM_FR1, cfg, sampling, card))
+        del packs
+    return worst
+
+
+def phase_bi_main(run_chain, fb, se3, traj, gts, ts, analytic_ate, card):
+    """Phase 4c: the bi-objective main path, the 257 frames through
+    align_sequence_chunk_biobjective in the two chunks with the bench
+    schedule, early exit at 300 and fixed-75, each with the launch counts
+    set to 0 just before and read just after; then once more through the
+    plain version. Early exit: per-pair agreement on the pairs whose every
+    level ran at most NEAREST_ITERATIONS iterations (further nearest
+    iterations are chaotic); fixed-75: the difference is printed, not
+    held. Both: finite states and the ATE below standing still, the
+    analytic chain's beside it. Returns the early-exit run's launches and
+    its largest compared state difference."""
+    from phovo_tpu_torch.models import biobjective
+
+    out = None
+    for name, cfg in (("early exit at 300", bench_config(300.0)), ("fixed-75", bench_config(0.0))):
+        active = sum(1 for n in cfg.max_iterations if n > 0)
+        reset_counts(fb)
+        kern = run_chain(biobjective.align_sequence_chunk_biobjective, cfg)
+        launches, other = fb.LAUNCHES, fb.TR_LAUNCHES + fb.LIN_LAUNCHES
+        print(f"bi-objective path, {name}: K-GN-bi launches {launches} (expected {active} levels x "
+              f"{len(CHUNKS)} chunks), other kernels {other}")
+        check(launches == active * len(CHUNKS) and other == 0,
+              "the bi-objective path did not launch K-GN-bi once per active level of every chunk")
+        reset_counts(fb)
+        with mock.patch.object(biobjective, "fused_gn_level_batch", fb.fused_gn_level_batch_reference):
+            plain = run_chain(biobjective.align_sequence_chunk_biobjective, cfg)
+        check(fb.LAUNCHES == 0, "the plain bi-objective run launched the kernel")
+        diff = (kern.state - plain.state).abs().amax(dim=1)
+        its = kern.iterations.cpu()
+        short = (kern.iterations <= NEAREST_ITERATIONS).all(dim=1)
+        err = float(diff[short].max()) if bool(short.any()) else float("nan")
+        same = torch.equal(kern.iterations[short], plain.iterations[short]) and torch.equal(
+            kern.num_valid[short], plain.num_valid[short])
+        print(f"bi-objective path, {name}: {kern.state.shape[0]} pairs, iterations per level (mean) "
+              f"{its.double().mean(dim=0).numpy().round(3).tolist()} (max {its.max(dim=0).values.tolist()}); "
+              f"kernel vs plain on the {int(short.sum())} pairs of at most {NEAREST_ITERATIONS} iterations a "
+              f"level: max|state diff| {err:.3e}, iterations and valid counts equal {same}; over all pairs "
+              f"{float(diff.max()):.3e} [{card}]")
+        if name.startswith("early"):
+            check(bool(short.any()) and err <= STATE_ATOL and same, "bi-objective early-exit chain differs from plain")
+            out = (launches, err)
+        check(bool(torch.isfinite(kern.state).all()), "non-finite bi-objective states")
+        check(tuple(kern.state.shape) == (N_FRAMES - 1, 6), f"bi-objective state shape {tuple(kern.state.shape)}")
+        ate, still = trajectory_ate(se3, traj, kern.state, gts, ts)
+        print(f"bi-objective path, {name}: ATE rmse {ate:.6f} m (analytic chain, early exit: {analytic_ate:.6f} m; "
+              f"identity trajectory {still:.6f} m)")
+        check(np.isfinite(ate) and ate < still, "bi-objective ATE not finite or not below standing still")
+    return out
+
+
+def phase_bi_api(fb, I8, D16, card):
+    """Phase 6f: N_API_PAIRS pairs through PhotoconsistencyOdometryBiObjective
+    on the card with config_5_level_optimization_analytic (one K-GN-bi
+    launch a pair per active level) against the level-major chain on the
+    same frames and against the plain version; the warm-started chain, one
+    launch per pair per level, against its plain version; one 480x640 pair
+    of config_only_level_0_analytic. Returns (launches of the per-pair
+    run, largest state difference)."""
+    from phovo_tpu_torch.models import biobjective
+    from phovo_tpu_torch.models.base import device_unit_intensity
+    from phovo_tpu_torch.ops import fused as fused_ops
+    from phovo_tpu_torch.ops import pyramid as pyr
+    from phovo_tpu_torch.ops.camera import TUM_FR1
+    from phovo_tpu_torch.utils.config import config_from_dict
+
+    dev = torch.device("cuda", 0)
+    cfg_an = config_from_dict(ANALYTIC_PRESET)
+    active = sum(1 for n in cfg_an.max_iterations if n > 0)
+    n = N_API_PAIRS + 1
+    depth_m = [torch.from_numpy(D16[k]).to(dev).to(torch.float32) * float(np.float32(DEPTH_SCALE)) for k in range(n)]
+    Iapi, Dapi = torch.from_numpy(I8[:n]).to(dev), torch.stack(depth_m)
+    K = [[TUM_FR1.fx, 0, TUM_FR1.cx], [0, TUM_FR1.fy, TUM_FR1.cy], [0, 0, 1]]
+
+    def per_pair(cfg, pairs):
+        vo = biobjective.PhotoconsistencyOdometryBiObjective(cfg, device=dev)
+        vo.set_intrinsic_matrix(K)
+        out = []
+        for k in pairs:
+            vo.set_source_frame(I8[k], depth_m[k])
+            vo.set_target_frame(I8[k + 1], depth_m[k + 1])
+            vo.set_initial_state_vector(np.zeros(6))
+            out.append(vo.optimize())
+        torch.cuda.synchronize()
+        return type(out[0])(*(torch.stack(x) for x in zip(*out)))
+
+    def plain(fn):
+        with mock.patch.object(fused_ops, "fused_gn_level_batch", fb.fused_gn_level_batch_reference):
+            return fn()
+
+    lm = biobjective.align_sequence_biobjective(Iapi, Dapi, TUM_FR1, cfg_an)
+    reset_counts(fb)
+    kern = per_pair(cfg_an, range(N_API_PAIRS))
+    launches, other = fb.LAUNCHES, fb.TR_LAUNCHES + fb.LIN_LAUNCHES
+    reset_counts(fb)
+    ref = plain(lambda: per_pair(cfg_an, range(N_API_PAIRS)))
+    check(fb.LAUNCHES == 0, "the plain bi-objective per-pair run launched the kernel")
+    bits = all(torch.equal(a, b) for a, b in zip(kern, lm))
+    err = float((kern.state - ref.state).abs().max())
+    lm_err = float((kern.state - lm.state).abs().max())
+    # where a difference from the level-major chain can come from: K-GN-bi
+    # gives the same bits for the same inputs whatever B is, so from the
+    # inputs, built per pair here and for all frames at once there
+    Ifl = device_unit_intensity(Iapi).to(torch.float32)
+    prep_all = biobjective.prep_frame_biobjective(Ifl, Dapi, TUM_FR1, cfg_an)
+    input_diff = {"pyramid": 0.0, "t6": 0.0, "gain": 0.0}
+    for k in range(n):
+        one = biobjective.prep_frame_biobjective(Ifl[k], Dapi[k], TUM_FR1, cfg_an)
+        for level, (i0, _, t6, gain) in one.items():
+            input_diff["pyramid"] = max(input_diff["pyramid"], float((i0 - prep_all[level][0][k]).abs().max()))
+            input_diff["t6"] = max(input_diff["t6"], float((t6 - prep_all[level][2][k]).abs().max()))
+            input_diff["gain"] = max(input_diff["gain"], float((gain - prep_all[level][3][k]).abs().max()))
+    print(f"bi-objective per-pair API: {N_API_PAIRS} pairs, K-GN-bi launches {launches} (expected {active} x "
+          f"{N_API_PAIRS}), other launches {other}, iterations {kern.iterations.tolist()}; max|state diff| kernel vs "
+          f"plain {err:.3e}; against the level-major chain: the same bits {bits}, max|state diff| {lm_err:.3e}; "
+          f"inputs one frame vs all frames at once, max|diff|: "
+          + ", ".join(f"{k} {v:.3e}" for k, v in input_diff.items()) + f" [{card}]")
+    check(launches == active * N_API_PAIRS and other == 0,
+          "the bi-objective optimize() did not launch K-GN-bi once per level per pair")
+    check(err <= STATE_ATOL and lm_err <= STATE_ATOL, "bi-objective per-pair state diff")
+    check(torch.equal(kern.iterations, ref.iterations) and torch.equal(kern.num_valid, ref.num_valid)
+          and torch.equal(kern.iterations, lm.iterations), "bi-objective per-pair iterations or valid counts differ")
+    check(bits or any(v > 0 for v in input_diff.values()),
+          "the per-pair route differs from the level-major chain on the same inputs")
+    worst = max(err, lm_err)
+
+    reset_counts(fb)
+    warm = biobjective.align_sequence_biobjective(Iapi, Dapi, TUM_FR1, cfg_an, warm_start=True)
+    torch.cuda.synchronize()
+    warm_launches = fb.LAUNCHES
+    warm_plain = plain(lambda: biobjective.align_sequence_biobjective(Iapi, Dapi, TUM_FR1, cfg_an, warm_start=True))
+    err = float((warm.state - warm_plain.state).abs().max())
+    print(f"bi-objective warm start: {N_API_PAIRS} pairs, K-GN-bi launches {warm_launches}, max|state diff| kernel vs "
+          f"plain {err:.3e}, max|state - zero-init state| {float((warm.state - lm.state).abs().max()):.3e} [{card}]")
+    check(warm_launches == active * N_API_PAIRS, "the bi-objective warm chain did not launch once per level per pair")
+    check(fb.LAUNCHES == warm_launches, "the plain bi-objective warm run launched the kernel")
+    check(err <= STATE_ATOL and torch.equal(warm.iterations, warm_plain.iterations),
+          "bi-objective warm chain differs from plain")
+    worst = max(worst, err)
+
+    cfg0 = config_from_dict(LEVEL0_PRESET)
+    reset_counts(fb)
+    t0 = time.perf_counter()
+    one = per_pair(cfg0, [0])
+    wall = time.perf_counter() - t0
+    its = int(one.iterations[0, 0])
+    print(f"bi-objective config_only_level_0_analytic: one {SHAPE[0]}x{SHAPE[1]} pair, K-GN-bi launches {fb.LAUNCHES}, "
+          f"iterations {its}, {wall:.3f} s, final ||J^T r|| {float(one.gradient_norm[0, 0]):.3f} [{card}]")
+    check(fb.LAUNCHES == 1 and bool(torch.isfinite(one.state).all()),
+          "the level-0 preset did not run once through K-GN-bi")
+    if its <= NEAREST_ITERATIONS:
+        ref0 = plain(lambda: per_pair(cfg0, [0]))
+        err = float((one.state - ref0.state).abs().max())
+        print(f"bi-objective config_only_level_0_analytic: kernel vs plain max|state diff| {err:.3e}")
+        check(err <= STATE_ATOL and torch.equal(one.iterations, ref0.iterations), "bi level-0 preset differs from plain")
+        worst = max(worst, err)
+    return launches, worst
+
+
+def phase_bi_timing(Is, Ds, card):
+    """Phase 7d: the bi-objective chain per 256 pairs (fixed-75 and early
+    exit at 300) beside the analytic chain, in turns (analytic, bi, bi,
+    analytic); the bi prep layer beside the analytic one; K-GN-bi per level
+    against its plain version (plain, kernel, kernel, plain) and against
+    K-GN on the same frames; K-GN-bi at B = 1 on a 480x640 level, 3
+    nearest iterations; align_biobjective a VGA pair beside align_analytic.
+    Returns the kernel's record fields."""
+    from phovo_tpu_torch.models import analytic, biobjective
+    from phovo_tpu_torch.models.analytic import prep_frame_analytic
+    from phovo_tpu_torch.ops import fused_batch as fb
+    from phovo_tpu_torch.ops.camera import TUM_FR1
+    from phovo_tpu_torch.ops.pyramid import level_shape
+    from phovo_tpu_torch.utils.config import config_from_dict
+
+    dev = Is.device
+    n_pairs = Is.shape[0] - 1
+    cfg_fixed, cfg_ee = bench_config(0.0), bench_config(300.0)
+    for name, cfg in (("fixed-75", cfg_fixed), ("early exit at 300", cfg_ee)):
+        a1 = cuda_ms(lambda: analytic.align_sequence(Is, Ds, TUM_FR1, cfg), REPEATS)
+        b1 = cuda_ms(lambda: biobjective.align_sequence_biobjective(Is, Ds, TUM_FR1, cfg), REPEATS)
+        b2 = cuda_ms(lambda: biobjective.align_sequence_biobjective(Is, Ds, TUM_FR1, cfg), REPEATS)
+        a2 = cuda_ms(lambda: analytic.align_sequence(Is, Ds, TUM_FR1, cfg), REPEATS)
+        print(f"bi-objective chain {name}: {1e3 * n_pairs / ((b1 + b2) / 2):.1f} pairs/s ({b1:.3f}, {b2:.3f} ms / "
+              f"{n_pairs} pairs); analytic chain beside it {a1:.3f}, {a2:.3f} ms [{card}]")
+    ms_an = cuda_ms(lambda: prep_frame_analytic(Is, Ds, TUM_FR1, cfg_fixed), REPEATS)
+    ms_bi = cuda_ms(lambda: biobjective.prep_frame_biobjective(Is, Ds, TUM_FR1, cfg_fixed), REPEATS)
+    print(f"layer bi-objective prep (pyramids, Scharr of intensity and depth, geometry, six-channel stacks, gains of "
+          f"{Is.shape[0]} frames): {ms_bi:.3f} ms; analytic prep beside it {ms_an:.3f} ms [{card}]")
+
+    packs = pair_packs(biobjective.prep_frame_biobjective(Is, Ds, TUM_FR1, cfg_fixed))
+    photo = pair_packs(prep_frame_analytic(Is, Ds, TUM_FR1, cfg_fixed))
+    rec = dict(ms=0.0, plain_ms=0.0, photometric_ms=0.0)
+    n_bytes = flops = 0.0
+    for level, (i0, geom, t6, gains) in sorted(packs.items(), reverse=True):
+        H, W = level_shape(SHAPE, level)
+        zero = torch.zeros((n_pairs, 6), device=dev)
+        args = (i0, geom, t6, TUM_FR1.at_level(level), zero, cfg_fixed.max_iterations[level], 0.0, 1.0)
+        kw = dict(H=H, W=W, sampling="nearest", depth_gains=gains)
+        p1 = cuda_ms(lambda: fb.fused_gn_level_batch_reference(*args, **kw), 2)
+        k1 = cuda_ms(lambda: fb.fused_gn_level_batch(*args, **kw), REPEATS)
+        g = cuda_ms(lambda: fb.fused_gn_level_batch(*photo[level], *args[3:], H=H, W=W, sampling="nearest"), REPEATS)
+        k2 = cuda_ms(lambda: fb.fused_gn_level_batch(*args, **kw), REPEATS)
+        p2 = cuda_ms(lambda: fb.fused_gn_level_batch_reference(*args, **kw), 2)
+        res = fb.fused_gn_level_batch(*args, **kw)
+        rec["ms"] += (k1 + k2) / 2
+        rec["plain_ms"] += (p1 + p2) / 2
+        rec["photometric_ms"] += g
+        n_bytes += nbytes(i0, geom, t6, gains, zero, *res)
+        flops += float(res.iterations.double().sum()) * H * W * (GN_FLOPS["nearest"] + BI_EXTRA_FLOPS["nearest"])
+        print(f"layer bi-objective level kernel: level {level} {H}x{W}, {n_pairs} pairs x "
+              f"{cfg_fixed.max_iterations[level]} it: kernel {(k1 + k2) / 2:.3f} ms ({k1:.3f}, {k2:.3f}), plain "
+              f"{(p1 + p2) / 2:.3f} ms ({p1:.3f}, {p2:.3f}), photometric K-GN on the same frames {g:.3f} ms [{card}]")
+    del packs, photo
+    rec["bound_ms"], rec["bound_by"] = bound(n_bytes, flops)
+    print(f"fused_gn_level_batch_bi: bench chain {rec['ms']:.3f} ms (photometric K-GN {rec['photometric_ms']:.3f} ms), "
+          f"bound {rec['bound_ms']:.4f} ms ({rec['bound_by']}) [{card}]")
+
+    # B4's workload: K-GN-bi at B = 1, one pair's 480x640 level, 3 nearest
+    # iterations (the B3 row's)
+    cfg0 = config_from_dict(LEVEL0_PRESET)
+    one = pair_packs(biobjective.prep_frame_biobjective(Is[:2], Ds[:2], TUM_FR1, cfg0))[0]
+    gn1 = (*one[:3], TUM_FR1, torch.zeros((1, 6), device=dev), NEAREST_ITERATIONS, 0.0, 1.0)
+    gn1_kw = dict(H=SHAPE[0], W=SHAPE[1], sampling="nearest", depth_gains=one[3])
+    p1 = cuda_ms(lambda: fb.fused_gn_level_batch_reference(*gn1, **gn1_kw), 3)
+    k1 = cuda_ms(lambda: fb.fused_gn_level_batch(*gn1, **gn1_kw), REPEATS)
+    k2 = cuda_ms(lambda: fb.fused_gn_level_batch(*gn1, **gn1_kw), REPEATS)
+    p2 = cuda_ms(lambda: fb.fused_gn_level_batch_reference(*gn1, **gn1_kw), 3)
+    one_bound = bound(nbytes(*one, gn1[4], *fb.fused_gn_level_batch(*gn1, **gn1_kw)),
+                      NEAREST_ITERATIONS * SHAPE[0] * SHAPE[1] * (GN_FLOPS["nearest"] + BI_EXTRA_FLOPS["nearest"]))
+    rec["b1_ms"], rec["b1_plain_ms"], rec["b1_bound_ms"] = (k1 + k2) / 2, (p1 + p2) / 2, one_bound[0]
+    print(f"layer bi-objective level kernel at B = 1 (B4, the per-pair level): {SHAPE[0]}x{SHAPE[1]}, "
+          f"{NEAREST_ITERATIONS} nearest iterations, one SM: kernel {(k1 + k2) / 2:.3f} ms ({k1:.3f}, {k2:.3f}), "
+          f"plain {(p1 + p2) / 2:.3f} ms ({p1:.3f}, {p2:.3f}), bound {one_bound[0]:.4f} ms ({one_bound[1]}) [{card}]")
+
+    cfg_an = config_from_dict(ANALYTIC_PRESET)
+    zero6 = torch.zeros(6, device=dev)
+    pair = (Is[0], Ds[0], Is[1], Ds[1], TUM_FR1, zero6, cfg_an)
+    ms_an = cuda_ms(lambda: analytic.align_analytic(*pair), REPEATS)
+    ms_bi = cuda_ms(lambda: biobjective.align_biobjective(*pair), REPEATS)
+    print(f"per-pair bi-objective route: align_biobjective {ms_bi:.3f} ms a VGA pair (analytic preset, 3 launches "
+          f"at B = 1); align_analytic beside it {ms_an:.3f} ms [{card}]")
+    return rec
+
+
 T_START = time.perf_counter()
 
 
@@ -1299,6 +1681,10 @@ def main() -> int:
     stamp("3c. IC kernels vs plain")
     ic_j8_err, ic_l_err, ic_pose_err = phase_ic_kernels(I9, D9, card)
 
+    # 3d. the bi-objective level kernel vs its plain version
+    stamp("3d. bi-objective kernel vs plain")
+    bi_err = phase_bi_kernels(fb, I9, D9, card)
+
     # 4. the analytic main path: 257 frames through align_sequence_chunk
     stamp("4. analytic main path")
     t0 = time.perf_counter()
@@ -1352,6 +1738,10 @@ def main() -> int:
     # 4b. the IC main path: the same frames through align_sequence_chunk_ic
     stamp("4b. IC main path")
     (ic_pre_launches, ic_launches), ic_chain_err = phase_ic_main(run_chain, fb, se3, traj, gts, ts, card)
+
+    # 4c. the bi-objective main path: the same frames with their depths
+    stamp("4c. bi-objective main path")
+    bi_launches, bi_chain_err = phase_bi_main(run_chain, fb, se3, traj, gts, ts, ate, card)
 
     # 5. the ceres main path: the same frames, the shipped ceres preset
     stamp("5. ceres main path")
@@ -1426,6 +1816,9 @@ def main() -> int:
     lin_launches = phase_linearizer(fb, I8, D16, card)
     # 6e. the IC object API
     ic_api_launches, ic_api_err = phase_ic_api(I8, D16, card)
+    # 6f. the bi-objective object API
+    stamp("6f. bi-objective object API")
+    bi_api_launches, bi_api_err = phase_bi_api(fb, I8, D16, card)
 
     # 7. timing, device-resident frames: the bench.py workload
     stamp("7. timing")
@@ -1557,6 +1950,9 @@ def main() -> int:
     # 7c. the IC chain, its prep and its kernels
     stamp("7c. IC timing")
     ic_rec = phase_ic_timing(Is, Ds, card)
+    # 7d. the bi-objective chain, its prep and its kernel
+    stamp("7d. bi-objective timing")
+    bi_rec = phase_bi_timing(Is, Ds, card)
     stamp("done")
 
     gn_bound, tr_bound = bound(gn_bytes, gn_flops), bound(tr_bytes, tr_flops)
@@ -1625,6 +2021,18 @@ def main() -> int:
             **ic_rec["ic_gn_level_batch"],
             "library_ms": None,
             "per_pair_launches": ic_api_launches,
+        },
+        {
+            "name": "fused_gn_level_batch_bi",
+            "route": "cuda",
+            "source": "phovo_tpu_torch/csrc/fused_gn_batch.cu",
+            "replaces": "phovo_tpu/ops/fused_batch.py:607 (bi) and phovo_tpu/ops/fused.py:1162",
+            "launches": bi_launches,
+            "max_abs_err": max(bi_err, bi_chain_err, bi_api_err),
+            **bi_rec,
+            "library_ms": None,
+            "variants": list(BI_LOSSES),
+            "per_pair_launches": bi_api_launches,
         },
     ]}
     print(json.dumps(record))

@@ -16,10 +16,13 @@ Layout mirrors phovo_tpu:
             PhotoconsistencyOdometryAnalytic, align_sequence,
             align_sequence_chunk), the trust-region ("ceres") backend
             (align_autodiff, align_sequence_autodiff,
-            align_sequence_chunk_autodiff, PhotoconsistencyOdometryAutodiff)
-            and the inverse-compositional backend (align_ic,
-            align_sequence_ic, align_sequence_chunk_ic,
-            PhotoconsistencyOdometryIC)
+            align_sequence_chunk_autodiff, PhotoconsistencyOdometryAutodiff),
+            the bi-objective (intensity + depth) backend
+            (align_biobjective, align_sequence_biobjective,
+            align_sequence_chunk_biobjective,
+            PhotoconsistencyOdometryBiObjective) and the
+            inverse-compositional backend (align_ic, align_sequence_ic,
+            align_sequence_chunk_ic, PhotoconsistencyOdometryIC)
   utils/    config schedule and YAML presets, synthetic frames,
             trajectories and ATE
 """
@@ -49,6 +52,12 @@ from phovo_tpu_torch.models.autodiff import (  # noqa: E402,F401
     align_autodiff,
     align_sequence_autodiff,
     align_sequence_chunk_autodiff,
+)
+from phovo_tpu_torch.models.biobjective import (  # noqa: E402,F401
+    PhotoconsistencyOdometryBiObjective,
+    align_biobjective,
+    align_sequence_biobjective,
+    align_sequence_chunk_biobjective,
 )
 from phovo_tpu_torch.models.ic import (  # noqa: E402,F401
     PhotoconsistencyOdometryIC,

@@ -1,11 +1,17 @@
 // One whole Gauss-Newton pyramid level for B independent frame pairs (K-GN).
 //
-// Replaces two TPU kernels, which compute the same per-pair level:
+// Replaces four TPU kernels, which compute the same per-pair level:
 //   phovo_tpu/ops/fused_batch.py::_fused_gn_batch_kernel (B pairs, the
 //     level-major sequence; linearization _batch_linearize, solve
 //     phovo_tpu/ops/fused.py::_chol_solve6), and
 //   phovo_tpu/ops/fused.py::_fused_gn_kernel with _run_gn_loop (one pair,
-//     the per-pair aligner): here that is this kernel launched with B = 1.
+//     the per-pair aligner): here that is this kernel launched with B = 1;
+//   the same two in their bi-objective (intensity + depth) mode:
+//     _fused_gn_batch_kernel with bi=True and
+//     phovo_tpu/ops/fused.py::_fused_gn_bi_kernel (its 16x16 Gram's two
+//     blocks summed into one set of normal equations), the kBi variant
+//     here (K-GN-bi): a six-channel target [I, gx, gy, D, dgx, dgy] and a
+//     per-pair depth gain; huber, cauchy and tukey, no ESM, no Student-t.
 // Photometric, one source per pair, nearest or bilinear sampling, the
 // target gradient at the warped point or averaged with the source gradient
 // (ESM, six geometry rows), and any robust loss as IRLS weights. For the
@@ -21,7 +27,9 @@
 // What bounds it on an H100: a GN iteration is about a hundred flops and
 // eight 4-byte loads a pixel (four geometry rows, the source intensity,
 // three target samples, of which the target ones are scattered), then a
-// 29-value block reduction and a serial 6x6 solve. At 30x40 and 60x80
+// 29-value block reduction and a serial 6x6 solve; the bi-objective
+// variant reads three more target samples (44 B a pixel with its packs)
+// and about 90 more flops for the depth row, into the same 29 sums. At 30x40 and 60x80
 // (1,200 and 4,800 pixels a pair) the packs of a 256-pair chunk fit in the
 // 50 MB L2, and gather latency plus the per-iteration reduction, barriers
 // and solve bound it. At 120x160 the chunk's packs (32 bytes a pixel,
@@ -46,25 +54,29 @@ namespace {
 
 using namespace phovo;
 
-template <bool kBilinear, int kLoss, bool kEsm>
+template <bool kBilinear, int kLoss, bool kEsm, bool kBi>
 __global__ void __launch_bounds__(kThreads)
 fused_gn_batch_kernel(const float* __restrict__ i0_all,     // (B, N)
                       const float* __restrict__ geom_all,   // (B, 4|6, N)
-                      const float* __restrict__ t_all,      // (B, 3, H, W)
+                      const float* __restrict__ t_all,      // (B, 3|6, H, W)
                       const float* __restrict__ init_states,  // (B, 6)
                       const float* __restrict__ scale_in,   // (B,) delta or sigma
+                      const float* __restrict__ depth_gains,  // (B,) kBi only
                       float* __restrict__ states_out,       // (B, 6)
                       float* __restrict__ diag_out,         // (B, 6)
                       int H, int W, float fx, float fy, float cx, float cy,
                       int max_iterations, float min_gradient_norm,
                       float lambda_step, int tdist_burnin) {
   constexpr int kRows = kEsm ? 6 : 4;
+  constexpr int kCh = kBi ? 6 : 3;
   const int pair = blockIdx.x;
   const int tid = threadIdx.x;
   const int N = H * W;
   const float* i0 = i0_all + static_cast<size_t>(pair) * N;
   const float* geom = geom_all + static_cast<size_t>(pair) * kRows * N;
-  const float* tgt = t_all + static_cast<size_t>(pair) * 3 * N;
+  const float* tgt = t_all + static_cast<size_t>(pair) * kCh * N;
+  // the pair's depth gain, state-invariant (phovo_tpu's state slot 7)
+  const float gain = kBi ? __ldg(depth_gains + pair) : 0.0f;
 
   __shared__ Terms terms;
   __shared__ float state[6];
@@ -98,8 +110,8 @@ fused_gn_batch_kernel(const float* __restrict__ i0_all,     // (B, N)
   }
 
   while (active) {
-    linearize_block<kBilinear, kLoss, kEsm, kSums>(
-        terms, i0, geom, tgt, H, W, fx, fy, cx, cy, delta, partial, total);
+    linearize_block<kBilinear, kLoss, kEsm, kSums, kBi>(
+        terms, i0, geom, tgt, H, W, fx, fy, cx, cy, delta, partial, total, gain);
     if (tid == 0) {
       float A[6][6], b[6], x[6];
       unpack_jtj(total, A);
@@ -139,25 +151,36 @@ fused_gn_batch_kernel(const float* __restrict__ i0_all,     // (B, N)
 // Launches the level kernel for B pairs on `stream` (a cudaStream_t); the
 // caller owns every buffer. loss is a phovo::Loss, esm selects the six-row
 // geometry; scale_in holds each pair's loss scale (robust_delta, or the
-// Student-t sigma). diag_out rows are [it, ||J^T r||, cost, nvalid,
-// band_masked = 0, scale out]. Returns cudaGetLastError() after the launch,
-// or cudaErrorInvalidValue for a variant that does not exist.
+// Student-t sigma). depth_gains (B,) selects the bi-objective variant with
+// a six-channel t_all (nullptr: photometric, three channels); it exists
+// for 'none', huber, cauchy and tukey without ESM. diag_out rows are [it,
+// ||J^T r||, cost, nvalid, band_masked = 0, scale out]. Returns
+// cudaGetLastError() after the launch, or cudaErrorInvalidValue for a
+// variant that does not exist.
 extern "C" int phovo_fused_gn_level_batch(
     const float* i0, const float* geom, const float* t_all,
-    const float* init_states, const float* scale_in, float* states_out,
-    float* diag_out, int B, int H, int W, int bilinear, int loss, int esm,
-    float fx, float fy, float cx, float cy, int max_iterations,
-    float min_gradient_norm, float lambda_step, int tdist_burnin,
-    void* stream) {
+    const float* init_states, const float* scale_in, const float* depth_gains,
+    float* states_out, float* diag_out, int B, int H, int W, int bilinear,
+    int loss, int esm, float fx, float fy, float cx, float cy,
+    int max_iterations, float min_gradient_norm, float lambda_step,
+    int tdist_burnin, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const bool known = dispatch_variant<kTdist, true>(
-      bilinear, loss, esm, [&](auto kb, auto kl, auto ke) {
-        fused_gn_batch_kernel<decltype(kb)::value, decltype(kl)::value,
-                              decltype(ke)::value><<<B, kThreads, 0, s>>>(
-            i0, geom, t_all, init_states, scale_in, states_out, diag_out, H,
-            W, fx, fy, cx, cy, max_iterations, min_gradient_norm, lambda_step,
-            tdist_burnin);
-      });
+  auto launch = [&](auto kb, auto kl, auto ke, auto kbi) {
+    fused_gn_batch_kernel<decltype(kb)::value, decltype(kl)::value,
+                          decltype(ke)::value, decltype(kbi)::value>
+        <<<B, kThreads, 0, s>>>(i0, geom, t_all, init_states, scale_in,
+                                depth_gains, states_out, diag_out, H, W, fx,
+                                fy, cx, cy, max_iterations, min_gradient_norm,
+                                lambda_step, tdist_burnin);
+  };
+  const bool known =
+      depth_gains != nullptr
+          ? dispatch_variant<kTukey, false>(
+                bilinear, loss, esm,
+                [&](auto kb, auto kl, auto ke) { launch(kb, kl, ke, std::true_type{}); })
+          : dispatch_variant<kTdist, true>(
+                bilinear, loss, esm,
+                [&](auto kb, auto kl, auto ke) { launch(kb, kl, ke, std::false_type{}); });
   if (!known) return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,7 +1,8 @@
 // Per-pixel device code shared by the level kernels (fused_gn_batch.cu,
 // fused_tr_batch.cu, fused_lin.cu): the state's rotation terms, target
 // sampling, one pixel's residual and Jacobian row with its robust (IRLS)
-// weight and ESM gradient, the block reduction of the normal equations, the
+// weight and ESM gradient (and, for the bi-objective level, its depth
+// residual and row), the block reduction of the normal equations, the
 // 6x6 Cholesky solve, and the host-side dispatch over the variants. The
 // inverse-compositional kernels (ic_precompute.cu, ic_gn_batch.cu) share
 // its block size, block_sum, clamp_index and nan_max.
@@ -134,7 +135,9 @@ static __device__ __forceinline__ int clamp_index(float x, int n) {
 // (3, H, W) stack; returns the in-bounds test. Nearest rounds half to even
 // (rintf, as jnp.round and torch.round; never roundf). Bilinear: in bounds
 // means u in [0, W) and v in [0, H); the +1 taps clamp to the last column
-// or row; no zero padding.
+// or row; no zero padding. The bi-objective level samples its depth
+// channels [D, dgx, dgy] with a second call on the stack's channels 3-5,
+// at the same taps.
 template <bool kBilinear>
 static __device__ __forceinline__ bool sample_target(const float* __restrict__ t,
                                                      int H, int W, float u, float v,
@@ -177,12 +180,18 @@ static __device__ __forceinline__ bool sample_target(const float* __restrict__ t
 // held in t, weighted by sqrt(w(r)) under kLoss (scale delta), added into
 // acc[kN]. kEsm averages the sampled target gradient with the source
 // gradient (sgx, sgy: geometry rows 4 and 5). kN == kGramSums also sums each
-// column times the valid flag (the Gram's last row).
-template <bool kBilinear, int kLoss, bool kEsm, int kN>
+// column times the valid flag (the Gram's last row). kBi adds the
+// bi-objective depth residual and row (six-channel target, depth gain
+// `gain`) into the same sums, pixel by pixel; the valid count is the
+// intensity's, counted once.
+template <bool kBilinear, int kLoss, bool kEsm, int kN, bool kBi>
 static __device__ __forceinline__ void accumulate_pixel(
     const Terms& t, float px, float py, float pz, float vd, float sgx,
     float sgy, float i0, const float* __restrict__ tgt, int H, int W,
-    float fx, float fy, float cx, float cy, float delta, float* acc) {
+    float fx, float fy, float cx, float cy, float delta, float gain,
+    float* acc) {
+  static_assert(!(kBi && (kEsm || kLoss == kTdist || kN != kSums)),
+                "the bi-objective level is photometric GN only: no ESM, no Student-t, no Gram row");
   const float tx = t.R[0] * px + t.R[1] * py + t.R[2] * pz + t.s0;
   const float ty = t.R[3] * px + t.R[4] * py + t.R[5] * pz + t.s1;
   const float tz = t.R[6] * px + t.R[7] * py + t.R[8] * pz + t.s2;
@@ -249,6 +258,39 @@ static __device__ __forceinline__ void accumulate_pixel(
 #pragma unroll
     for (int i = 0; i < 6; ++i) acc[29 + i] += col[i] * validf;
   }
+  if constexpr (kBi) {
+    // The depth channel (phovo_tpu/ops/fused_batch.py:541-563): residual
+    // gain (D1(warped) - tz) with the raw tz, its own IRLS weight at the
+    // same delta, and row gain (grad D . J_pix - J_rt z-row), where the
+    // z-row of J_rt is [0, 0, 1, 0, rp2, rr2].
+    float d1w, dgx, dgy;
+    sample_target<kBilinear>(tgt + 3 * H * W, H, W, u, v, &d1w, &dgx, &dgy);
+    const float r_dep = gain * (d1w - tz) * validf;
+    float sd, rdw;
+    if constexpr (kLoss == kNone) {
+      sd = validf;
+      rdw = r_dep;
+    } else {
+      sd = validf * sqrt_weight<kLoss>(r_dep, delta);
+      rdw = r_dep * sd;
+    }
+    float dcol[6];
+    dcol[0] = gain * (dgx * a0) * sd;
+    dcol[1] = gain * (dgy * b1) * sd;
+    dcol[2] = gain * (dgx * a2 + dgy * b2 - 1.0f) * sd;
+    dcol[3] = gain * (dgx * Ju3 + dgy * Jv3) * sd;
+    dcol[4] = gain * (dgx * Ju4 + dgy * Jv4 - rp2) * sd;
+    dcol[5] = gain * (dgx * Ju5 + dgy * Jv5 - rr2) * sd;
+    k = 0;
+#pragma unroll
+    for (int i = 0; i < 6; ++i) {
+#pragma unroll
+      for (int j = i; j < 6; ++j) acc[k++] += dcol[i] * dcol[j];
+    }
+#pragma unroll
+    for (int i = 0; i < 6; ++i) acc[21 + i] += dcol[i] * rdw;
+    acc[27] += rdw * rdw;
+  }
 }
 
 // Sum each thread's acc[kN] over the block into total[kN]: warp shuffles,
@@ -280,15 +322,15 @@ static __device__ __forceinline__ void block_sum(const float (&acc)[kN],
 
 // The normal equations of one pair at the state held in `terms`, summed
 // over the block into total[kN] (block_sum). geom holds kEsm ? 6 : 4 rows
-// of N pixels (ops/fused.py pack_geometry); per-thread sums are kept in
-// registers. Every thread of the block calls it; it ends with a barrier,
-// so total is ready for every thread.
-template <bool kBilinear, int kLoss, bool kEsm, int kN>
+// of N pixels (ops/fused.py pack_geometry), tgt kBi ? 6 : 3 channels;
+// per-thread sums are kept in registers. Every thread of the block calls
+// it; it ends with a barrier, so total is ready for every thread.
+template <bool kBilinear, int kLoss, bool kEsm, int kN, bool kBi = false>
 static __device__ __forceinline__ void linearize_block(
     const Terms& terms, const float* __restrict__ i0,
     const float* __restrict__ geom, const float* __restrict__ tgt, int H,
     int W, float fx, float fy, float cx, float cy, float delta,
-    float (*partial)[kN], float* total) {
+    float (*partial)[kN], float* total, float gain = 0.0f) {
   const int tid = threadIdx.x;
   const int N = H * W;
   float acc[kN];
@@ -300,9 +342,9 @@ static __device__ __forceinline__ void linearize_block(
       sgx = geom[4 * N + p];
       sgy = geom[5 * N + p];
     }
-    accumulate_pixel<kBilinear, kLoss, kEsm, kN>(
+    accumulate_pixel<kBilinear, kLoss, kEsm, kN, kBi>(
         terms, geom[p], geom[N + p], geom[2 * N + p], geom[3 * N + p], sgx,
-        sgy, i0[p], tgt, H, W, fx, fy, cx, cy, delta, acc);
+        sgy, i0[p], tgt, H, W, fx, fy, cx, cy, delta, gain, acc);
   }
   block_sum<kN>(acc, partial, total);
 }

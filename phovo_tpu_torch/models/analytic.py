@@ -33,6 +33,7 @@ from phovo_tpu_torch.models.base import (
     PhotoconsistencyOdometryBase,
     chunk_device_prep,
     device_unit_intensity,
+    prepped_chain,
     sequence_scan,
     stack_levels,
 )
@@ -216,17 +217,11 @@ def align_sequence_prepped(
     intensities = device_unit_intensity(intensities).to(torch.float32)
     prep = prep_frame_analytic(intensities, depths.to(torch.float32), intr, config)
     shape = tuple(intensities.shape[1:])
-
-    def frame(k):
-        return {level: tuple(x[k] for x in packs) for level, packs in prep.items()}
-
-    state = torch.zeros(6, dtype=torch.float32, device=intensities.device)
-    results = []
-    for k in range(intensities.shape[0] - 1):
-        res = align_prepped(frame(k), frame(k + 1), shape, intr, state, config)
-        results.append(res)
-        state = res.state
-    return AlignmentResult(*(torch.stack(x) for x in zip(*results)))
+    return prepped_chain(
+        prep, intensities.shape[0] - 1,
+        lambda src, tgt, init: align_prepped(src, tgt, shape, intr, init, config),
+        intensities.device,
+    )
 
 
 def align_pairs_levelmajor(

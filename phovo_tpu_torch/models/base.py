@@ -106,6 +106,25 @@ def sequence_scan(align_one, intensities, depths, warm_start: bool) -> Alignment
     return AlignmentResult(*(torch.stack(x) for x in zip(*results)))
 
 
+def prepped_chain(prep: dict, n_pairs: int, align_pair, device) -> AlignmentResult:
+    """The warm-started chain over per-frame products computed once: pair k
+    aligns frame k to frame k+1 from the state pair k-1 ended at (pair 0
+    from zero). prep maps each active level to a tuple of per-frame
+    tensors (frames first); align_pair(src, tgt, init_state) aligns one
+    pair from the two frames' {level: tuple} products."""
+
+    def frame(k):
+        return {level: tuple(x[k] for x in packs) for level, packs in prep.items()}
+
+    state = torch.zeros(6, dtype=torch.float32, device=device)
+    results = []
+    for k in range(n_pairs):
+        res = align_pair(frame(k), frame(k + 1), state)
+        results.append(res)
+        state = res.state
+    return AlignmentResult(*(torch.stack(x) for x in zip(*results)))
+
+
 # The object API's device unless the caller names another.
 DEFAULT_DEVICE = torch.device("cuda")
 

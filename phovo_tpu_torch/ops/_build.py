@@ -38,7 +38,7 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C entry points: (argtypes, restype); every entry returns cudaGetLastError()
 _ENTRIES = {
     "phovo_fused_gn_level_batch": (
-        [_P] * 7 + [_I] * 6 + [_F] * 4 + [_I, _F, _F, _I, _P],
+        [_P] * 8 + [_I] * 6 + [_F] * 4 + [_I, _F, _F, _I, _P],
         _I,
     ),
     "phovo_fused_tr_level_batch": (

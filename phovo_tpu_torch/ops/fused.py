@@ -1,7 +1,8 @@
 """Per-frame packs for the level kernels (torch port of the pack helpers in
-phovo_tpu/ops/fused.py), the per-pair Gauss-Newton and trust-region
-levels (the batched kernels at B = 1), the per-linearization API over the
-one-linearization kernel, and the normal-equation dispatch.
+phovo_tpu/ops/fused.py), the per-pair Gauss-Newton (photometric and
+bi-objective) and trust-region levels (the batched kernels at B = 1), the
+per-linearization API over the one-linearization kernel, and the
+normal-equation dispatch.
 
 The packs hoist everything state-invariant out of the Gauss-Newton loop:
 the back-projected source points with their depth-range mask, and the
@@ -57,9 +58,14 @@ def pack_target(
     target_intensity: torch.Tensor,
     target_grad_x: torch.Tensor,
     target_grad_y: torch.Tensor,
+    depth_cols=None,  # (depth, depth_grad_x, depth_grad_y): the bi-objective level
 ) -> torch.Tensor:
-    """(..., 3, H, W) channel stack [I, gx, gy] of one target frame."""
-    return torch.stack([target_intensity, target_grad_x, target_grad_y], dim=-3)
+    """(..., 3, H, W) channel stack [I, gx, gy] of one target frame; with
+    depth_cols the bi-objective (..., 6, H, W) stack [I, gx, gy, D, dgx,
+    dgy] (phovo_tpu's fused_gn_level depth_cols layout)."""
+    return torch.stack(
+        [target_intensity, target_grad_x, target_grad_y, *(depth_cols or ())], dim=-3
+    )
 
 
 def fused_tr_level(
@@ -94,17 +100,10 @@ def fused_tr_level(
     return tuple(x[0] for x in res)
 
 
-def _refuse_biobjective(what):
-    raise NotImplementedError(
-        f"{what}: the bi-objective (intensity + depth) level is not ported "
-        "yet (ROADMAP.md queue A, item 7)"
-    )
-
-
 def fused_gn_level_packs(
     i0_flat: torch.Tensor,  # (H*W,) or (1, H*W) source intensity
     geom: torch.Tensor,  # (4 | 6, H*W) pack_geometry rows (6 with ESM)
-    t_all: torch.Tensor,  # (3, H, W) pack_target of the target frame
+    t_all: torch.Tensor,  # (3 | 6, H, W) pack_target of the target frame
     intr: Intrinsics,  # at this level
     init_state: torch.Tensor,  # (6,)
     max_iterations: int,
@@ -115,6 +114,7 @@ def fused_gn_level_packs(
     W: int,
     sampling: str = "nearest",
     bi: bool = False,
+    depth_gain=None,  # bi: mean(I1) / mean(D1) of the target level
     robust_loss: str = "none",
     robust_delta: float = 0.1,
     esm: bool = False,
@@ -125,14 +125,21 @@ def fused_gn_level_packs(
     (torch port of phovo_tpu/ops/fused.py::fused_gn_level_packs): the
     batched level (ops/fused_batch.fused_gn_level_batch) with B = 1, the
     CUDA kernel for CUDA tensors and its plain version for CPU tensors.
-    robust_scale defaults to robust_delta. Returns (state (6,), iterations,
-    gradient_norm, cost, num_valid, band_masked, robust_scale), the last
-    the final Student-t sigma for 'tdist'."""
+    robust_scale defaults to robust_delta. bi runs the bi-objective level
+    (phovo_tpu's _fused_gn_bi_kernel, K-GN-bi at B = 1) on the six-channel
+    t_all with depth_gain. Returns (state (6,), iterations, gradient_norm,
+    cost, num_valid, band_masked, robust_scale), the last the final
+    Student-t sigma for 'tdist'."""
+
+    def pair_scalar(x):
+        return torch.as_tensor(x, dtype=torch.float32, device=i0_flat.device).reshape(1)
+
+    scale = None if robust_scale is None else pair_scalar(robust_scale)
+    gains = None
     if bi:
-        _refuse_biobjective("fused_gn_level_packs(bi=True)")
-    scale = None
-    if robust_scale is not None:
-        scale = torch.as_tensor(robust_scale, dtype=torch.float32, device=i0_flat.device).reshape(1)
+        if depth_gain is None:
+            raise ValueError("the bi-objective level needs depth_gain")
+        gains = pair_scalar(depth_gain)
     res = fused_gn_level_batch(
         i0_flat.reshape(1, H * W).contiguous(),
         geom[None].contiguous(),
@@ -141,7 +148,7 @@ def fused_gn_level_packs(
         init_state.to(device=i0_flat.device, dtype=torch.float32).reshape(1, 6).contiguous(),
         max_iterations, min_gradient_norm, lambda_step, H=H, W=W,
         sampling=sampling, robust_loss=robust_loss, robust_delta=robust_delta,
-        esm=esm, robust_scale=scale, tdist_burnin=tdist_burnin,
+        esm=esm, robust_scale=scale, tdist_burnin=tdist_burnin, depth_gains=gains,
     )
     return tuple(x[0] for x in res)
 
@@ -158,7 +165,8 @@ def fused_gn_level(
     min_gradient_norm: float,
     lambda_step: float,
     sampling: str = "nearest",
-    depth_cols=None,
+    depth_cols=None,  # (depth, depth_grad_x, depth_grad_y) of the target
+    depth_gain=None,
     robust_loss: str = "none",
     robust_delta: float = 0.1,
     source_grads=None,  # (gx0, gy0): the ESM Jacobian
@@ -167,18 +175,29 @@ def fused_gn_level(
 ):
     """One whole Gauss-Newton level for one pair (torch port of
     phovo_tpu/ops/fused.py::fused_gn_level): packs the source and runs
-    fused_gn_level_packs. depth_cols (the bi-objective level) raises
-    NotImplementedError."""
-    if depth_cols is not None:
-        _refuse_biobjective("fused_gn_level(depth_cols=...)")
+    fused_gn_level_packs. depth_cols with depth_gain switch to the
+    bi-objective (intensity + depth) level on the six-channel stack;
+    there ESM and the Student-t loss raise ValueError, as in phovo_tpu."""
+    bi = depth_cols is not None
+    if bi:
+        if source_grads is not None:
+            raise ValueError("gradient_at='esm' is photometric-only")
+        if robust_loss == "tdist":
+            raise ValueError(
+                "robust_loss='tdist' is photometric-only (the intensity and "
+                "depth channels would need separate adaptive scales); use "
+                "huber/cauchy/tukey for the bi-objective backend"
+            )
+        tgt_cols = torch.cat([tgt_cols, torch.stack(list(depth_cols))])
     H, W = source_intensity.shape
     return fused_gn_level_packs(
         source_intensity.reshape(H * W),
         pack_geometry(source_depth, intr, min_depth, max_depth, source_grads),
         tgt_cols, intr, init_state, max_iterations, min_gradient_norm,
-        lambda_step, H=H, W=W, sampling=sampling, robust_loss=robust_loss,
-        robust_delta=robust_delta, esm=source_grads is not None,
-        robust_scale=robust_scale, tdist_burnin=tdist_burnin,
+        lambda_step, H=H, W=W, sampling=sampling, bi=bi, depth_gain=depth_gain,
+        robust_loss=robust_loss, robust_delta=robust_delta,
+        esm=source_grads is not None, robust_scale=robust_scale,
+        tdist_burnin=tdist_burnin,
     )
 
 

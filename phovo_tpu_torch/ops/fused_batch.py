@@ -1,6 +1,7 @@
 """One whole pyramid level for B independent pairs: Gauss-Newton (torch
 port of phovo_tpu/ops/fused_batch.py::fused_gn_level_batch and, at B = 1,
-phovo_tpu/ops/fused.py::fused_gn_level_packs) and trust-region
+phovo_tpu/ops/fused.py::fused_gn_level_packs), photometric or bi-objective
+(intensity + depth, with depth_gains), and trust-region
 Levenberg-Marquardt (::fused_tr_level_batch); and one linearization of B
 pairs (phovo_tpu/ops/fused.py::_fused_kernel).
 
@@ -13,10 +14,13 @@ it runs the plain batched torch version of the same function
 fused_lin_batch_reference): every pair advances in lockstep and freezes on
 its own once its termination test fires or its iteration budget is spent,
 exactly the per-pair semantics of the TPU kernels. Kernel and plain
-version write the per-pixel arithmetic, robust weights and ESM gradient
-included, in the same order (phovo_tpu/ops/fused_batch.py::
+version write the per-pixel arithmetic, robust weights, ESM gradient and
+depth row included, in the same order (phovo_tpu/ops/fused_batch.py::
 _batch_linearize, ops/robust.py), so only the order of the pixel sums
-differs between them.
+differs between them: the bi-objective plain version sums the intensity
+and depth channels separately and adds the sums, as phovo_tpu does
+(fused_batch.py:572-582); the kernel adds each pixel's depth products into
+the same 29 sums as its intensity products.
 """
 
 from __future__ import annotations
@@ -68,17 +72,29 @@ class TRLevelBatchResult(NamedTuple):
 
 
 def _check_inputs(i0, geom, t_all, init_states, H, W, sampling, esm=False,
-                  robust_loss="none", robust_scale=None):
-    """Raise on what the kernels do not take. Layouts of variants not ported
-    yet (bi-objective six-channel targets, one shared source) are refused
-    as such."""
+                  robust_loss="none", robust_scale=None, depth_gains=None):
+    """Raise on what the kernels do not take. depth_gains selects the
+    bi-objective level: a six-channel target, no ESM, no Student-t (as in
+    phovo_tpu); a six-channel target without it is refused. The layout not
+    ported yet (one shared source) is refused as such."""
     if sampling not in _SAMPLINGS:
         raise ValueError(f"sampling={sampling!r}; expected one of {_SAMPLINGS}")
     if robust_loss not in LOSSES:
         raise ValueError(f"robust_loss={robust_loss!r}; expected one of {LOSSES}")
+    bi = depth_gains is not None
+    if bi and esm:
+        raise ValueError("gradient_at='esm' is photometric-only: the bi-objective level takes no ESM geometry")
+    if bi and robust_loss == "tdist":
+        raise ValueError(
+            "robust_loss='tdist' is photometric-only (the intensity and depth "
+            "channels would need separate adaptive scales); use "
+            "huber/cauchy/tukey for the bi-objective level"
+        )
     tensors = {"i0": i0, "geom": geom, "t_all": t_all, "init_states": init_states}
     if robust_scale is not None:
         tensors["robust_scale"] = robust_scale
+    if bi:
+        tensors["depth_gains"] = depth_gains
     for name, t in tensors.items():
         if not isinstance(t, torch.Tensor):
             raise TypeError(f"{name} must be a torch.Tensor, got {type(t).__name__}")
@@ -88,10 +104,10 @@ def _check_inputs(i0, geom, t_all, init_states, H, W, sampling, esm=False,
             raise ValueError(f"{name} must be contiguous")
         if t.device != i0.device:
             raise ValueError(f"{name} is on {t.device}, i0 on {i0.device}")
-    if t_all.dim() == 4 and t_all.shape[1] == 6:
-        raise NotImplementedError(
-            "bi-objective (six-channel) level batches are not ported yet "
-            "(ROADMAP.md queue A, item 7)"
+    if t_all.dim() == 4 and t_all.shape[1] == 6 and not bi:
+        raise ValueError(
+            "a six-channel (bi-objective) target needs depth_gains, one "
+            "depth gain per pair"
         )
     B = t_all.shape[0] if t_all.dim() == 4 else -1
     if B > 1 and i0.dim() == 2 and i0.shape[0] == 1:
@@ -101,14 +117,15 @@ def _check_inputs(i0, geom, t_all, init_states, H, W, sampling, esm=False,
         )
     N = H * W
     expected = {
-        "i0": (B, N), "geom": (B, 6 if esm else 4, N), "t_all": (B, 3, H, W),
-        "init_states": (B, 6), "robust_scale": (B,),
+        "i0": (B, N), "geom": (B, 6 if esm else 4, N), "t_all": (B, 6 if bi else 3, H, W),
+        "init_states": (B, 6), "robust_scale": (B,), "depth_gains": (B,),
     }
     for name, t in tensors.items():
         if tuple(t.shape) != expected[name]:
             raise ValueError(
                 f"{name} has shape {tuple(t.shape)}, expected "
-                f"{expected[name]} for B={B} pairs at {H}x{W} (esm={esm})"
+                f"{expected[name]} for B={B} pairs at {H}x{W} (esm={esm}, "
+                f"bi-objective={bi})"
             )
 
 
@@ -123,7 +140,7 @@ def _scales(robust_delta, robust_scale, B, device) -> torch.Tensor:
 def fused_gn_level_batch(
     i0: torch.Tensor,  # (B, H*W) source intensities
     geom: torch.Tensor,  # (B, 4 | 6, H*W) pack_geometry rows (6 with ESM)
-    t_all: torch.Tensor,  # (B, 3, H, W) pack_target stacks
+    t_all: torch.Tensor,  # (B, 3 | 6, H, W) pack_target stacks (6 bi-objective)
     intr: Intrinsics,  # at this level
     init_states: torch.Tensor,  # (B, 6)
     max_iterations: int,
@@ -138,6 +155,7 @@ def fused_gn_level_batch(
     esm: bool = False,
     robust_scale: torch.Tensor | None = None,  # (B,) tdist sigma in
     tdist_burnin: int = 0,
+    depth_gains: torch.Tensor | None = None,  # (B,) -> the bi-objective level
 ) -> LevelBatchResult:
     """Run ONE whole GN level for B independent pairs: the CUDA kernel for
     CUDA tensors, the plain torch version for CPU tensors. Any other device
@@ -148,7 +166,11 @@ def fused_gn_level_batch(
     (default robust_delta), which runs tdist_burnin scale-only passes at
     the initial state and is re-estimated after every linearization; the
     result's robust_scale is the final sigma. esm takes the source
-    gradients from geometry rows 4 and 5 (ESM Jacobian)."""
+    gradients from geometry rows 4 and 5 (ESM Jacobian). depth_gains
+    selects the bi-objective level (phovo_tpu's bi mode, K-GN-bi): t_all
+    holds [I, gx, gy, D, dgx, dgy] per pair and each pixel adds its depth
+    residual gain (D(warped) - tz) and row to the normal equations; 'none',
+    huber, cauchy and tukey, without ESM."""
     global LAUNCHES
     if i0.device.type == "cpu":
         return fused_gn_level_batch_reference(
@@ -156,8 +178,9 @@ def fused_gn_level_batch(
             min_gradient_norm, lambda_step, H=H, W=W, sampling=sampling,
             robust_loss=robust_loss, robust_delta=robust_delta, esm=esm,
             robust_scale=robust_scale, tdist_burnin=tdist_burnin,
+            depth_gains=depth_gains,
         )
-    _check_inputs(i0, geom, t_all, init_states, H, W, sampling, esm, robust_loss, robust_scale)
+    _check_inputs(i0, geom, t_all, init_states, H, W, sampling, esm, robust_loss, robust_scale, depth_gains)
     if i0.device.type != "cuda":
         raise ValueError(f"no level kernel for device {i0.device}")
 
@@ -173,8 +196,9 @@ def fused_gn_level_batch(
             stream = torch.cuda.current_stream(i0.device).cuda_stream
             err = lib.phovo_fused_gn_level_batch(
                 i0.data_ptr(), geom.data_ptr(), t_all.data_ptr(),
-                init_states.data_ptr(), scale_in.data_ptr(), states.data_ptr(),
-                diag.data_ptr(), B, H, W, int(sampling == "bilinear"),
+                init_states.data_ptr(), scale_in.data_ptr(),
+                None if depth_gains is None else depth_gains.data_ptr(),
+                states.data_ptr(), diag.data_ptr(), B, H, W, int(sampling == "bilinear"),
                 _LOSS_CODES[robust_loss], int(esm),
                 intr.fx, intr.fy, intr.cx, intr.cy,
                 int(max_iterations), float(min_gradient_norm),
@@ -220,17 +244,20 @@ def _rotation_terms(s3, s4, s5):
 
 
 def _sample(t_flat, idx):
-    """(B, 3, H*W) stacks gathered at (B, N) flat indices -> (B, 3, N)."""
-    return torch.gather(t_flat, 2, idx.unsqueeze(1).expand(-1, 3, -1))
+    """(B, C, H*W) stacks gathered at (B, N) flat indices -> (B, C, N)."""
+    return torch.gather(t_flat, 2, idx.unsqueeze(1).expand(-1, t_flat.shape[1], -1))
 
 
 def _pixel_columns(s, geom_rows, i0, t_flat, intr, H, W, bilinear,
-                   robust_loss="none", delta=None):
-    """(B, 1) state columns -> (J (B, 6, N), r_w (B, N), validf (B, N)): each
-    pixel's Jacobian row and residual, scaled by sqrt(w(r)) under
-    robust_loss at scale delta ((B, 1)), and its valid flag. geom_rows are
-    pack_geometry's rows; with six (ESM) the sampled target gradient is
-    averaged with the source gradient of rows 4 and 5."""
+                   robust_loss="none", delta=None, gain=None):
+    """(B, 1) state columns -> (J (B, 6, N), r_w (B, N), validf (B, N),
+    depth): each pixel's Jacobian row and residual, scaled by sqrt(w(r))
+    under robust_loss at scale delta ((B, 1)), and its valid flag. geom_rows
+    are pack_geometry's rows; with six (ESM) the sampled target gradient is
+    averaged with the source gradient of rows 4 and 5. depth is None, or
+    with gain ((B, 1) depth gains, six-channel t_flat) the bi-objective
+    depth rows and residuals (Jd (B, 6, N), rd_w (B, N)), weighted at the
+    same delta (phovo_tpu/ops/fused_batch.py:541-563)."""
     fx, fy, cx, cy = intr
     px, py, pz, vd = geom_rows[:4]
     (R00, R01, R02, R10, R11, R12, R20, R21, R22), dY, dP, dR = _rotation_terms(
@@ -294,7 +321,7 @@ def _pixel_columns(s, geom_rows, i0, t_flat, intr, H, W, bilinear,
         samp = top * (1 - fr3) + bot * fr3
     else:
         samp = _sample(t_flat, index(r0, c0))
-    i1w, gxw, gyw = samp.unbind(1)
+    i1w, gxw, gyw, *depth = samp.unbind(1)
     if len(geom_rows) == 6:  # ESM: average with the source gradient
         gxw = 0.5 * (gxw + geom_rows[4])
         gyw = 0.5 * (gyw + geom_rows[5])
@@ -314,20 +341,47 @@ def _pixel_columns(s, geom_rows, i0, t_flat, intr, H, W, bilinear,
         (gxw * Ju4 + gyw * Jv4) * scale,
         (gxw * Ju5 + gyw * Jv5) * scale,
     ], dim=1)  # (B, 6, N)
-    return J, r_w, validf
+    if gain is None:
+        return J, r_w, validf, None
+    # the depth channel: residual gain (D1(warped) - tz) with the raw tz,
+    # row gain (grad D . J_pix - J_rt z-row), z-row [0, 0, 1, 0, rp2, rr2]
+    d1w, dgxw, dgyw = depth
+    r_dep = gain * (d1w - tz) * validf
+    if robust_loss == "none":
+        s_dep, rd_w = validf, r_dep
+    else:
+        s_dep = validf * sqrt_weight(r_dep, robust_loss, delta)
+        rd_w = r_dep * s_dep
+    Jd = torch.stack([
+        gain * (dgxw * a0) * s_dep,
+        gain * (dgyw * b1) * s_dep,
+        gain * (dgxw * a2 + dgyw * b2 - 1.0) * s_dep,
+        gain * (dgxw * Ju3 + dgyw * Jv3) * s_dep,
+        gain * (dgxw * Ju4 + dgyw * Jv4 - rp2) * s_dep,
+        gain * (dgxw * Ju5 + dgyw * Jv5 - rr2) * s_dep,
+    ], dim=1)
+    return J, r_w, validf, (Jd, rd_w)
 
 
 def _linearize(s, geom_rows, i0, t_flat, intr, H, W, bilinear,
-               robust_loss="none", delta=None):
+               robust_loss="none", delta=None, gain=None):
     """(B, 1) state columns -> (JtJ (B, 6, 6), Jtr (B, 6), cost (B,),
     nvalid (B,)) of every pair at its current state; cost is the weighted
-    sum w r^2 under a robust loss."""
-    J, r_w, validf = _pixel_columns(
-        s, geom_rows, i0, t_flat, intr, H, W, bilinear, robust_loss, delta
+    sum w r^2 under a robust loss. With gain the depth channel's sums are
+    taken apart and added to the intensity's (phovo_tpu's order,
+    fused_batch.py:572-582); nvalid counts each pixel once."""
+    J, r_w, validf, depth = _pixel_columns(
+        s, geom_rows, i0, t_flat, intr, H, W, bilinear, robust_loss, delta, gain
     )
     JtJ = torch.bmm(J, J.transpose(1, 2))
     Jtr = torch.bmm(J, r_w.unsqueeze(2)).squeeze(2)
-    return JtJ, Jtr, torch.sum(r_w * r_w, dim=1), torch.sum(validf, dim=1)
+    cost = torch.sum(r_w * r_w, dim=1)
+    if depth is not None:
+        Jd, rd_w = depth
+        JtJ = JtJ + torch.bmm(Jd, Jd.transpose(1, 2))
+        Jtr = Jtr + torch.bmm(Jd, rd_w.unsqueeze(2)).squeeze(2)
+        cost = cost + torch.sum(rd_w * rd_w, dim=1)
+    return JtJ, Jtr, cost, torch.sum(validf, dim=1)
 
 
 def _chol_solve6(A, b):
@@ -382,14 +436,16 @@ def fused_gn_level_batch_reference(
     esm: bool = False,
     robust_scale: torch.Tensor | None = None,
     tdist_burnin: int = 0,
+    depth_gains: torch.Tensor | None = None,
 ) -> LevelBatchResult:
     """Plain batched torch version of fused_gn_level_batch, on any device.
     A Python while loop over iterations runs until every pair froze; a
     frozen pair's state, diagnostics and scale stop changing."""
-    _check_inputs(i0, geom, t_all, init_states, H, W, sampling, esm, robust_loss, robust_scale)
+    _check_inputs(i0, geom, t_all, init_states, H, W, sampling, esm, robust_loss, robust_scale, depth_gains)
     B = i0.shape[0]
     rows = geom.unbind(1)
-    t_flat = t_all.reshape(B, 3, H * W)
+    t_flat = t_all.reshape(B, t_all.shape[1], H * W)
+    gain = None if depth_gains is None else depth_gains.unsqueeze(1)
     s = [init_states[:, k] for k in range(6)]
     zero = torch.zeros(B, dtype=torch.float32, device=i0.device)
     it, gnorm = zero, torch.full_like(zero, float("inf"))
@@ -400,7 +456,7 @@ def fused_gn_level_batch_reference(
     def linearize(s, sigma):
         return _linearize(
             [c.unsqueeze(1) for c in s], rows, i0, t_flat, intr, H, W,
-            sampling == "bilinear", robust_loss, sigma.unsqueeze(1),
+            sampling == "bilinear", robust_loss, sigma.unsqueeze(1), gain,
         )
 
     if tdist and max_iterations > 0:
@@ -436,9 +492,10 @@ def fused_gn_level_batch_reference(
     )
 
 
-def _check_tr_variant(geom, robust_loss):
+def _check_tr_variant(geom, t_all, robust_loss):
     """Raise on what the trust-region kernel has no variant for, as
-    phovo_tpu's has none: the Student-t loss and ESM geometry."""
+    phovo_tpu's has none: the Student-t loss, ESM geometry and the
+    bi-objective six-channel target."""
     if robust_loss == "tdist":
         raise ValueError(
             "robust_loss='tdist' has no trust-region kernel: its adaptive "
@@ -450,6 +507,12 @@ def _check_tr_variant(geom, robust_loss):
             "ESM geometry packs (gradient_at='esm') have no trust-region "
             "kernel: the ceres backend samples the target gradient at the "
             "warped point whatever gradient_at says, as phovo_tpu's does"
+        )
+    if isinstance(t_all, torch.Tensor) and t_all.dim() == 4 and t_all.shape[1] == 6:
+        raise ValueError(
+            "the trust-region level is photometric (phovo_tpu's has no "
+            "bi-objective mode): a six-channel target is refused; the "
+            "bi-objective backend runs the Gauss-Newton level"
         )
 
 
@@ -480,7 +543,7 @@ def fused_tr_level_batch(
             i0, geom, t_all, intr, init_states, opts, H=H, W=W, sampling=sampling,
             robust_loss=robust_loss, robust_delta=robust_delta,
         )
-    _check_tr_variant(geom, robust_loss)
+    _check_tr_variant(geom, t_all, robust_loss)
     _check_inputs(i0, geom, t_all, init_states, H, W, sampling, robust_loss=robust_loss)
     if i0.device.type != "cuda":
         raise ValueError(f"no level kernel for device {i0.device}")
@@ -542,7 +605,7 @@ def fused_tr_level_batch_reference(
     rho and the tolerances compare in float32 as the kernels compare them.
     A Python while loop over iterations runs until every pair froze; a
     frozen pair's state and diagnostics stop changing."""
-    _check_tr_variant(geom, robust_loss)
+    _check_tr_variant(geom, t_all, robust_loss)
     _check_inputs(i0, geom, t_all, init_states, H, W, sampling, robust_loss=robust_loss)
     B = i0.shape[0]
     rows = geom.unbind(1)
@@ -691,7 +754,7 @@ def fused_lin_batch_reference(
     _check_inputs(i0, geom, t_all, states, H, W, sampling, esm, robust_loss, robust_scale)
     B = i0.shape[0]
     sigma = _scales(robust_delta, robust_scale, B, i0.device).unsqueeze(1)
-    J, r_w, validf = _pixel_columns(
+    J, r_w, validf, _ = _pixel_columns(
         [states[:, k:k + 1] for k in range(6)], geom.unbind(1), i0,
         t_all.reshape(B, 3, H * W), intr, H, W, sampling == "bilinear",
         robust_loss, sigma,

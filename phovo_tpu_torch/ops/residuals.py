@@ -1,6 +1,6 @@
-"""Per-pixel photometric residuals and analytic Jacobians (torch port of
-phovo_tpu/ops/residuals.py): the exact, per-pair path that the level kernel
-is held against.
+"""Per-pixel photometric and bi-objective (intensity + depth) residuals and
+analytic Jacobians (torch port of phovo_tpu/ops/residuals.py): the exact,
+per-pair path that the level kernel is held against.
 
 Residual i lives at SOURCE pixel i and compares the target sampled at the
 warped coordinates with I0(i); the Jacobian is the exact separated chain
@@ -59,9 +59,11 @@ def warp_and_jacobian(
     intr: Intrinsics,
     min_depth: float,
     max_depth: float,
+    return_rigid: bool = False,
 ):
     """Shared geometry: (col, row, transformed points, J_pix (..., 2, 6),
-    valid_src)."""
+    valid_src); return_rigid appends the rigid-transform Jacobian J_rt
+    (..., 3, 6), whose z-row the bi-objective depth channel needs."""
     pts = backproject(source_depth, intr)
     tp = transform_points(pts, se3.pose_matrix(state))
     tz = tp[..., 2]
@@ -69,8 +71,11 @@ def warp_and_jacobian(
     tp_safe = torch.cat([tp[..., :2], safe_z[..., None]], dim=-1)
     col = tp_safe[..., 0] * intr.fx / safe_z + intr.cx
     row = tp_safe[..., 1] * intr.fy / safe_z + intr.cy
-    J_pix = projection_jacobian(tp_safe, intr) @ rigid_jacobian(pts, state)
+    J_rt = rigid_jacobian(pts, state)
+    J_pix = projection_jacobian(tp_safe, intr) @ J_rt
     valid_src = (source_depth > min_depth) & (source_depth < max_depth) & (tz > 0)
+    if return_rigid:
+        return col, row, tp_safe, J_pix, valid_src, J_rt
     return col, row, tp_safe, J_pix, valid_src
 
 
@@ -125,6 +130,68 @@ def photometric_residual_jacobian(
     return residual, J, valid
 
 
+def biobjective_residual_jacobian(
+    source_intensity: torch.Tensor,
+    source_depth: torch.Tensor,
+    target_intensity: torch.Tensor,
+    target_depth: torch.Tensor,
+    target_grad_x: torch.Tensor,
+    target_grad_y: torch.Tensor,
+    target_depth_grad_x: torch.Tensor,
+    target_depth_grad_y: torch.Tensor,
+    state: torch.Tensor,
+    intr: Intrinsics,
+    min_depth: float = 0.3,
+    max_depth: float = 5.0,
+    sampling: str = "nearest",
+    gradient_at: str = "warped",
+    depth_gain: torch.Tensor | float | None = None,
+):
+    """Joint intensity and depth residuals (the reference's bi-objective
+    backend, phovo_tpu/ops/residuals.py::biobjective_residual_jacobian).
+    Channel 0 is the photometric residual and row; channel 1 the depth
+    residual gain (D1(warped) - tz), tz the transformed source depth, and
+    its row gain (grad D . J_pix - J_rt z-row). gradient_at 'warped'
+    samples the target gradients at the warped point, 'source' reads them
+    at the source pixel. depth_gain defaults to mean(I1) / mean(D1).
+    Returns (residual (2, H, W), J (2, H, W, 6), valid (H, W))."""
+    if depth_gain is None:
+        depth_gain = torch.mean(target_intensity) / torch.mean(target_depth)
+    col, row, tp, J_pix, valid_src, J_rt = warp_and_jacobian(
+        source_depth, state, intr, min_depth, max_depth, return_rigid=True
+    )
+    sample = sample_bilinear if sampling == "bilinear" else sample_nearest
+    tgt_i, inb = sample(target_intensity, col, row)
+    tgt_d, _ = sample(target_depth, col, row)
+    if gradient_at == "warped":
+        gx, _ = sample(target_grad_x, col, row)
+        gy, _ = sample(target_grad_y, col, row)
+        dgx, _ = sample(target_depth_grad_x, col, row)
+        dgy, _ = sample(target_depth_grad_y, col, row)
+    elif gradient_at == "source":
+        gx, gy = target_grad_x, target_grad_y
+        dgx, dgy = target_depth_grad_x, target_depth_grad_y
+    else:
+        raise ValueError(
+            f"gradient_at={gradient_at!r}; the bi-objective residual takes "
+            "'warped' or 'source'"
+        )
+    valid = valid_src & inb
+    zero = torch.zeros_like(tgt_i)
+    r_int = torch.where(valid, tgt_i - source_intensity, zero)
+    J_int = (torch.stack([gx, gy], dim=-1).unsqueeze(-2) @ J_pix).squeeze(-2)
+    r_dep = torch.where(valid, depth_gain * (tgt_d - tp[..., 2]), zero)
+    J_dep = depth_gain * (
+        (torch.stack([dgx, dgy], dim=-1).unsqueeze(-2) @ J_pix).squeeze(-2) - J_rt[..., 2, :]
+    )
+    vmask = valid[..., None]
+    J = torch.stack([
+        torch.where(vmask, J_int, torch.zeros_like(J_int)),
+        torch.where(vmask, J_dep, torch.zeros_like(J_dep)),
+    ])
+    return torch.stack([r_int, r_dep]), J, valid
+
+
 def normal_equations(
     residual: torch.Tensor,
     J: torch.Tensor,
@@ -134,7 +201,9 @@ def normal_equations(
 ) -> NormalEquations:
     """Reduce a residual field to Gauss-Newton normal equations; with a
     robust loss every row is scaled by sqrt(w(r)) (one IRLS step) and the
-    cost is the reweighted sum w r^2."""
+    cost is the reweighted sum w r^2. residual and J may carry leading
+    channels (the bi-objective (2, H, W)); the valid count is sum(valid),
+    each pixel once."""
     if robust_loss != "none":
         from phovo_tpu_torch.ops.robust import sqrt_weight
 

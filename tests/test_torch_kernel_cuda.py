@@ -1,7 +1,7 @@
 """The CUDA kernels (the Gauss-Newton and trust-region levels with their
-loss and Jacobian variants, the one linearization, and the
-inverse-compositional precompute and level) against their plain torch
-versions, on the card.
+loss and Jacobian variants, the bi-objective Gauss-Newton level, the one
+linearization, and the inverse-compositional precompute and level)
+against their plain torch versions, on the card.
 
 Needs an NVIDIA GPU and nvcc; skipped elsewhere. Run on the card with
     python -m pytest --noconftest -m cuda tests/test_torch_kernel_cuda.py
@@ -25,11 +25,16 @@ cases whose tolerances chip_smoke.py's early_exit_tolerance sets at least
 plain version's values predict. The inverse-compositional precompute's
 J8 rows are held to 1e-6 (the same expressions) and its factor to 1e-4 of
 its largest entry (the Gram's sums in another order); its level kernel to
-the Gauss-Newton kernel's bounds, nearest over 2 iterations.
+the Gauss-Newton kernel's bounds, nearest over 2 iterations. The
+bi-objective level (K-GN-bi) is held to the Gauss-Newton kernel's bounds
+at B = 8 and B = 1 (its kernel adds each pixel's depth products into the
+intensity's sums, the plain version sums the channels apart: another
+order of the same float32 sums).
 """
 
 import importlib.util
 from pathlib import Path
+from unittest import mock
 
 import numpy as np
 import pytest
@@ -424,5 +429,116 @@ def test_ic_object_api_launches_once_per_level():
             mock.patch.object(ICB, "ic_gn_level_batch", ICB.ic_gn_level_batch_reference):
         p = vo.optimize()
     assert (IC.IC_PRE_LAUNCHES, ICB.IC_LAUNCHES) == (before[0] + 2, before[1] + 2)
+    torch.testing.assert_close(k.state, p.state, rtol=0, atol=2e-4)
+    assert torch.equal(k.iterations, p.iterations)
+
+
+# -- the bi-objective level (K-GN-bi) -------------------------------------------
+
+
+def _bi_args(n=9, H=96, W=128):
+    """K-GN-bi's inputs for n - 1 pairs of make_sequence frames with an
+    occluder in every target: six-channel targets, the targets' gains and
+    small seeded init states."""
+    I, D, _, _ = make_sequence(INTR, (H, W), n)
+    I = np.stack(I)
+    I[1:, 10:30, 70:100] = 0.95
+    dev = torch.device("cuda")
+    It = torch.from_numpy(I).to(dev)
+    Dt = torch.from_numpy(np.stack(D)).to(dev)
+    dn = Dt * (1.0 / 5.0)
+    t6 = pack_target(It, pyr.scharr(It, "x", 0.0625), pyr.scharr(It, "y", 0.0625),
+                     (Dt, pyr.scharr(dn, "x", 0.0625), pyr.scharr(dn, "y", 0.0625)))
+    init = torch.from_numpy(
+        (np.random.default_rng(0).standard_normal((n - 1, 6)) * 1e-3).astype(np.float32)
+    ).to(dev)
+    gains = It.mean(dim=(1, 2)) / Dt.mean(dim=(1, 2))
+    return (
+        It[:-1].reshape(n - 1, -1).contiguous(), pack_geometry(Dt[:-1], INTR, 0.3, 5.0).contiguous(),
+        t6[1:].contiguous(), INTR, init,
+    ), gains[1:].contiguous()
+
+
+@pytest.mark.parametrize("loss,sampling,iterations", [
+    ("none", "bilinear", 8), ("huber", "bilinear", 8), ("cauchy", "bilinear", 8),
+    ("tukey", "bilinear", 8), ("none", "nearest", 2), ("tukey", "nearest", 2),
+])
+def test_bi_kernel_matches_plain(loss, sampling, iterations):
+    """K-GN-bi at B = 8 against its plain version. Nearest costs are held
+    after one iteration (both versions linearize at the same state): after
+    the second, a depth sample that flips between the two states moves a
+    pair's cost by a whole depth residual (1.19e-4 relative with 'none';
+    H100)."""
+    args, gains = _bi_args()
+    kw = dict(H=96, W=128, sampling=sampling, robust_loss=loss, robust_delta=DELTAS[loss], depth_gains=gains)
+    before = FB.LAUNCHES
+    k = FB.fused_gn_level_batch(*args, iterations, 0.0, 1.0, **kw)
+    assert FB.LAUNCHES == before + 1
+    p = FB.fused_gn_level_batch_reference(*args, iterations, 0.0, 1.0, **kw)
+    assert FB.LAUNCHES == before + 1
+    torch.cuda.synchronize()
+    torch.testing.assert_close(k.state, p.state, rtol=0, atol=2e-4)
+    assert torch.equal(k.iterations, p.iterations)
+    assert torch.equal(k.num_valid, p.num_valid)
+    if sampling == "nearest":
+        k = FB.fused_gn_level_batch(*args, 1, 0.0, 1.0, **kw)
+        p = FB.fused_gn_level_batch_reference(*args, 1, 0.0, 1.0, **kw)
+    torch.testing.assert_close(k.cost, p.cost, rtol=1e-4, atol=0)
+    assert float(k.band_masked.abs().sum()) == 0.0
+
+
+def test_bi_kernel_single_pair_matches_plain_and_batch():
+    """B = 1 (the per-pair level, B4's port: ops/fused.fused_gn_level_packs
+    with bi=True): each pair against its plain version at B = 1, and the
+    same bits as its block in the batch."""
+    from phovo_tpu_torch.ops import fused as fused_ops
+
+    args, gains = _bi_args()
+    kw = dict(H=96, W=128, sampling="bilinear", robust_loss="cauchy", robust_delta=0.02)
+    batch = FB.fused_gn_level_batch(*args, 6, 0.0, 1.0, depth_gains=gains, **kw)
+    for j in range(gains.shape[0]):
+        pair = (args[0][j], args[1][j], args[2][j], INTR, args[4][j], 6, 0.0, 1.0)
+        one = fused_ops.fused_gn_level_packs(*pair, bi=True, depth_gain=gains[j], **kw)
+        with mock.patch.object(fused_ops, "fused_gn_level_batch", FB.fused_gn_level_batch_reference):
+            plain = fused_ops.fused_gn_level_packs(*pair, bi=True, depth_gain=gains[j], **kw)
+        torch.testing.assert_close(one[0], plain[0], rtol=0, atol=2e-4)
+        assert int(one[1]) == int(plain[1]) and float(one[4]) == float(plain[4])
+        for x, y in zip(one, batch):
+            assert torch.equal(x, y[j])
+
+
+def test_bi_kernel_refuses_esm_and_tdist_before_a_launch():
+    args, gains = _bi_args(n=3)
+    before = FB.LAUNCHES
+    with pytest.raises(ValueError, match="photometric-only"):
+        FB.fused_gn_level_batch(*args, 2, 0.0, 1.0, H=96, W=128, robust_loss="tdist", depth_gains=gains)
+    assert FB.LAUNCHES == before
+
+
+def test_bi_object_api_launches_once_per_level():
+    """PhotoconsistencyOdometryBiObjective on the card: one K-GN-bi launch
+    per active level, the states of the plain per-pair route."""
+    from phovo_tpu_torch.models import biobjective
+    from phovo_tpu_torch.ops import fused as fused_ops
+    from phovo_tpu_torch.utils.config import PhovoConfig
+
+    cfg = PhovoConfig(
+        num_levels=3, blur_filter_sizes=(0,) * 3, gradient_scales=(0.0625,) * 3,
+        max_iterations=(0, 4, 6), lambda_steps=(1.0,) * 3, min_gradient_norms=(0.0,) * 3,
+        sampling="bilinear", robust_loss="huber", robust_delta=0.02,
+    )
+    I, D, _, _ = make_sequence(INTR, (96, 128), 2)
+    vo = biobjective.PhotoconsistencyOdometryBiObjective(cfg)
+    assert vo.device.type == "cuda"
+    vo.set_intrinsic_matrix([[INTR.fx, 0, INTR.cx], [0, INTR.fy, INTR.cy], [0, 0, 1]])
+    vo.set_source_frame((I[0] * 255).astype(np.uint8), D[0])
+    vo.set_target_frame((I[1] * 255).astype(np.uint8), D[1])
+    before = FB.LAUNCHES
+    k = vo.optimize()
+    torch.cuda.synchronize()
+    assert FB.LAUNCHES == before + 2
+    with mock.patch.object(fused_ops, "fused_gn_level_batch", FB.fused_gn_level_batch_reference):
+        p = vo.optimize()
+    assert FB.LAUNCHES == before + 2
     torch.testing.assert_close(k.state, p.state, rtol=0, atol=2e-4)
     assert torch.equal(k.iterations, p.iterations)

@@ -1,9 +1,9 @@
 """phovo_tpu_torch never imports jax, never falls back silently, and
 refuses what it has not ported.
 
-The kernels (the Gauss-Newton and trust-region levels, the one
-linearization, the inverse-compositional precompute and level) run only
-on CUDA tensors; on CPU tensors the wrappers take the plain versions and
+The kernels (the Gauss-Newton levels, photometric and bi-objective, the
+trust-region level, the one linearization, the inverse-compositional
+precompute and level) run only on CUDA tensors; on CPU tensors the wrappers take the plain versions and
 launch nothing; any other device, a missing nvcc, or a card that is not
 there raises instead of computing elsewhere. The object API runs on the
 card unless the caller names another device.
@@ -207,29 +207,53 @@ def test_chip_smoke_without_a_card_fails(tmp_path):
 
 
 @pytest.mark.parametrize(
-    "layout,what",
+    "layout,kw,what",
     [
-        (dict(channels=6), "bi-objective"),
-        (dict(rows=6), "esm=False"),
-        (dict(), "shared"),
+        (dict(channels=6), {}, "needs depth_gains"),
+        (dict(channels=6, rows=6), dict(esm=True, depth_gains=True), "photometric-only"),
+        (dict(channels=6), dict(robust_loss="tdist", depth_gains=True), "photometric-only"),
+        (dict(), dict(depth_gains=True), "bi-objective=True"),
+        (dict(rows=6), {}, "esm=False"),
+        (dict(), {}, "shared"),
     ],
-    ids=["biobjective", "esm", "shared-source"],
+    ids=["biobjective", "biobjective-esm", "biobjective-tdist", "biobjective-3-channels", "esm",
+         "shared-source"],
 )
-def test_unported_kernel_layouts_raise(layout, what):
-    """The GN kernel refuses only the layouts not ported: bi-objective
-    targets (queue A item 7) and a shared source (item 5). ESM geometry
-    is ported: six rows are read with esm=True and are a shape error
-    without it."""
+def test_unported_kernel_layouts_raise(layout, kw, what):
+    """The GN kernel refuses what it has no variant for: a six-channel
+    (bi-objective) target without depth_gains, and depth_gains with ESM,
+    with the Student-t loss (phovo_tpu raises the same) or with a
+    three-channel target; and the layout not ported, a shared source
+    (queue A item 5), as such. ESM geometry is ported: six rows are read
+    with esm=True and are a shape error without it."""
     i0, geom, t_all, intr, states = _level_inputs(**layout)
     if what == "shared":
         i0 = i0[:1].contiguous()
-    error = ValueError if what == "esm=False" else NotImplementedError
+    if kw.get("depth_gains"):
+        kw = dict(kw, depth_gains=torch.full((2,), 0.25))
+    error = NotImplementedError if what == "shared" else ValueError
     for fn in (FB.fused_gn_level_batch, FB.fused_gn_level_batch_reference):
         with pytest.raises(error, match=what):
-            fn(i0, geom, t_all, intr, states, 1, 0.0, 1.0, H=H, W=W)
+            fn(i0, geom, t_all, intr, states, 1, 0.0, 1.0, H=H, W=W, **kw)
     if what == "esm=False":
         res = FB.fused_gn_level_batch(i0, geom, t_all, intr, states, 1, 0.0, 1.0, H=H, W=W, esm=True)
         assert bool(torch.isfinite(res.state).all())
+
+
+def test_bi_level_cpu_and_other_devices():
+    """The bi-objective level (K-GN-bi): the plain version on CPU tensors,
+    launching nothing, and another device raises."""
+    before = FB.LAUNCHES
+    args = _level_inputs(channels=6)
+    gains = torch.tensor([0.2, 0.3])
+    kw = dict(H=H, W=W, sampling="bilinear", robust_loss="huber", depth_gains=gains)
+    res = FB.fused_gn_level_batch(*args, 2, 0.0, 1.0, **kw)
+    ref = FB.fused_gn_level_batch_reference(*args, 2, 0.0, 1.0, **kw)
+    assert all(torch.equal(a, b) for a, b in zip(res, ref))
+    with pytest.raises(ValueError, match="no level kernel for device"):
+        FB.fused_gn_level_batch(*_level_inputs(channels=6, device="meta"), 1, 0.0, 1.0, H=H, W=W,
+                                depth_gains=gains.to("meta"))
+    assert FB.LAUNCHES == before
 
 
 @pytest.mark.parametrize("fault", ["dtype", "contiguity", "shape", "sampling"])
@@ -351,23 +375,24 @@ def test_trust_region_robust_losses_run_on_the_plain_version(loss):
 
 
 @pytest.mark.parametrize(
-    "layout,what",
+    "layout,what,error",
     [
-        (dict(channels=6), "bi-objective"),
-        (dict(rows=6), "ESM"),
-        (dict(), "shared"),
+        (dict(channels=6), "photometric", ValueError),
+        (dict(rows=6), "ESM", NotImplementedError),
+        (dict(), "shared", NotImplementedError),
     ],
     ids=["biobjective", "esm", "shared-source"],
 )
-def test_unported_trust_region_layouts_raise(layout, what):
-    """The trust-region kernel takes what the GN kernel takes: the
-    bi-objective, ESM and shared-source (keyframe tracking, queue A item
-    5) layouts are refused."""
+def test_unported_trust_region_layouts_raise(layout, what, error):
+    """The trust-region kernel refuses the bi-objective six-channel target
+    (its level is photometric, as phovo_tpu's: a ValueError), ESM geometry
+    and the shared-source (keyframe tracking, queue A item 5) layout."""
     i0, geom, t_all, intr, states = _level_inputs(**layout)
     if what == "shared":
         i0 = i0[:1].contiguous()
-    with pytest.raises(NotImplementedError, match=what):
-        FB.fused_tr_level_batch(i0, geom, t_all, intr, states, TROptions(2), H=H, W=W)
+    for fn in (FB.fused_tr_level_batch, FB.fused_tr_level_batch_reference):
+        with pytest.raises(error, match=what):
+            fn(i0, geom, t_all, intr, states, TROptions(2), H=H, W=W)
 
 
 def test_library_path_hashes_headers(tmp_path, monkeypatch):
