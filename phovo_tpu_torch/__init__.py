@@ -20,9 +20,14 @@ Layout mirrors phovo_tpu:
             the bi-objective (intensity + depth) backend
             (align_biobjective, align_sequence_biobjective,
             align_sequence_chunk_biobjective,
-            PhotoconsistencyOdometryBiObjective) and the
+            PhotoconsistencyOdometryBiObjective), the
             inverse-compositional backend (align_ic, align_sequence_ic,
-            align_sequence_chunk_ic, PhotoconsistencyOdometryIC)
+            align_sequence_chunk_ic, PhotoconsistencyOdometryIC),
+            and keyframe tracking with loop closures
+            (models/keyframe.py, KeyframeVisualOdometry)
+  parallel/ single-device batched alignment and multi-stream serving
+            (parallel/batch.py) and the pose graph (parallel/pose_graph.py)
+  datasets/ the RGB-D frame record the keyframe tracker reads
   utils/    config schedule and YAML presets, synthetic frames,
             trajectories and ATE
 """

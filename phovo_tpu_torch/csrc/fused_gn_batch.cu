@@ -1,6 +1,6 @@
 // One whole Gauss-Newton pyramid level for B independent frame pairs (K-GN).
 //
-// Replaces four TPU kernels, which compute the same per-pair level:
+// Replaces these TPU kernels, which compute the same per-pair level:
 //   phovo_tpu/ops/fused_batch.py::_fused_gn_batch_kernel (B pairs, the
 //     level-major sequence; linearization _batch_linearize, solve
 //     phovo_tpu/ops/fused.py::_chol_solve6), and
@@ -11,7 +11,15 @@
 //     phovo_tpu/ops/fused.py::_fused_gn_bi_kernel (its 16x16 Gram's two
 //     blocks summed into one set of normal equations), the kBi variant
 //     here (K-GN-bi): a six-channel target [I, gx, gy, D, dgx, dgy] and a
-//     per-pair depth gain; huber, cauchy and tukey, no ESM, no Student-t.
+//     per-pair depth gain; huber, cauchy and tukey, no ESM, no Student-t;
+//   _fused_gn_batch_kernel with shared_src=True (keyframe tracking: one
+//     source pack, the keyframe's, read by every pair), photometric, every
+//     loss and ESM: here the shared_source flag, which points every block
+//     at pair 0's source and changes nothing else, so a shared pack gives
+//     the bits of the same pack repeated B times;
+//   phovo_tpu/ops/fused.py::_fused_gn_multi_kernel (S independent streams
+//     of one level, each freezing on its own): this kernel at B = S
+//     (ops/fused.py::fused_gn_level_multi).
 // Photometric, one source per pair, nearest or bilinear sampling, the
 // target gradient at the warped point or averaged with the source gradient
 // (ESM, six geometry rows), and any robust loss as IRLS weights. For the
@@ -36,6 +44,9 @@
 // 157 MB for 256 pairs) do not fit, and every iteration streams them from
 // device memory: there bytes bound it (about half the 3.35 TB/s peak,
 // measured on an H100 80GB HBM3 at its 700 W limit).
+// With a shared source only the targets stream: the keyframe's intensity
+// and geometry (20 B a pixel, 6.1 MB at 480x640) stay in L2 for every
+// block.
 // The design: one thread block per pair runs the level's whole iteration
 // loop, so nothing but the final state and diagnostics goes back to device
 // memory, and each pair freezes on its own. Sums are per-thread in
@@ -56,8 +67,8 @@ using namespace phovo;
 
 template <bool kBilinear, int kLoss, bool kEsm, bool kBi>
 __global__ void __launch_bounds__(kThreads)
-fused_gn_batch_kernel(const float* __restrict__ i0_all,     // (B, N)
-                      const float* __restrict__ geom_all,   // (B, 4|6, N)
+fused_gn_batch_kernel(const float* __restrict__ i0_all,     // (B|1, N)
+                      const float* __restrict__ geom_all,   // (B|1, 4|6, N)
                       const float* __restrict__ t_all,      // (B, 3|6, H, W)
                       const float* __restrict__ init_states,  // (B, 6)
                       const float* __restrict__ scale_in,   // (B,) delta or sigma
@@ -66,14 +77,18 @@ fused_gn_batch_kernel(const float* __restrict__ i0_all,     // (B, N)
                       float* __restrict__ diag_out,         // (B, 6)
                       int H, int W, float fx, float fy, float cx, float cy,
                       int max_iterations, float min_gradient_norm,
-                      float lambda_step, int tdist_burnin) {
+                      float lambda_step, int tdist_burnin,
+                      int shared_source) {
   constexpr int kRows = kEsm ? 6 : 4;
   constexpr int kCh = kBi ? 6 : 3;
   const int pair = blockIdx.x;
   const int tid = threadIdx.x;
   const int N = H * W;
-  const float* i0 = i0_all + static_cast<size_t>(pair) * N;
-  const float* geom = geom_all + static_cast<size_t>(pair) * kRows * N;
+  // the source pack: the pair's own, or with shared_source pair 0's, read
+  // by every block (a keyframe tracked against by a chunk of frames)
+  const int src = shared_source ? 0 : pair;
+  const float* i0 = i0_all + static_cast<size_t>(src) * N;
+  const float* geom = geom_all + static_cast<size_t>(src) * kRows * N;
   const float* tgt = t_all + static_cast<size_t>(pair) * kCh * N;
   // the pair's depth gain, state-invariant (phovo_tpu's state slot 7)
   const float gain = kBi ? __ldg(depth_gains + pair) : 0.0f;
@@ -153,7 +168,9 @@ fused_gn_batch_kernel(const float* __restrict__ i0_all,     // (B, N)
 // geometry; scale_in holds each pair's loss scale (robust_delta, or the
 // Student-t sigma). depth_gains (B,) selects the bi-objective variant with
 // a six-channel t_all (nullptr: photometric, three channels); it exists
-// for 'none', huber, cauchy and tukey without ESM. diag_out rows are [it,
+// for 'none', huber, cauchy and tukey without ESM. shared_source != 0: i0
+// (1, N) and geom (1, 4|6, N) are one source read by every pair (the
+// photometric level only). diag_out rows are [it,
 // ||J^T r||, cost, nvalid, band_masked = 0, scale out]. Returns
 // cudaGetLastError() after the launch, or cudaErrorInvalidValue for a
 // variant that does not exist.
@@ -161,8 +178,8 @@ extern "C" int phovo_fused_gn_level_batch(
     const float* i0, const float* geom, const float* t_all,
     const float* init_states, const float* scale_in, const float* depth_gains,
     float* states_out, float* diag_out, int B, int H, int W, int bilinear,
-    int loss, int esm, float fx, float fy, float cx, float cy,
-    int max_iterations, float min_gradient_norm, float lambda_step,
+    int loss, int esm, int shared_source, float fx, float fy, float cx,
+    float cy, int max_iterations, float min_gradient_norm, float lambda_step,
     int tdist_burnin, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   auto launch = [&](auto kb, auto kl, auto ke, auto kbi) {
@@ -171,7 +188,7 @@ extern "C" int phovo_fused_gn_level_batch(
         <<<B, kThreads, 0, s>>>(i0, geom, t_all, init_states, scale_in,
                                 depth_gains, states_out, diag_out, H, W, fx,
                                 fy, cx, cy, max_iterations, min_gradient_norm,
-                                lambda_step, tdist_burnin);
+                                lambda_step, tdist_burnin, shared_source);
   };
   const bool known =
       depth_gains != nullptr

@@ -5,7 +5,12 @@
 //   phovo_tpu/ops/fused_batch.py::_fused_tr_batch_kernel (B pairs, the
 //     level-major sequence), and
 //   phovo_tpu/ops/fused.py::_fused_tr_kernel with _run_tr_loop (one pair,
-//     the per-pair aligner): here that is this kernel launched with B = 1.
+//     the per-pair aligner): here that is this kernel launched with B = 1;
+//   _fused_tr_batch_kernel with shared_src=True (keyframe tracking: one
+//     source pack, the keyframe's, read by every pair): here the
+//     shared_source flag, which points every block at pair 0's source and
+//     changes nothing else, so a shared pack gives the bits of the same
+//     pack repeated B times.
 // The loop is the reference Ceres backend's per-level solve
 // (CPhotoconsistencyOdometryCeres.h:433-500) as phovo_tpu writes it: the
 // Levenberg-Marquardt step (J^T J + diag(clip(diag J^T J)) / radius) dx =
@@ -61,19 +66,21 @@ __device__ __forceinline__ float max_abs6(const float* g) {
 
 template <bool kBilinear, int kLoss>
 __global__ void __launch_bounds__(kThreads)
-fused_tr_batch_kernel(const float* __restrict__ i0_all,     // (B, N)
-                      const float* __restrict__ geom_all,   // (B, 4, N)
+fused_tr_batch_kernel(const float* __restrict__ i0_all,     // (B|1, N)
+                      const float* __restrict__ geom_all,   // (B|1, 4, N)
                       const float* __restrict__ t_all,      // (B, 3, H, W)
                       const float* __restrict__ init_states,  // (B, 6)
                       float* __restrict__ states_out,       // (B, 6)
                       float* __restrict__ diag_out,         // (B, 6)
                       int H, int W, float fx, float fy, float cx, float cy,
-                      float delta, TROptions opts) {
+                      float delta, TROptions opts, int shared_source) {
   const int pair = blockIdx.x;
   const int tid = threadIdx.x;
   const int N = H * W;
-  const float* i0 = i0_all + static_cast<size_t>(pair) * N;
-  const float* geom = geom_all + static_cast<size_t>(pair) * 4 * N;
+  // the pair's own source pack, or pair 0's read by every block
+  const int src = shared_source ? 0 : pair;
+  const float* i0 = i0_all + static_cast<size_t>(src) * N;
+  const float* geom = geom_all + static_cast<size_t>(src) * 4 * N;
   const float* tgt = t_all + static_cast<size_t>(pair) * 3 * N;
 
   __shared__ Terms terms;
@@ -189,14 +196,16 @@ fused_tr_batch_kernel(const float* __restrict__ i0_all,     // (B, N)
 
 // Launches the trust-region level kernel for B pairs on `stream` (a
 // cudaStream_t); the caller owns every buffer. loss is a phovo::Loss other
-// than kTdist, at scale delta. diag_out rows are [it, max|J^T r|, 0.5 cost,
-// nvalid, radius, band_masked = 0]. Returns cudaGetLastError() after the
-// launch, or cudaErrorInvalidValue for a variant that does not exist.
+// than kTdist, at scale delta. shared_source != 0: i0 (1, N) and geom
+// (1, 4, N) are one source read by every pair. diag_out rows are [it,
+// max|J^T r|, 0.5 cost, nvalid, radius, band_masked = 0]. Returns
+// cudaGetLastError() after the launch, or cudaErrorInvalidValue for a
+// variant that does not exist.
 extern "C" int phovo_fused_tr_level_batch(
     const float* i0, const float* geom, const float* t_all,
     const float* init_states, float* states_out, float* diag_out, int B, int H,
-    int W, int bilinear, int loss, float delta, float fx, float fy, float cx,
-    float cy, int max_iterations, float function_tolerance,
+    int W, int bilinear, int loss, int shared_source, float delta, float fx,
+    float fy, float cx, float cy, int max_iterations, float function_tolerance,
     float gradient_tolerance, float parameter_tolerance, float initial_radius,
     float max_radius, float min_radius, float min_relative_decrease,
     void* stream) {
@@ -209,7 +218,8 @@ extern "C" int phovo_fused_tr_level_batch(
       bilinear, loss, 0, [&](auto kb, auto kl, auto) {
         fused_tr_batch_kernel<decltype(kb)::value, decltype(kl)::value>
             <<<B, kThreads, 0, s>>>(i0, geom, t_all, init_states, states_out,
-                                    diag_out, H, W, fx, fy, cx, cy, delta, opts);
+                                    diag_out, H, W, fx, fy, cx, cy, delta, opts,
+                                    shared_source);
       });
   if (!known) return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(cudaGetLastError());

@@ -8,6 +8,14 @@ band):
   * gradient_at='source' and use_fused=False run the exact torch path,
     gauss_newton_level over photometric_residual_jacobian +
     normal_equations, as phovo_tpu runs them through XLA;
+  * keyframe tracking (models/keyframe.py run_chunked) runs a chunk of
+    frames against one keyframe level-major, one launch per active level
+    with the keyframe's packs shared by every pair (track_chunk_levelmajor)
+    from explicit per-pair inits, or as the serial warm-started scan
+    (track_sequence_chunk); Student-t chunks always take the scan, as
+    phovo_tpu's gate sends them (track_levelmajor_eligible);
+  * S independent pairs of a shared rig run one launch per level
+    (align_batch_fused, phovo_tpu's multi-stream route, B7);
   * frame chains from zero (the reference's pair semantics,
     PhotoconsistencyVisualOdometry.cpp:224) run level-major: the pairs are
     independent, so all pairs' coarsest level runs in one launch, then all
@@ -25,6 +33,7 @@ before; skipped levels leave it alone (phovo_tpu/models/analytic.py:
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from phovo_tpu_torch.models.base import (
@@ -39,7 +48,13 @@ from phovo_tpu_torch.models.base import (
 )
 from phovo_tpu_torch.ops import pyramid as pyr
 from phovo_tpu_torch.ops.camera import Intrinsics
-from phovo_tpu_torch.ops.fused import fused_gn_level, fused_gn_level_packs, pack_geometry, pack_target
+from phovo_tpu_torch.ops.fused import (
+    fused_gn_level,
+    fused_gn_level_multi_packs,
+    fused_gn_level_packs,
+    pack_geometry,
+    pack_target,
+)
 from phovo_tpu_torch.ops.fused_batch import fused_gn_level_batch
 from phovo_tpu_torch.ops.residuals import normal_equations, photometric_residual_jacobian
 from phovo_tpu_torch.ops.robust import TDIST_BURNIN, tdist_scale_update
@@ -177,6 +192,155 @@ def prep_frame_analytic(
     return out
 
 
+def prep_frame_targets(intensity: torch.Tensor, config: PhovoConfig) -> dict:
+    """Target packs only, for every ACTIVE level: level -> t_all (..., 3, H,
+    W), the same arrays as prep_frame_analytic's third member. Frames
+    tracked against a keyframe are targets only (the reference's
+    SetTargetFrame ignores depth), so they need neither depth nor a
+    geometry pack."""
+    int_p = pyr.build_pyramid(
+        intensity, config.num_levels, config.blur_filter_sizes, blur_type=config.blur_type
+    )
+    out = {}
+    for level, img in enumerate(int_p):
+        if config.max_iterations[level] <= 0:
+            continue
+        scale = config.gradient_scales[level]
+        out[level] = pack_target(img, pyr.scharr(img, "x", scale), pyr.scharr(img, "y", scale))
+    return out
+
+
+def prep_keyframe(
+    intensity: torch.Tensor,  # (H, W) uint8 or float32 0..1
+    depth: torch.Tensor,  # (H, W) float32 metres
+    intr: Intrinsics,
+    config: PhovoConfig,
+) -> dict:
+    """The source packs of ONE keyframe, computed once at promotion and
+    shared by every tracked chunk until the next: level -> (i0 (1, H*W),
+    geom (1, 4 | 6, H*W)), the shared-source layout of the level kernels."""
+    i = device_unit_intensity(intensity).to(torch.float32)
+    full = prep_frame_analytic(i[None], depth.to(torch.float32)[None], intr, config)
+    return {level: (i0, geom) for level, (i0, geom, _) in full.items()}
+
+
+def track_sequence_chunk(
+    kf_intensity: torch.Tensor,  # (H, W) the keyframe (the source)
+    kf_depth: torch.Tensor,  # (H, W) metres
+    intensities: torch.Tensor,  # (B, H, W) frames to track, uint8 or float32
+    depths: torch.Tensor,  # (B, H, W) metres float32, or raw counts
+    intr: Intrinsics,
+    init_state: torch.Tensor,  # (6,) the first frame's init
+    config: PhovoConfig,
+    use_fused: bool = True,
+    depth_scale: float | None = None,
+) -> AlignmentResult:
+    """Track B frames against ONE keyframe in series (phovo_tpu/models/
+    analytic.py::track_sequence_chunk, warm-started): frame k aligns the
+    keyframe to it with align_analytic (one K-GN launch at B = 1 per active
+    level) from the state the frame before ended at, the first frame from
+    init_state. depth_scale converts raw depth counts on the device.
+    Results have leading dim B."""
+    if depth_scale is not None and depths.dtype != torch.float32:
+        depths = depths.to(torch.float32) * float(np.float32(depth_scale))
+    kf_i = device_unit_intensity(kf_intensity).to(torch.float32)
+    kf_d = kf_depth.to(torch.float32)
+    state = init_state.to(device=kf_i.device, dtype=torch.float32)
+    results = []
+    for ti, td in zip(intensities, depths):
+        res = align_analytic(kf_i, kf_d, ti, td, intr, state, config, use_fused)
+        results.append(res)
+        state = res.state
+    return AlignmentResult(*(torch.stack(x) for x in zip(*results)))
+
+
+def track_levelmajor_eligible(config: PhovoConfig, use_fused: bool = True) -> bool:
+    """True when a keyframe chunk can run level-major: the level kernel's
+    route (gradient_at 'warped' or 'esm', use_fused) and any loss but
+    'tdist', which phovo_tpu's gate (analytic.py:768) sends to the serial
+    scan and so does this one. There is no tiling gate: every level size
+    runs on the GPU."""
+    return _fused_route(config, use_fused) and config.robust_loss != "tdist"
+
+
+def track_pairs_levelmajor(
+    kf_prep: dict,  # prep_keyframe: level -> (i0 (1, N), geom (1, GR, N))
+    tgt_targets: dict,  # level -> t_all (B, 3, H, W), prep_frame_targets
+    shape: tuple[int, int],
+    intr: Intrinsics,
+    config: PhovoConfig,
+    init_states: torch.Tensor,  # (B, 6) explicit per-pair inits
+) -> AlignmentResult:
+    """B frames tracked against ONE keyframe, level-major: per active level
+    one launch of the level kernel with the keyframe's packs shared by
+    every pair (phovo_tpu/models/analytic.py::track_pairs_levelmajor).
+    Each pair starts from its own init state."""
+    esm = config.gradient_at == "esm"
+
+    def run_level(level, states, sigma, burnin):
+        H, W = pyr.level_shape(shape, level)
+        return fused_gn_level_batch(
+            *kf_prep[level], tgt_targets[level], intr.at_level(level), states,
+            *_gn_options(config, level), H=H, W=W, sampling=config.sampling,
+            robust_loss=config.robust_loss, robust_delta=config.robust_delta,
+            esm=esm, robust_scale=sigma, tdist_burnin=burnin,
+        )[:5]
+
+    states = init_states.to(torch.float32).contiguous()
+    return _coarse_to_fine(run_level, states, config)
+
+
+def track_chunk_levelmajor(
+    kf_prep: dict,
+    intensities: torch.Tensor,  # (B, H, W) frames to track, uint8 or float32
+    intr: Intrinsics,
+    init_states: torch.Tensor,  # (B, 6)
+    config: PhovoConfig,
+) -> AlignmentResult:
+    """Track a chunk of B frames against ONE keyframe, level-major
+    (phovo_tpu/models/analytic.py::track_chunk_levelmajor): the frames
+    are prepped as targets only, then track_pairs_levelmajor."""
+    intensities = device_unit_intensity(intensities).to(torch.float32)
+    tgt = prep_frame_targets(intensities, config)
+    return track_pairs_levelmajor(
+        kf_prep, tgt, tuple(intensities.shape[1:]), intr, config, init_states
+    )
+
+
+def multi_kernel_eligible(config: PhovoConfig) -> bool:
+    """True when align_batch_fused takes the config: any loss but 'tdist'
+    (phovo_tpu/models/analytic.py:877; the GPU has no VMEM or height cap
+    to gate on)."""
+    return config.robust_loss != "tdist"
+
+
+def align_batch_fused(
+    source_intensity: torch.Tensor,  # (S, H, W) uint8 or float32 0..1
+    source_depth: torch.Tensor,  # (S, H, W) metres
+    target_intensity: torch.Tensor,  # (S, H, W)
+    target_depth: torch.Tensor,  # unused (the reference SetTargetFrame ignores depth)
+    intr: Intrinsics,  # shared by the streams
+    init_states: torch.Tensor,  # (S, 6)
+    config: PhovoConfig,
+) -> AlignmentResult:
+    """S independent alignments advanced by ONE multi-stream level per
+    active level (phovo_tpu/models/analytic.py::align_batch_fused). The
+    frames are prepped as parallel.batch.align_batch preps them (sources
+    by prep_frame_analytic, targets by prep_frame_targets); on the GPU
+    there is no VMEM choice between the batched and the multi-stream
+    kernel, so every level goes through ops/fused.fused_gn_level_multi_packs
+    (the B7 route, K-GN at B = S). 'tdist' raises ValueError. Returns
+    batched results (leading dim S)."""
+    del target_depth
+    si = device_unit_intensity(source_intensity).to(torch.float32).contiguous()
+    ti = device_unit_intensity(target_intensity).to(torch.float32)
+    src = prep_frame_analytic(si, source_depth.to(device=si.device, dtype=torch.float32), intr, config)
+    tgt = prep_frame_targets(ti, config)
+    packs = {level: (i0, geom, tgt[level]) for level, (i0, geom, _) in src.items()}
+    states = init_states.to(device=si.device, dtype=torch.float32).reshape(-1, 6)
+    return align_pairs_levelmajor(packs, tuple(si.shape[1:]), intr, config, states, multi=True)
+
+
 def align_prepped(
     src: dict,  # prep_frame_analytic of the source frame (no frame dim)
     tgt: dict,  # prep_frame_analytic of the target frame
@@ -229,18 +393,22 @@ def align_pairs_levelmajor(
     shape: tuple[int, int],
     intr: Intrinsics,
     config: PhovoConfig,
+    init_states: torch.Tensor | None = None,  # (B, 6); zeros when None
+    multi: bool = False,
 ) -> AlignmentResult:
     """Level-major alignment of B independent pairs from per-pair packs
     (level -> (i0 (B, N), geom (B, 4 | 6, N), t_all (B, 3, H, W)) for every
-    active level), all starting from the zero state; the Student-t scale is
-    carried per pair. Returns batched results: state (B, 6), per-level
-    diagnostics (B, L)."""
+    active level), each from its init state (the zero state by default);
+    the Student-t scale is carried per pair. multi launches each level
+    through the multi-stream wrapper (align_batch_fused's B7 route), the
+    same kernel counted as such. Returns batched results: state (B, 6),
+    per-level diagnostics (B, L)."""
     i0_any = next(iter(prep_pairs.values()))[0]
     esm = config.gradient_at == "esm"
 
     def run_level(level, states, sigma, burnin):
         H, W = pyr.level_shape(shape, level)
-        res = fused_gn_level_batch(
+        res = (fused_gn_level_multi_packs if multi else fused_gn_level_batch)(
             *prep_pairs[level], intr.at_level(level), states,
             *_gn_options(config, level), H=H, W=W, sampling=config.sampling,
             robust_loss=config.robust_loss, robust_delta=config.robust_delta,
@@ -248,8 +416,9 @@ def align_pairs_levelmajor(
         )
         return res[:5]
 
-    states = torch.zeros((i0_any.shape[0], 6), dtype=torch.float32, device=i0_any.device)
-    return _coarse_to_fine(run_level, states, config)
+    if init_states is None:
+        init_states = torch.zeros((i0_any.shape[0], 6), dtype=torch.float32, device=i0_any.device)
+    return _coarse_to_fine(run_level, init_states.contiguous(), config)
 
 
 def align_sequence_levelmajor(

@@ -17,6 +17,10 @@ Routing follows phovo_tpu:
   * zero-init sequences run level-major, all pairs of a chunk in one
     launch per level; warm_start runs the pairs as a serial chain of
     align_autodiff calls (each pair starts where the last one ended);
+  * keyframe tracking runs a chunk of frames against one keyframe
+    level-major from explicit per-pair inits, one launch per level with
+    the keyframe's 4-row packs shared by every pair
+    (track_chunk_levelmajor_tr);
   * levels with max_iterations 0 leave the state and report zero
     diagnostics on both routes.
 Robust losses huber, cauchy and tukey weight the pixels at robust_delta
@@ -31,7 +35,7 @@ import dataclasses
 
 import torch
 
-from phovo_tpu_torch.models.analytic import prep_frame_analytic
+from phovo_tpu_torch.models.analytic import prep_frame_analytic, prep_frame_targets
 from phovo_tpu_torch.models.base import (
     DEFAULT_DEVICE,
     AlignmentResult,
@@ -131,6 +135,51 @@ def align_sequence_autodiff_levelmajor(
         i0, geom, t_all = prep[level]
         res = fused_tr_level_batch(
             i0[:-1], geom[:-1], t_all[1:], intr.at_level(level), states,
+            config.trust_region_options(level), H=H, W=W, sampling="bilinear",
+            robust_loss=config.robust_loss, robust_delta=config.robust_delta,
+        )
+        states = res.state
+        diags[level] = (
+            res.iterations.to(torch.float32), res.gradient_norm, res.cost,
+            res.num_valid, res.band_masked,
+        )
+    return stack_levels(states, diags)
+
+
+def tr_track_levelmajor_eligible(config: PhovoConfig, jacobian_mode: str = "linearizer") -> bool:
+    """True when keyframe chunks of this backend run level-major: the
+    linearizer Jacobian and any loss but 'tdist' (phovo_tpu/models/
+    autodiff.py:269, without its TPU tiling gate)."""
+    return jacobian_mode == "linearizer" and config.robust_loss != "tdist"
+
+
+def track_chunk_levelmajor_tr(
+    kf_prep: dict,  # prep_keyframe of a 'warped' config: level -> (i0 (1, N), geom (1, 4, N))
+    intensities: torch.Tensor,  # (B, H, W) frames to track, uint8 or float32
+    intr: Intrinsics,
+    init_states: torch.Tensor,  # (B, 6) explicit per-pair inits
+    config: PhovoConfig,
+) -> AlignmentResult:
+    """Track a chunk of B frames against ONE keyframe with the trust-region
+    level, level-major (phovo_tpu/models/autodiff.py::
+    track_chunk_levelmajor_tr): the frames are prepped as targets only,
+    then per active level one launch of the trust-region kernel with the
+    keyframe's packs shared by every pair, always bilinear. The keyframe
+    packs have four rows whatever gradient_at says (models/keyframe.py
+    preps them so)."""
+    intensities = device_unit_intensity(intensities).to(torch.float32)
+    shape = tuple(intensities.shape[1:])
+    tgt = prep_frame_targets(intensities, config)
+    B = intensities.shape[0]
+    states = init_states.to(torch.float32).contiguous()
+    zero = torch.zeros(B, dtype=torch.float32, device=intensities.device)
+    diags = [(zero,) * 5] * config.num_levels
+    for level in range(config.num_levels - 1, -1, -1):
+        if config.max_iterations[level] <= 0:
+            continue
+        H, W = pyr.level_shape(shape, level)
+        res = fused_tr_level_batch(
+            *kf_prep[level], tgt[level], intr.at_level(level), states,
             config.trust_region_options(level), H=H, W=W, sampling="bilinear",
             robust_loss=config.robust_loss, robust_delta=config.robust_delta,
         )

@@ -38,11 +38,11 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C entry points: (argtypes, restype); every entry returns cudaGetLastError()
 _ENTRIES = {
     "phovo_fused_gn_level_batch": (
-        [_P] * 8 + [_I] * 6 + [_F] * 4 + [_I, _F, _F, _I, _P],
+        [_P] * 8 + [_I] * 7 + [_F] * 4 + [_I, _F, _F, _I, _P],
         _I,
     ),
     "phovo_fused_tr_level_batch": (
-        [_P] * 6 + [_I] * 5 + [_F] * 5 + [_I] + [_F] * 7 + [_P],
+        [_P] * 6 + [_I] * 6 + [_F] * 5 + [_I] + [_F] * 7 + [_P],
         _I,
     ),
     "phovo_fused_lin": (

@@ -1,6 +1,7 @@
 """Per-frame packs for the level kernels (torch port of the pack helpers in
 phovo_tpu/ops/fused.py), the per-pair Gauss-Newton (photometric and
 bi-objective) and trust-region levels (the batched kernels at B = 1), the
+multi-stream level (the batched Gauss-Newton kernel at B = S), the
 per-linearization API over the one-linearization kernel, and the
 normal-equation dispatch.
 
@@ -18,7 +19,9 @@ import torch
 
 from phovo_tpu_torch.ops.camera import Intrinsics
 from phovo_tpu_torch.ops.fused_batch import (
+    LevelBatchResult,
     fused_gn_level_batch,
+    fused_gn_level_batch_reference,
     fused_lin_batch,
     fused_tr_level_batch,
 )
@@ -198,6 +201,106 @@ def fused_gn_level(
         robust_loss=robust_loss, robust_delta=robust_delta,
         esm=source_grads is not None, robust_scale=robust_scale,
         tdist_burnin=tdist_burnin,
+    )
+
+
+# Launches of the multi-stream level (phovo_tpu's B7 route) in this
+# process: one per fused_gn_level_multi[_packs] call on CUDA tensors, which
+# is one launch of the batched Gauss-Newton kernel (counted in
+# fused_batch.LAUNCHES too). Reset it to 0 before a run, read it after.
+MULTI_LAUNCHES = 0
+
+
+def _check_multi_loss(robust_loss: str) -> None:
+    if robust_loss == "tdist":
+        raise ValueError(
+            "robust_loss='tdist' has no multi-stream level (phovo_tpu's "
+            "multi_kernel_eligible excludes it); align the streams with "
+            "parallel.batch.align_batch"
+        )
+
+
+def fused_gn_level_multi_packs(i0, geom, t_all, *args, robust_loss: str = "none", **kwargs) -> LevelBatchResult:
+    """The multi-stream level on pre-packed streams: fused_gn_level_batch's
+    arguments (i0 (S, N), geom (S, 4 | 6, N), t_all (S, 3, H, W), ...),
+    one launch of the batched Gauss-Newton kernel for the S streams on
+    CUDA tensors (counted in MULTI_LAUNCHES), its plain version on CPU
+    tensors. 'tdist' raises ValueError."""
+    global MULTI_LAUNCHES
+    _check_multi_loss(robust_loss)
+    res = fused_gn_level_batch(i0, geom, t_all, *args, robust_loss=robust_loss, **kwargs)
+    if i0.device.type != "cpu" and i0.shape[0]:
+        MULTI_LAUNCHES += 1
+    return res
+
+
+def _multi_packs(source_intensity, source_depth, tgt_cols, intr, init_states,
+                 min_depth, max_depth, source_grads):
+    """The S streams' packs for the batched level: i0 (S, N), geom (S, 4 |
+    6, N), t_all (S, 3, H, W), states (S, 6)."""
+    S, H, W = source_intensity.shape
+    return (
+        source_intensity.reshape(S, H * W).contiguous(),
+        pack_geometry(source_depth, intr, min_depth, max_depth, source_grads).contiguous(),
+        tgt_cols.reshape(S, 3, H, W).contiguous(),
+        init_states.to(device=source_intensity.device, dtype=torch.float32).reshape(S, 6).contiguous(),
+    )
+
+
+def fused_gn_level_multi(
+    source_intensity: torch.Tensor,  # (S, H, W)
+    source_depth: torch.Tensor,  # (S, H, W) metres
+    tgt_cols: torch.Tensor,  # (S, 3H, W) channel-major stacks [I; gx; gy]
+    intr: Intrinsics,  # at this level, shared by the streams
+    init_states: torch.Tensor,  # (S, 6)
+    min_depth: float,
+    max_depth: float,
+    max_iterations: int,
+    min_gradient_norm: float,
+    lambda_step: float,
+    sampling: str = "nearest",
+    robust_loss: str = "none",
+    robust_delta: float = 0.1,
+    source_grads=None,  # (gx0, gy0) each (S, H, W): the ESM Jacobian
+) -> LevelBatchResult:
+    """ONE whole Gauss-Newton level for S independent streams (torch port of
+    phovo_tpu/ops/fused.py::fused_gn_level_multi, its kernel
+    _fused_gn_multi_kernel): each stream is packed and the S pairs run in
+    one launch of the batched Gauss-Newton kernel (fused_gn_level_multi_packs
+    over ops/fused_batch.fused_gn_level_batch), whose per-pair loop freezes
+    each stream on ||J^T r|| or its budget exactly as the TPU kernel's
+    masked updates do (phovo_tpu/ops/fused.py:1465-1504). The TPU kernel
+    exists to keep S streams VMEM-resident and the MXU pipelined across
+    them; one block per stream is the Hopper form of the same work, so no
+    other device code computes it. CPU tensors run the plain version.
+    'none', huber, cauchy and tukey, with or without ESM; 'tdist' raises
+    ValueError. Returns the level's LevelBatchResult (band_masked 0)."""
+    _check_multi_loss(robust_loss)
+    S, H, W = source_intensity.shape
+    i0, geom, t_all, states = _multi_packs(source_intensity, source_depth, tgt_cols, intr, init_states,
+                                           min_depth, max_depth, source_grads)
+    return fused_gn_level_multi_packs(
+        i0, geom, t_all, intr, states, max_iterations, min_gradient_norm, lambda_step,
+        H=H, W=W, sampling=sampling, robust_loss=robust_loss,
+        robust_delta=robust_delta, esm=source_grads is not None,
+    )
+
+
+def fused_gn_level_multi_reference(
+    source_intensity, source_depth, tgt_cols, intr, init_states, min_depth,
+    max_depth, max_iterations, min_gradient_norm, lambda_step,
+    sampling="nearest", robust_loss="none", robust_delta=0.1, source_grads=None,
+) -> LevelBatchResult:
+    """Plain version of fused_gn_level_multi on any device: the same packs
+    through fused_batch.fused_gn_level_batch_reference."""
+    _check_multi_loss(robust_loss)
+    S, H, W = source_intensity.shape
+    i0, geom, t_all, states = _multi_packs(source_intensity, source_depth, tgt_cols, intr, init_states,
+                                           min_depth, max_depth, source_grads)
+    return fused_gn_level_batch_reference(
+        i0, geom, t_all, intr, states, max_iterations, min_gradient_norm, lambda_step,
+        H=H, W=W, sampling=sampling, robust_loss=robust_loss,
+        robust_delta=robust_delta, esm=source_grads is not None,
     )
 
 

@@ -8,7 +8,10 @@ pairs (phovo_tpu/ops/fused.py::_fused_kernel).
 On a CUDA tensor each wrapper launches its hand-written kernel,
 csrc/fused_gn_batch.cu, csrc/fused_tr_batch.cu (one thread block per
 pair, the level's whole iteration loop inside the block) or
-csrc/fused_lin.cu (one block per pair, one linearization). On a CPU tensor
+csrc/fused_lin.cu (one block per pair, one linearization). The two level
+kernels also take one source pack shared by every pair (keyframe
+tracking: phovo_tpu's shared_source mode), which gives the bits of the
+same pack repeated B times. On a CPU tensor
 it runs the plain batched torch version of the same function
 (fused_gn_level_batch_reference, fused_tr_level_batch_reference,
 fused_lin_batch_reference): every pair advances in lockstep and freezes on
@@ -40,6 +43,10 @@ LAUNCHES = 0
 TR_LAUNCHES = 0
 # Launches of the one-linearization kernel, with the same contract.
 LIN_LAUNCHES = 0
+# Of LAUNCHES and TR_LAUNCHES, the launches with a shared source (one
+# keyframe's pack read by every pair), with the same contract.
+SHARED_LAUNCHES = 0
+TR_SHARED_LAUNCHES = 0
 
 _SAMPLINGS = ("nearest", "bilinear")
 # the kernels' loss codes (csrc/phovo_linearize.cuh enum Loss)
@@ -72,11 +79,13 @@ class TRLevelBatchResult(NamedTuple):
 
 
 def _check_inputs(i0, geom, t_all, init_states, H, W, sampling, esm=False,
-                  robust_loss="none", robust_scale=None, depth_gains=None):
+                  robust_loss="none", robust_scale=None, depth_gains=None) -> bool:
     """Raise on what the kernels do not take. depth_gains selects the
     bi-objective level: a six-channel target, no ESM, no Student-t (as in
-    phovo_tpu); a six-channel target without it is refused. The layout not
-    ported yet (one shared source) is refused as such."""
+    phovo_tpu); a six-channel target without it is refused. Returns whether
+    the source is shared: i0 (1, N) and geom (1, GR, N) with B > 1 pairs'
+    targets, one source pack (a keyframe) read by every pair; photometric
+    only, as phovo_tpu has no caller for a shared bi-objective source."""
     if sampling not in _SAMPLINGS:
         raise ValueError(f"sampling={sampling!r}; expected one of {_SAMPLINGS}")
     if robust_loss not in LOSSES:
@@ -110,14 +119,16 @@ def _check_inputs(i0, geom, t_all, init_states, H, W, sampling, esm=False,
             "depth gain per pair"
         )
     B = t_all.shape[0] if t_all.dim() == 4 else -1
-    if B > 1 and i0.dim() == 2 and i0.shape[0] == 1:
-        raise NotImplementedError(
-            "a source shared by every pair (keyframe tracking) is not "
-            "ported yet (ROADMAP.md queue A, item 5)"
+    shared = B != 1 and i0.dim() == 2 and i0.shape[0] == 1
+    if shared and bi:
+        raise ValueError(
+            "a shared source (keyframe tracking) is photometric: the "
+            "bi-objective level takes one source per pair"
         )
     N = H * W
+    S = 1 if shared else B  # source packs
     expected = {
-        "i0": (B, N), "geom": (B, 6 if esm else 4, N), "t_all": (B, 6 if bi else 3, H, W),
+        "i0": (S, N), "geom": (S, 6 if esm else 4, N), "t_all": (B, 6 if bi else 3, H, W),
         "init_states": (B, 6), "robust_scale": (B,), "depth_gains": (B,),
     }
     for name, t in tensors.items():
@@ -125,8 +136,16 @@ def _check_inputs(i0, geom, t_all, init_states, H, W, sampling, esm=False,
             raise ValueError(
                 f"{name} has shape {tuple(t.shape)}, expected "
                 f"{expected[name]} for B={B} pairs at {H}x{W} (esm={esm}, "
-                f"bi-objective={bi})"
+                f"bi-objective={bi}, shared source={shared})"
             )
+    return shared
+
+
+def _shared_views(i0, geom, B):
+    """A shared source's (1, N) and (1, GR, N) packs as (B, N) and (B, GR,
+    N) views: the plain versions then compute every pair from the same
+    values the replicated pack holds."""
+    return i0.expand(B, -1), geom.expand(B, -1, -1)
 
 
 def _scales(robust_delta, robust_scale, B, device) -> torch.Tensor:
@@ -138,8 +157,8 @@ def _scales(robust_delta, robust_scale, B, device) -> torch.Tensor:
 
 
 def fused_gn_level_batch(
-    i0: torch.Tensor,  # (B, H*W) source intensities
-    geom: torch.Tensor,  # (B, 4 | 6, H*W) pack_geometry rows (6 with ESM)
+    i0: torch.Tensor,  # (B | 1, H*W) source intensities (1: shared)
+    geom: torch.Tensor,  # (B | 1, 4 | 6, H*W) pack_geometry rows (6 with ESM)
     t_all: torch.Tensor,  # (B, 3 | 6, H, W) pack_target stacks (6 bi-objective)
     intr: Intrinsics,  # at this level
     init_states: torch.Tensor,  # (B, 6)
@@ -170,8 +189,11 @@ def fused_gn_level_batch(
     selects the bi-objective level (phovo_tpu's bi mode, K-GN-bi): t_all
     holds [I, gx, gy, D, dgx, dgy] per pair and each pixel adds its depth
     residual gain (D(warped) - tz) and row to the normal equations; 'none',
-    huber, cauchy and tukey, without ESM."""
-    global LAUNCHES
+    huber, cauchy and tukey, without ESM. A source pack shared by every
+    pair (i0 (1, N), geom (1, GR, N), B taken from t_all: the keyframe of
+    a tracked chunk) gives the bits of the same pack repeated B times, in
+    the kernel and in the plain version; photometric, every loss and ESM."""
+    global LAUNCHES, SHARED_LAUNCHES
     if i0.device.type == "cpu":
         return fused_gn_level_batch_reference(
             i0, geom, t_all, intr, init_states, max_iterations,
@@ -180,14 +202,15 @@ def fused_gn_level_batch(
             robust_scale=robust_scale, tdist_burnin=tdist_burnin,
             depth_gains=depth_gains,
         )
-    _check_inputs(i0, geom, t_all, init_states, H, W, sampling, esm, robust_loss, robust_scale, depth_gains)
+    shared = _check_inputs(i0, geom, t_all, init_states, H, W, sampling, esm, robust_loss, robust_scale,
+                           depth_gains)
     if i0.device.type != "cuda":
         raise ValueError(f"no level kernel for device {i0.device}")
 
     from phovo_tpu_torch.ops import _build
 
     lib = _build.library()
-    B = i0.shape[0]
+    B = t_all.shape[0]
     scale_in = _scales(robust_delta, robust_scale, B, i0.device)
     states = torch.empty((B, 6), dtype=torch.float32, device=i0.device)
     diag = torch.empty((B, 6), dtype=torch.float32, device=i0.device)
@@ -199,7 +222,7 @@ def fused_gn_level_batch(
                 init_states.data_ptr(), scale_in.data_ptr(),
                 None if depth_gains is None else depth_gains.data_ptr(),
                 states.data_ptr(), diag.data_ptr(), B, H, W, int(sampling == "bilinear"),
-                _LOSS_CODES[robust_loss], int(esm),
+                _LOSS_CODES[robust_loss], int(esm), int(shared),
                 intr.fx, intr.fy, intr.cx, intr.cy,
                 int(max_iterations), float(min_gradient_norm),
                 float(lambda_step), int(tdist_burnin), stream,
@@ -209,6 +232,7 @@ def fused_gn_level_batch(
                 f"fused_gn_batch kernel launch failed: CUDA error {err}"
             )
         LAUNCHES += 1
+        SHARED_LAUNCHES += shared
     # one contiguous (B,) row per diagnostic: the sigma out goes back in
     # as the next level's robust_scale
     cols = diag.t().contiguous()
@@ -441,8 +465,11 @@ def fused_gn_level_batch_reference(
     """Plain batched torch version of fused_gn_level_batch, on any device.
     A Python while loop over iterations runs until every pair froze; a
     frozen pair's state, diagnostics and scale stop changing."""
-    _check_inputs(i0, geom, t_all, init_states, H, W, sampling, esm, robust_loss, robust_scale, depth_gains)
-    B = i0.shape[0]
+    shared = _check_inputs(i0, geom, t_all, init_states, H, W, sampling, esm, robust_loss, robust_scale,
+                           depth_gains)
+    B = t_all.shape[0]
+    if shared:
+        i0, geom = _shared_views(i0, geom, B)
     rows = geom.unbind(1)
     t_flat = t_all.reshape(B, t_all.shape[1], H * W)
     gain = None if depth_gains is None else depth_gains.unsqueeze(1)
@@ -493,8 +520,8 @@ def fused_gn_level_batch_reference(
 
 
 def _check_tr_variant(geom, t_all, robust_loss):
-    """Raise on what the trust-region kernel has no variant for, as
-    phovo_tpu's has none: the Student-t loss, ESM geometry and the
+    """Raise ValueError on what the trust-region kernel has no variant for,
+    as phovo_tpu's has none: the Student-t loss, ESM geometry and the
     bi-objective six-channel target."""
     if robust_loss == "tdist":
         raise ValueError(
@@ -503,10 +530,11 @@ def _check_tr_variant(geom, t_all, robust_loss):
             "accept/reject comparison; use the Gauss-Newton level"
         )
     if isinstance(geom, torch.Tensor) and geom.dim() == 3 and geom.shape[1] == 6:
-        raise NotImplementedError(
-            "ESM geometry packs (gradient_at='esm') have no trust-region "
-            "kernel: the ceres backend samples the target gradient at the "
-            "warped point whatever gradient_at says, as phovo_tpu's does"
+        raise ValueError(
+            "the trust-region level has no ESM, as phovo_tpu's has none: six "
+            "geometry rows (gradient_at='esm') are refused; the ceres "
+            "backend packs four rows whatever gradient_at says and samples "
+            "the target gradient at the warped point"
         )
     if isinstance(t_all, torch.Tensor) and t_all.dim() == 4 and t_all.shape[1] == 6:
         raise ValueError(
@@ -517,8 +545,8 @@ def _check_tr_variant(geom, t_all, robust_loss):
 
 
 def fused_tr_level_batch(
-    i0: torch.Tensor,  # (B, H*W) source intensities
-    geom: torch.Tensor,  # (B, 4, H*W) pack_geometry rows
+    i0: torch.Tensor,  # (B | 1, H*W) source intensities (1: shared)
+    geom: torch.Tensor,  # (B | 1, 4, H*W) pack_geometry rows
     t_all: torch.Tensor,  # (B, 3, H, W) pack_target stacks
     intr: Intrinsics,  # at this level
     init_states: torch.Tensor,  # (B, 6)
@@ -536,22 +564,24 @@ def fused_tr_level_batch(
     fallback). Every option goes to the kernel as a float32 scalar.
     robust_loss huber, cauchy or tukey weights every pixel at scale
     robust_delta, and the costs are then weighted sums; 'tdist' raises
-    ValueError."""
-    global TR_LAUNCHES
+    ValueError. A shared source pack (i0 (1, N), geom (1, 4, N), B taken
+    from t_all: keyframe tracking) gives the bits of the same pack repeated
+    B times."""
+    global TR_LAUNCHES, TR_SHARED_LAUNCHES
     if i0.device.type == "cpu":
         return fused_tr_level_batch_reference(
             i0, geom, t_all, intr, init_states, opts, H=H, W=W, sampling=sampling,
             robust_loss=robust_loss, robust_delta=robust_delta,
         )
     _check_tr_variant(geom, t_all, robust_loss)
-    _check_inputs(i0, geom, t_all, init_states, H, W, sampling, robust_loss=robust_loss)
+    shared = _check_inputs(i0, geom, t_all, init_states, H, W, sampling, robust_loss=robust_loss)
     if i0.device.type != "cuda":
         raise ValueError(f"no level kernel for device {i0.device}")
 
     from phovo_tpu_torch.ops import _build
 
     lib = _build.library()
-    B = i0.shape[0]
+    B = t_all.shape[0]
     states = torch.empty((B, 6), dtype=torch.float32, device=i0.device)
     diag = torch.empty((B, 6), dtype=torch.float32, device=i0.device)
     if B:
@@ -561,7 +591,7 @@ def fused_tr_level_batch(
                 i0.data_ptr(), geom.data_ptr(), t_all.data_ptr(),
                 init_states.data_ptr(), states.data_ptr(), diag.data_ptr(),
                 B, H, W, int(sampling == "bilinear"), _LOSS_CODES[robust_loss],
-                float(robust_delta), intr.fx, intr.fy, intr.cx, intr.cy,
+                int(shared), float(robust_delta), intr.fx, intr.fy, intr.cx, intr.cy,
                 int(opts.max_iterations), *_tr_scalars(opts), stream,
             )
         if err:
@@ -569,6 +599,7 @@ def fused_tr_level_batch(
                 f"fused_tr_batch kernel launch failed: CUDA error {err}"
             )
         TR_LAUNCHES += 1
+        TR_SHARED_LAUNCHES += shared
     return TRLevelBatchResult(
         states, diag[:, 0].to(torch.int32), diag[:, 2], diag[:, 1],
         diag[:, 4], diag[:, 3], diag[:, 5],
@@ -606,8 +637,10 @@ def fused_tr_level_batch_reference(
     A Python while loop over iterations runs until every pair froze; a
     frozen pair's state and diagnostics stop changing."""
     _check_tr_variant(geom, t_all, robust_loss)
-    _check_inputs(i0, geom, t_all, init_states, H, W, sampling, robust_loss=robust_loss)
-    B = i0.shape[0]
+    shared = _check_inputs(i0, geom, t_all, init_states, H, W, sampling, robust_loss=robust_loss)
+    B = t_all.shape[0]
+    if shared:
+        i0, geom = _shared_views(i0, geom, B)
     rows = geom.unbind(1)
     t_flat = t_all.reshape(B, 3, H * W)
     delta = _scales(robust_delta, None, B, i0.device).unsqueeze(1)
@@ -680,6 +713,13 @@ def fused_tr_level_batch_reference(
     )
 
 
+def _check_lin_inputs(*args):
+    """_check_inputs for the one-linearization kernel, which takes one
+    source per pair."""
+    if _check_inputs(*args):
+        raise ValueError("the one-linearization kernel takes one source pack per pair, not a shared one")
+
+
 def fused_lin_batch(
     i0: torch.Tensor,  # (B, H*W) source intensities
     geom: torch.Tensor,  # (B, 4 | 6, H*W) pack_geometry rows (6 with ESM)
@@ -709,7 +749,7 @@ def fused_lin_batch(
             robust_loss=robust_loss, robust_delta=robust_delta, esm=esm,
             robust_scale=robust_scale,
         )
-    _check_inputs(i0, geom, t_all, states, H, W, sampling, esm, robust_loss, robust_scale)
+    _check_lin_inputs(i0, geom, t_all, states, H, W, sampling, esm, robust_loss, robust_scale)
     if i0.device.type != "cuda":
         raise ValueError(f"no level kernel for device {i0.device}")
 
@@ -751,7 +791,7 @@ def fused_lin_batch_reference(
 ) -> torch.Tensor:
     """Plain torch version of fused_lin_batch, on any device: one batched
     matrix product of the stacked rows."""
-    _check_inputs(i0, geom, t_all, states, H, W, sampling, esm, robust_loss, robust_scale)
+    _check_lin_inputs(i0, geom, t_all, states, H, W, sampling, esm, robust_loss, robust_scale)
     B = i0.shape[0]
     sigma = _scales(robust_delta, robust_scale, B, i0.device).unsqueeze(1)
     J, r_w, validf, _ = _pixel_columns(

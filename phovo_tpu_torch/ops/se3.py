@@ -42,6 +42,16 @@ def pose_matrix_np(state) -> np.ndarray:
     return np.stack([np.stack(r, axis=-1) for r in rows], axis=-2)
 
 
+def matrix_to_state_np(T) -> np.ndarray:
+    """Host-side float64 twin of matrix_to_state (any leading dims)."""
+    T = np.asarray(T, np.float64)
+    R = T[..., :3, :3]
+    pitch = np.arcsin(np.clip(-R[..., 2, 0], -1.0, 1.0))
+    yaw = np.arctan2(R[..., 1, 0], R[..., 0, 0])
+    roll = np.arctan2(R[..., 2, 1], R[..., 2, 2])
+    return np.concatenate([T[..., :3, 3], np.stack([yaw, pitch, roll], axis=-1)], axis=-1)
+
+
 def inverse(T: torch.Tensor) -> torch.Tensor:
     """Closed-form inverse of a rigid transform (batched)."""
     Rt = T[..., :3, :3].transpose(-1, -2)
@@ -57,14 +67,15 @@ def compose(A: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
 
 
 def integrate_trajectory(states: torch.Tensor) -> torch.Tensor:
-    """(B, 6) relative states (pair k aligns frame k -> k+1) -> (B, 4, 4)
-    global poses pose_k = inv(Rt_0) @ ... @ inv(Rt_k): the VO app's running
-    pose <- pose @ Rt^-1 from identity, as a log-depth prefix product
-    (Hillis-Steele scan: ceil(log2 B) batched matmuls)."""
+    """(..., B, 6) relative states (pair k aligns frame k -> k+1) -> (...,
+    B, 4, 4) global poses pose_k = inv(Rt_0) @ ... @ inv(Rt_k): the VO
+    app's running pose <- pose @ Rt^-1 from identity, as a log-depth prefix
+    product (Hillis-Steele scan: ceil(log2 B) batched matmuls); leading
+    dims are independent trajectories."""
     M = inverse(pose_matrix(states))
     step = 1
-    while step < M.shape[0]:
-        M = torch.cat([M[:step], M[:-step] @ M[step:]], dim=0)
+    while step < M.shape[-3]:
+        M = torch.cat([M[..., :step, :, :], M[..., :-step, :, :] @ M[..., step:, :, :]], dim=-3)
         step *= 2
     return M
 

@@ -1,0 +1,243 @@
+"""Batched alignment and single-device multi-stream serving (torch port of
+phovo_tpu/parallel/batch.py's single-device entries).
+
+phovo_tpu vmaps its per-pair aligner over a batch and shards the batch
+over a device mesh. On one GPU the batch is the level kernel's pair axis:
+independent pairs advance in one launch per level, each pair in its own
+thread block, freezing on its own. So
+
+  * align_batch aligns B pairs from per-pair inits with one Gauss-Newton
+    level launch per active level: on the card each pair gets the bits of
+    align_analytic on it alone;
+  * align_sequences flattens S streams' zero-init pairs into one
+    level-major batch; a stream that is not level-major (warm_start,
+    gradient_at='source', use_fused=False) runs as the port's
+    align_sequence, so a served stream is that stream's own chain;
+  * align_sequences_multi walks time, one align_batch_fused (the
+    multi-stream route, phovo_tpu's B7) per step;
+  * serve_sequences_chunk is the chunked streaming step of S streams.
+
+Intrinsics: one Intrinsics for a shared rig, or a list of S (one per
+stream or pair). The kernels take the intrinsics as scalar arguments, so
+the streams are grouped by camera and each group runs its own level-major
+batch; zero-init pairs are independent, so this gives what phovo_tpu's
+vmap over (S,) intrinsic vectors gives.
+
+The mesh factories (make_data_parallel_aligner,
+align_sequences_levelmajor_sharded, make_multi_sequence_server,
+make_chunked_sequence_server) wait for multi-GPU work (ROADMAP.md queue A,
+item 11).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from phovo_tpu_torch.models.analytic import (
+    _fused_route,
+    align_analytic,
+    align_batch_fused,
+    align_pairs_levelmajor,
+    align_sequence,
+    prep_frame_analytic,
+    prep_frame_targets,
+)
+from phovo_tpu_torch.models.base import AlignmentResult, chunk_device_prep, device_unit_intensity
+from phovo_tpu_torch.ops import se3
+from phovo_tpu_torch.ops.camera import Intrinsics
+from phovo_tpu_torch.utils.config import PhovoConfig
+
+
+def _cameras(intr, n: int) -> list[Intrinsics]:
+    """The intrinsics of each of n items: a shared Intrinsics or a list of
+    n."""
+    if isinstance(intr, Intrinsics):
+        return [intr] * n
+    cams = [Intrinsics(*map(float, c)) for c in intr]
+    if len(cams) != n:
+        raise ValueError(f"{len(cams)} intrinsics for {n} streams")
+    return cams
+
+
+def _camera_groups(intr, n: int) -> list[tuple[Intrinsics, list[int]]]:
+    """[(intrinsics, indices)] of n items, one group per distinct camera in
+    first-seen order."""
+    groups: dict[Intrinsics, list[int]] = {}
+    for k, cam in enumerate(_cameras(intr, n)):
+        groups.setdefault(cam, []).append(k)
+    return list(groups.items())
+
+
+def _select(x: torch.Tensor, idx: list[int]) -> torch.Tensor:
+    """x[idx] along dim 0, x itself when idx is every item in order."""
+    if idx == list(range(x.shape[0])):
+        return x
+    return x[torch.tensor(idx, device=x.device)]
+
+
+def _gather(parts, n: int, dim: int = 0) -> AlignmentResult:
+    """[(indices, AlignmentResult)] -> one AlignmentResult of n items in
+    index order along dim."""
+    if len(parts) == 1:
+        return parts[0][1]
+    order = torch.tensor([k for idx, _ in parts for k in idx])
+    inv = torch.empty_like(order)
+    inv[order] = torch.arange(n)
+    fields = zip(*(res for _, res in parts))
+    return AlignmentResult(*(
+        torch.cat(f, dim=dim).index_select(dim, inv.to(f[0].device)) for f in fields
+    ))
+
+
+def align_batch(
+    source_intensity: torch.Tensor,  # (B, H, W) uint8 or float32 0..1
+    source_depth: torch.Tensor,  # (B, H, W) metres
+    target_intensity: torch.Tensor,  # (B, H, W)
+    target_depth: torch.Tensor,  # unused (the reference SetTargetFrame ignores depth)
+    intr,  # Intrinsics (shared) or a list of B
+    init_states: torch.Tensor,  # (B, 6)
+    config: PhovoConfig,
+    use_fused: bool = False,
+) -> AlignmentResult:
+    """B independent alignments from per-pair inits (phovo_tpu/parallel/
+    batch.py::align_batch, the vmap of align_analytic). On the level
+    kernel's route (use_fused, gradient_at 'warped' or 'esm') each frame is
+    prepped once (prep_frame_analytic of the sources and the targets) and
+    every active level is ONE launch at B pairs; the per-pair loop makes
+    pair b's result the bits of align_analytic on pair b alone (on the
+    card; the plain version's batched sums may round otherwise). Otherwise
+    the pairs run one after the other through align_analytic's exact torch
+    path. Returns batched results (leading dim B)."""
+    B = source_intensity.shape[0]
+    if not _fused_route(config, use_fused):
+        results = [
+            align_analytic(source_intensity[b], source_depth[b], target_intensity[b],
+                           target_depth[b], cam, init_states[b], config, use_fused)
+            for b, cam in enumerate(_cameras(intr, B))
+        ]
+        return AlignmentResult(*(torch.stack(x) for x in zip(*results)))
+    si = device_unit_intensity(source_intensity).to(torch.float32).contiguous()
+    ti = device_unit_intensity(target_intensity).to(torch.float32)
+    sd = source_depth.to(device=si.device, dtype=torch.float32)
+    init = init_states.to(device=si.device, dtype=torch.float32).reshape(B, 6)
+    shape = tuple(si.shape[1:])
+    parts = []
+    for cam, idx in _camera_groups(intr, B):
+        src = prep_frame_analytic(_select(si, idx), _select(sd, idx), cam, config)
+        tgt = prep_frame_targets(_select(ti, idx), config)
+        packs = {level: (i0, geom, tgt[level]) for level, (i0, geom, _) in src.items()}
+        parts.append((idx, align_pairs_levelmajor(packs, shape, cam, config, _select(init, idx))))
+    return _gather(parts, B)
+
+
+def align_sequences_levelmajor(
+    intensities: torch.Tensor,  # (S, T, H, W)
+    depths: torch.Tensor,  # (S, T, H, W) metres
+    intr: Intrinsics,  # shared by the streams
+    config: PhovoConfig,
+) -> AlignmentResult:
+    """All S streams' T-1 zero-init pairs as ONE level-major batch
+    (phovo_tpu/parallel/batch.py::align_sequences_levelmajor): every frame
+    prepped once, each interior frame the target of one pair and the source
+    of the next, then one launch per active level for all S (T-1) pairs.
+    Returns results with leading dims (S, T-1)."""
+    S, T = intensities.shape[:2]
+    shape = tuple(intensities.shape[2:])
+    flat_i = device_unit_intensity(intensities).to(torch.float32).reshape(S * T, *shape)
+    flat_d = depths.to(device=flat_i.device, dtype=torch.float32).reshape(S * T, *shape)
+    prep = prep_frame_analytic(flat_i, flat_d, intr, config)
+    B = S * (T - 1)
+    pairs = {}
+    for level, (i0, geom, t_all) in prep.items():
+        i0s = i0.reshape(S, T, -1)[:, :-1].reshape(B, -1)
+        geoms = geom.reshape(S, T, *geom.shape[1:])[:, :-1].reshape(B, *geom.shape[1:])
+        ts = t_all.reshape(S, T, *t_all.shape[1:])[:, 1:].reshape(B, *t_all.shape[1:])
+        pairs[level] = (i0s, geoms, ts)
+    res = align_pairs_levelmajor(pairs, shape, intr, config)
+    return AlignmentResult(*(x.reshape(S, T - 1, *x.shape[1:]) for x in res))
+
+
+def align_sequences(
+    intensities: torch.Tensor,  # (S, T, H, W) S independent camera streams
+    depths: torch.Tensor,  # (S, T, H, W)
+    intr,  # Intrinsics (shared rig) or a list of S (one per camera)
+    config: PhovoConfig,
+    use_fused: bool = True,
+    warm_start: bool = False,
+) -> tuple[AlignmentResult, torch.Tensor]:
+    """Align S independent frame sequences (phovo_tpu/parallel/batch.py::
+    align_sequences). Zero-init streams on the level kernel's route are
+    flattened, per camera, into one level-major batch
+    (align_sequences_levelmajor); every other stream runs as the port's
+    align_sequence (the serial warm chain, or the exact path pair after
+    pair). Each stream's results are then its own align_sequence's.
+    Returns (results with leading dims (S, T-1), global poses (S, T-1, 4,
+    4) integrated per stream from the identity)."""
+    S = intensities.shape[0]
+    parts = []
+    for cam, idx in _camera_groups(intr, S):
+        if not warm_start and _fused_route(config, use_fused):
+            parts.append((idx, align_sequences_levelmajor(_select(intensities, idx), _select(depths, idx), cam,
+                                                          config)))
+            continue
+        runs = [align_sequence(intensities[s], depths[s], cam, config, use_fused, warm_start) for s in idx]
+        parts.append((idx, AlignmentResult(*(torch.stack(x) for x in zip(*runs)))))
+    res = _gather(parts, S)
+    return res, se3.integrate_trajectory(res.state)
+
+
+def align_sequences_multi(
+    intensities: torch.Tensor,  # (S, T, H, W) S independent camera streams
+    depths: torch.Tensor,  # (S, T, H, W) metres
+    intr: Intrinsics,  # shared by the streams
+    config: PhovoConfig,
+    warm_start: bool = False,
+) -> tuple[AlignmentResult, torch.Tensor]:
+    """align_sequences through the multi-stream level (phovo_tpu/parallel/
+    batch.py::align_sequences_multi): a loop over time, each step aligning
+    all S streams' pairs (t, t+1) with ONE align_batch_fused, one launch
+    per active level; warm_start starts each stream's pair from the state
+    its pair before ended at. 'tdist' raises ValueError (no multi-stream
+    level). Returns (results with leading dims (S, T-1), global poses (S,
+    T-1, 4, 4))."""
+    S, T = intensities.shape[:2]
+    init = torch.zeros((S, 6), dtype=torch.float32, device=intensities.device)
+    steps = []
+    for t in range(T - 1):
+        res = align_batch_fused(
+            intensities[:, t], depths[:, t], intensities[:, t + 1], depths[:, t + 1],
+            intr, init, config,
+        )
+        steps.append(res)
+        if warm_start:
+            init = res.state
+    res = AlignmentResult(*(torch.stack(x, dim=1) for x in zip(*steps)))
+    return res, se3.integrate_trajectory(res.state)
+
+
+def serve_sequences_chunk(
+    carry_intensity: torch.Tensor,  # (S, H, W) each stream's last frame of the chunk before
+    carry_depth: torch.Tensor,  # (S, H, W) metres
+    intensities: torch.Tensor,  # (S, B, H, W) new frames, uint8 or float32
+    depths: torch.Tensor,  # (S, B, H, W) metres float32, or raw counts
+    intr,  # Intrinsics (shared rig) or a list of S
+    config: PhovoConfig,
+    use_fused: bool = True,
+    warm_start: bool = False,
+    depth_scale: float | None = None,
+) -> tuple[AlignmentResult, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One streaming step of S streams, B new frames each (phovo_tpu/
+    parallel/batch.py::serve_sequences_chunk): per stream the storage
+    dtypes are converted and its carry frame prepended on the device
+    (chunk_device_prep), then align_sequences. Returns (results with
+    leading dims (S, B), chunk-relative poses (S, B, 4, 4): pair k's pose
+    relative to the stream's chunk-start frame, the new carry intensities
+    (S, H, W) and depths, float32)."""
+    prepped = [
+        chunk_device_prep(ci, cd, I, D, depth_scale)
+        for ci, cd, I, D in zip(carry_intensity, carry_depth, intensities, depths)
+    ]
+    I = torch.stack([p[0] for p in prepped])
+    D = torch.stack([p[1] for p in prepped])
+    res, poses = align_sequences(I, D, intr, config, use_fused, warm_start)
+    return res, poses, I[:, -1], D[:, -1]

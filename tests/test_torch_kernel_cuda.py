@@ -134,13 +134,13 @@ def test_tr_kernel_stops_early_like_plain(stop):
     assert k.iterations.cpu().tolist() == stops.tolist()
 
 
-def _assert_tr_kernel_matches_plain(args, opts, sampling, settled):
+def _assert_tr_kernel_matches_plain(args, opts, sampling, settled, **loss_kw):
     """settled: a bool or (B,) mask of the pairs short of convergence,
     whose max|J^T r| is compared too."""
     before = FB.TR_LAUNCHES
-    k = FB.fused_tr_level_batch(*args, opts, H=96, W=128, sampling=sampling)
+    k = FB.fused_tr_level_batch(*args, opts, H=96, W=128, sampling=sampling, **loss_kw)
     assert FB.TR_LAUNCHES == before + 1
-    p = FB.fused_tr_level_batch_reference(*args, opts, H=96, W=128, sampling=sampling)
+    p = FB.fused_tr_level_batch_reference(*args, opts, H=96, W=128, sampling=sampling, **loss_kw)
     assert FB.TR_LAUNCHES == before + 1
     torch.cuda.synchronize()
     torch.testing.assert_close(k.state, p.state, rtol=0, atol=2e-4)
@@ -542,3 +542,168 @@ def test_bi_object_api_launches_once_per_level():
     assert FB.LAUNCHES == before + 2
     torch.testing.assert_close(k.state, p.state, rtol=0, atol=2e-4)
     assert torch.equal(k.iterations, p.iterations)
+
+
+# -- the shared-source modes, the multi-stream level, the keyframe path -------
+
+
+def _shared_args(esm, n=7, H=96, W=128):
+    """ONE source for every pair, as in keyframe tracking: the middle of n
+    make_sequence frames (the keyframe) against the other n - 1, at most
+    n // 2 frames away, from small seeded init states. Returns the shared
+    (1, N) and (1, GR, N) packs' arguments and the same with the pack
+    repeated n - 1 times."""
+    I, D, _, _ = make_sequence(INTR, (H, W), n)
+    It = torch.from_numpy(np.stack(I)).cuda()
+    Dt = torch.from_numpy(np.stack(D)).cuda()
+    gx, gy = pyr.scharr(It, "x", 0.0625), pyr.scharr(It, "y", 0.0625)
+    kf = n // 2
+    targets = [k for k in range(n) if k != kf]
+    B = len(targets)
+    i0 = It[kf].reshape(1, -1).contiguous()
+    geom = pack_geometry(Dt[kf:kf + 1], INTR, 0.3, 5.0, (gx[kf:kf + 1], gy[kf:kf + 1]) if esm else None).contiguous()
+    t_all = pack_target(It, gx, gy)[targets].contiguous()
+    init = torch.from_numpy((np.random.default_rng(0).standard_normal((B, 6)) * 1e-3).astype(np.float32)).cuda()
+    return (i0, geom, t_all, INTR, init), (i0.repeat(B, 1), geom.repeat(B, 1, 1), t_all, INTR, init)
+
+
+@pytest.mark.parametrize("loss,esm,sampling,iterations", [
+    ("none", False, "bilinear", 8), ("huber", False, "bilinear", 8), ("tukey", False, "nearest", 2),
+    ("none", True, "bilinear", 8), ("cauchy", True, "nearest", 2), ("tdist", False, "bilinear", 8),
+])
+def test_gn_kernel_shared_source_matches_plain_and_replicated(loss, esm, sampling, iterations):
+    """K-GN with one source pack read by every pair: the bits of the
+    replicated launch, and the plain version's results within the bounds
+    above."""
+    shared, replicated = _shared_args(esm)
+    kw = dict(H=96, W=128, sampling=sampling, robust_loss=loss, robust_delta=DELTAS[loss], esm=esm)
+    before = FB.LAUNCHES
+    k = FB.fused_gn_level_batch(*shared, iterations, 0.0, 1.0, **kw)
+    r = FB.fused_gn_level_batch(*replicated, iterations, 0.0, 1.0, **kw)
+    assert FB.LAUNCHES == before + 2
+    p = FB.fused_gn_level_batch_reference(*shared, iterations, 0.0, 1.0, **kw)
+    torch.cuda.synchronize()
+    for x, y in zip(k, r):
+        assert torch.equal(x, y)
+    torch.testing.assert_close(k.state, p.state, rtol=0, atol=2e-4)
+    assert torch.equal(k.iterations, p.iterations)
+    assert torch.equal(k.num_valid, p.num_valid)
+    torch.testing.assert_close(k.cost, p.cost, rtol=1e-4, atol=0)
+
+
+@pytest.mark.parametrize("loss,iterations", [("none", 4), ("huber", 4), ("tukey", 12)])
+def test_tr_kernel_shared_source_matches_plain_and_replicated(loss, iterations):
+    """K-TR with one source pack read by every pair: the bits of the
+    replicated launch, and the plain version within the trust-region
+    bounds above (max|J^T r| and the radius over budgets of 4)."""
+    shared, replicated = _shared_args(False)
+    opts = TROptions(iterations, **TESTS_OFF)
+    kw = dict(robust_loss=loss, robust_delta=0.05)
+    before = FB.TR_LAUNCHES
+    r = FB.fused_tr_level_batch(*replicated, opts, H=96, W=128, **kw)
+    k = _assert_tr_kernel_matches_plain(shared, opts, "bilinear", iterations <= 4, **kw)
+    assert FB.TR_LAUNCHES == before + 2
+    for x, y in zip(k, r):
+        assert torch.equal(x, y)
+
+
+@pytest.mark.parametrize("loss,esm,sampling,iterations", [
+    ("none", False, "bilinear", 8), ("huber", True, "nearest", 2),
+])
+def test_multi_level_is_one_kgn_launch(loss, esm, sampling, iterations):
+    """fused_gn_level_multi (B7): one K-GN launch for the S streams, the
+    bits of fused_gn_level_batch on the same packs, and its plain version
+    within the bounds above."""
+    from phovo_tpu_torch.ops import fused as fused_ops
+
+    I, D, _, _ = make_sequence(INTR, (96, 128), 9)
+    It = torch.from_numpy(np.stack(I)).cuda()
+    Dt = torch.from_numpy(np.stack(D)).cuda()
+    gx, gy = pyr.scharr(It, "x", 0.0625), pyr.scharr(It, "y", 0.0625)
+    sg = (gx[:-1], gy[:-1]) if esm else None
+    tgt = torch.cat([It[1:], gx[1:], gy[1:]], dim=-2)
+    init = torch.zeros((8, 6), device="cuda")
+    args = (It[:-1], Dt[:-1], tgt, INTR, init, 0.3, 5.0, iterations, 0.0, 1.0, sampling, loss, DELTAS[loss], sg)
+    before = (FB.LAUNCHES, fused_ops.MULTI_LAUNCHES)
+    k = fused_ops.fused_gn_level_multi(*args)
+    assert (FB.LAUNCHES, fused_ops.MULTI_LAUNCHES) == (before[0] + 1, before[1] + 1)
+    p = fused_ops.fused_gn_level_multi_reference(*args)
+    b = FB.fused_gn_level_batch(
+        It[:-1].reshape(8, -1).contiguous(), pack_geometry(Dt[:-1], INTR, 0.3, 5.0, sg).contiguous(),
+        pack_target(It, gx, gy)[1:].contiguous(), INTR, init, iterations, 0.0, 1.0, H=96, W=128,
+        sampling=sampling, robust_loss=loss, robust_delta=DELTAS[loss], esm=esm,
+    )
+    torch.cuda.synchronize()
+    for x, y in zip(k, b):
+        assert torch.equal(x, y)
+    torch.testing.assert_close(k.state, p.state, rtol=0, atol=2e-4)
+    assert torch.equal(k.iterations, p.iterations)
+
+
+def test_align_batch_gives_align_analytic_bits():
+    """align_batch on the card: each pair the bits of align_analytic on it
+    alone (one K-GN launch per active level for the batch)."""
+    from phovo_tpu_torch.models.analytic import align_analytic
+    from phovo_tpu_torch.parallel.batch import align_batch
+    from phovo_tpu_torch.utils.config import PhovoConfig
+
+    cfg = PhovoConfig(
+        num_levels=3, blur_filter_sizes=(0,) * 3, gradient_scales=(0.0625,) * 3,
+        max_iterations=(0, 4, 6), lambda_steps=(1.0,) * 3, min_gradient_norms=(0.0,) * 3,
+        sampling="bilinear", robust_loss="tdist", gradient_at="esm",
+    )
+    I, D, _, _ = make_sequence(INTR, (96, 128), 5)
+    It = torch.from_numpy((np.stack(I) * 255).astype(np.uint8)).cuda()
+    Dt = torch.from_numpy(np.stack(D)).cuda()
+    init = torch.from_numpy((np.random.default_rng(1).standard_normal((4, 6)) * 1e-3).astype(np.float32)).cuda()
+    before = FB.LAUNCHES
+    batch = align_batch(It[:-1], Dt[:-1], It[1:], Dt[1:], INTR, init, cfg, use_fused=True)
+    assert FB.LAUNCHES == before + 2
+    for j in range(4):
+        one = align_analytic(It[j], Dt[j], It[j + 1], Dt[j + 1], INTR, init[j], cfg)
+        for x, y in zip(one, batch):
+            assert torch.equal(x, y[j])
+
+
+def test_keyframe_run_chunked_on_the_card():
+    """KeyframeVisualOdometry.run_chunked on the card: one shared-source
+    K-GN launch per active level a chunk dispatch, the closures through
+    K-GN, and the keyframes, edges and closures of the plain versions."""
+    from phovo_tpu_torch.datasets.tum import RGBDFrame
+    from phovo_tpu_torch.models import analytic
+    from phovo_tpu_torch.models import keyframe
+    from phovo_tpu_torch.ops import se3
+    from phovo_tpu_torch.utils.config import PhovoConfig
+    from phovo_tpu_torch.utils.synthetic import render_plane
+
+    cfg = PhovoConfig(
+        num_levels=2, blur_filter_sizes=(0, 0), gradient_scales=(0.0625, 0.0625),
+        max_iterations=(10, 12), lambda_steps=(1.0, 1.0), min_gradient_norms=(1e-10, 1e-10),
+        sampling="bilinear",
+    )
+    xs = np.concatenate([np.linspace(0, 0.24, 5), np.linspace(0.24, 0.02, 4)])
+    frames = []
+    for k, x in enumerate(xs):
+        I, D = render_plane(INTR, (96, 128), se3.pose_matrix_np([x, 0.01 * np.sin(k), 0.0, 0.05 * x, 0.0, 0.0]))
+        frames.append(RGBDFrame(float(k), float(k), (I * 255).astype(np.uint8), D))
+
+    def run():
+        vo = analytic.PhotoconsistencyOdometryAnalytic(cfg)
+        vo.set_intrinsic_matrix([[INTR.fx, 0, INTR.cx], [0, INTR.fy, INTR.cy], [0, 0, 1]])
+        kvo = keyframe.KeyframeVisualOdometry(vo, kf_translation=0.08, kf_rotation=0.1, loop_radius=0.15,
+                                              loop_min_gap=2, loop_weight=50.0)
+        tracked = list(kvo.run_chunked(frames, chunk=4))
+        return kvo, kvo.finalize(iterations=8)
+
+    FB.LAUNCHES = 0
+    kern, tk = run()
+    torch.cuda.synchronize()
+    assert FB.LAUNCHES > 0
+    with mock.patch.object(analytic, "fused_gn_level_batch", FB.fused_gn_level_batch_reference):
+        plain, tp = run()
+    assert [k.frame_index for k in kern.keyframes] == [k.frame_index for k in plain.keyframes]
+    assert [(i, j) for i, j, _ in kern.odometry_edges] == [(i, j) for i, j, _ in plain.odometry_edges]
+    assert [(c.from_kf, c.to_kf) for c in kern.loop_closures] == [(c.from_kf, c.to_kf) for c in plain.loop_closures]
+    assert len(kern.loop_closures) >= 1
+    for a, b in zip(tk, tp):
+        np.testing.assert_allclose(a.pose, b.pose, atol=1e-4)

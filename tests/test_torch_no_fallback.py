@@ -185,6 +185,30 @@ def test_object_api_defaults_to_the_card():
                 cls()
 
 
+def test_pose_graph_defaults_to_the_card():
+    """optimize_pose_graph on a graph of numpy arrays solves on the CUDA
+    card unless the caller names a device; where torch finds none it raises
+    (naming device="cpu") instead of solving on the CPU."""
+    from phovo_tpu_torch.parallel import pose_graph as tpg
+
+    graph = tpg.PoseGraph(
+        states=np.zeros((3, 6), np.float32),
+        edges_i=np.array([0, 1], np.int64),
+        edges_j=np.array([1, 2], np.int64),
+        measurements=np.full((2, 6), 0.01, np.float32),
+        weights=np.ones(2, np.float32),
+    )
+    default = inspect.signature(tpg.optimize_pose_graph).parameters["device"].default
+    assert default is None
+    states, _ = tpg.optimize_pose_graph(graph, iterations=2, device="cpu")
+    assert states.device == torch.device("cpu") and bool(torch.isfinite(states).all())
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match='device="cpu"'):
+            tpg.optimize_pose_graph(graph, iterations=2)
+    else:
+        assert tpg.optimize_pose_graph(graph, iterations=2)[0].device.type == "cuda"
+
+
 def _run_smoke(cwd):
     return subprocess.run(
         [sys.executable, "chip_smoke.py"], cwd=cwd, capture_output=True,
@@ -223,17 +247,27 @@ def test_unported_kernel_layouts_raise(layout, kw, what):
     """The GN kernel refuses what it has no variant for: a six-channel
     (bi-objective) target without depth_gains, and depth_gains with ESM,
     with the Student-t loss (phovo_tpu raises the same) or with a
-    three-channel target; and the layout not ported, a shared source
-    (queue A item 5), as such. ESM geometry is ported: six rows are read
-    with esm=True and are a shape error without it."""
+    three-channel target. ESM geometry is ported: six rows are read with
+    esm=True and are a shape error without it. A shared source (one (1,
+    N) source pack for every pair, keyframe tracking) is ported: it gives
+    the bits of the same pack repeated, and with depth_gains it raises,
+    as phovo_tpu has no bi-objective caller for it."""
     i0, geom, t_all, intr, states = _level_inputs(**layout)
-    if what == "shared":
-        i0 = i0[:1].contiguous()
     if kw.get("depth_gains"):
         kw = dict(kw, depth_gains=torch.full((2,), 0.25))
-    error = NotImplementedError if what == "shared" else ValueError
+    if what == "shared":
+        shared = (i0[:1].contiguous(), geom[:1].contiguous())
+        replicated = (i0[:1].repeat(2, 1), geom[:1].repeat(2, 1, 1))
+        for fn in (FB.fused_gn_level_batch, FB.fused_gn_level_batch_reference):
+            res = [fn(*src, t_all, intr, states, 3, 0.0, 1.0, H=H, W=W, sampling="bilinear", robust_loss="huber")
+                   for src in (shared, replicated)]
+            assert all(torch.equal(a, b) for a, b in zip(*res))
+        with pytest.raises(ValueError, match="shared source"):
+            FB.fused_gn_level_batch(*shared, torch.cat([t_all, t_all], dim=1), intr, states, 1, 0.0, 1.0,
+                                    H=H, W=W, depth_gains=torch.full((2,), 0.25))
+        return
     for fn in (FB.fused_gn_level_batch, FB.fused_gn_level_batch_reference):
-        with pytest.raises(error, match=what):
+        with pytest.raises(ValueError, match=what):
             fn(i0, geom, t_all, intr, states, 1, 0.0, 1.0, H=H, W=W, **kw)
     if what == "esm=False":
         res = FB.fused_gn_level_batch(i0, geom, t_all, intr, states, 1, 0.0, 1.0, H=H, W=W, esm=True)
@@ -378,18 +412,27 @@ def test_trust_region_robust_losses_run_on_the_plain_version(loss):
     "layout,what,error",
     [
         (dict(channels=6), "photometric", ValueError),
-        (dict(rows=6), "ESM", NotImplementedError),
-        (dict(), "shared", NotImplementedError),
+        (dict(rows=6), "ESM", ValueError),
+        (dict(), "shared", None),
     ],
     ids=["biobjective", "esm", "shared-source"],
 )
 def test_unported_trust_region_layouts_raise(layout, what, error):
     """The trust-region kernel refuses the bi-objective six-channel target
-    (its level is photometric, as phovo_tpu's: a ValueError), ESM geometry
-    and the shared-source (keyframe tracking, queue A item 5) layout."""
+    (its level is photometric, as phovo_tpu's) and ESM geometry (phovo_tpu's
+    has no ESM; the ceres backend packs four rows whatever gradient_at
+    says), each with a ValueError. The shared-source layout (keyframe
+    tracking) is ported: one (1, N) source pack gives the bits of the same
+    pack repeated for every pair."""
     i0, geom, t_all, intr, states = _level_inputs(**layout)
     if what == "shared":
-        i0 = i0[:1].contiguous()
+        shared = (i0[:1].contiguous(), geom[:1].contiguous())
+        replicated = (i0[:1].repeat(2, 1), geom[:1].repeat(2, 1, 1))
+        for fn in (FB.fused_tr_level_batch, FB.fused_tr_level_batch_reference):
+            res = [fn(*src, t_all, intr, states, TROptions(4), H=H, W=W, robust_loss="tukey")
+                   for src in (shared, replicated)]
+            assert all(torch.equal(a, b) for a, b in zip(*res))
+        return
     for fn in (FB.fused_tr_level_batch, FB.fused_tr_level_batch_reference):
         with pytest.raises(error, match=what):
             fn(i0, geom, t_all, intr, states, TROptions(2), H=H, W=W)

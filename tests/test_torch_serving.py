@@ -1,0 +1,244 @@
+"""Batched alignment and single-device multi-stream serving: phovo_tpu_torch's
+parallel/batch.py (align_batch, align_sequences, serve_sequences_chunk,
+align_sequences_multi) and models/analytic.py's align_batch_fused against
+phovo_tpu's on the CPU, on the same numpy frames (make_sequence streams at
+96x128 with an 8-pixel depth-less border, tests/test_torch_analytic.py's
+schedule; 48x64 for phovo_tpu's multi-stream kernel in interpret mode,
+whose banded row window is the whole image at H <= 48).
+
+On the CPU phovo_tpu vmaps align_analytic (its XLA route) over the streams
+or pairs; the port runs the level kernel's plain version level-major.
+Tolerances: tests/test_torch_analytic.py's, states 2e-4 absolute, cost
+1e-4 relative (2e-3 against the multi-stream kernel, see MULTI_COST_RTOL),
+iteration and valid counts equal; poses 2e-4. A served
+stream is the port's own align_sequence of that stream, bit for bit.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from phovo_tpu.models.analytic import align_batch_fused as jax_align_batch_fused
+from phovo_tpu.ops.camera import Intrinsics as JIntrinsics
+from phovo_tpu.parallel import batch as jbatch
+from phovo_tpu.utils.config import PhovoConfig as JConfig
+from phovo_tpu_torch.models import analytic as tan
+from phovo_tpu_torch.ops import fused as tfused
+from phovo_tpu_torch.ops import fused_batch as FB
+from phovo_tpu_torch.ops.camera import Intrinsics
+from phovo_tpu_torch.parallel import batch as tbatch
+from phovo_tpu_torch.utils.config import PhovoConfig
+from phovo_tpu_torch.utils.synthetic import make_sequence
+
+torch.set_num_threads(1)
+
+INTR = Intrinsics(128.0, 128.0, 63.5, 47.5)
+# a second camera of the rig
+INTR_B = Intrinsics(120.0, 124.0, 64.0, 47.0)
+DEPTH_SCALE = 1.0 / 5000.0
+S, T = 3, 3
+BASE = dict(
+    num_levels=3, blur_filter_sizes=(0,) * 3, gradient_scales=(0.0625,) * 3,
+    max_iterations=(3, 3, 4), lambda_steps=(1.0,) * 3, min_gradient_norms=(0.0,) * 3,
+    sampling="bilinear",
+)
+# phovo_tpu's multi-stream kernel in interpret mode: 48x64 and 24x32, two
+# iterations a level. Its costs there are ~1e-6 a pixel, so a state 1e-5
+# apart moves them by up to 1.8e-3 (measured): they are held to MULTI_COST_RTOL
+MULTI_COST_RTOL = 2e-3
+MULTI = dict(BASE, num_levels=2, gradient_scales=(0.0625,) * 2, blur_filter_sizes=(0,) * 2,
+             max_iterations=(2, 2), lambda_steps=(1.0,) * 2, min_gradient_norms=(0.0,) * 2)
+
+
+def _cfgs(**kw):
+    d = dict(BASE, **kw)
+    return JConfig(**d), PhovoConfig(**d)
+
+
+def _jintr(c):
+    return JIntrinsics(*(np.float32(v) for v in c))
+
+
+def _streams(intr, shape, s=S, t=T, border=8):
+    """(s, t) make_sequence frames a stream, a depth-less border."""
+    I, D = [], []
+    for k in range(s):
+        Ik, Dk, _, _ = make_sequence(intr, shape, t, seed=10 + k)
+        I.append(np.stack(Ik))
+        D.append(np.stack(Dk))
+    I, D = np.stack(I), np.stack(D)
+    D[..., :border, :] = D[..., -border:, :] = 0.0
+    D[..., :border] = D[..., -border:] = 0.0
+    return np.round(I * 255.0).astype(np.uint8), D
+
+
+@pytest.fixture(scope="module")
+def frames():
+    return _streams(INTR, (96, 128))
+
+
+def _t(a):
+    return torch.from_numpy(np.ascontiguousarray(a))
+
+
+def _np(x):
+    return jax.tree.map(np.asarray, jax.device_get(x))
+
+
+def _assert_match(port, ref, cost_rtol=1e-4):
+    np.testing.assert_allclose(port.state.numpy(), ref.state, rtol=0, atol=2e-4)
+    np.testing.assert_array_equal(port.iterations.numpy(), ref.iterations)
+    np.testing.assert_array_equal(port.num_valid.numpy(), ref.num_valid)
+    np.testing.assert_allclose(port.cost.numpy(), ref.cost, rtol=cost_rtol)
+    assert float(port.band_masked.abs().sum()) == 0.0
+
+
+@pytest.mark.parametrize("use_fused,variant", [
+    (True, {}), (True, dict(robust_loss="tdist", robust_delta=0.1)), (True, dict(gradient_at="esm")),
+    (False, {}),
+])
+def test_align_batch_matches_jax(frames, use_fused, variant):
+    """B pairs from seeded per-pair inits: the level kernel's plain version
+    at B (use_fused), or the exact path pair after pair."""
+    I, D = frames[0].reshape(-1, 96, 128), frames[1].reshape(-1, 96, 128)
+    init = (np.random.default_rng(3).standard_normal((4, 6)) * 2e-3).astype(np.float32)
+    jcfg, tcfg = _cfgs(**variant)
+    args = (I[:4], D[:4], I[1:5], D[1:5])
+    ref = _np(jbatch.align_batch(*map(jnp.asarray, args), _jintr(INTR), jnp.asarray(init), jcfg, use_fused))
+    before = FB.LAUNCHES
+    port = tbatch.align_batch(*map(_t, args), INTR, _t(init), tcfg, use_fused)
+    assert FB.LAUNCHES == before
+    _assert_match(port, ref)
+
+
+@pytest.mark.parametrize("warm_start", [False, True])
+def test_align_sequences_matches_jax(frames, warm_start):
+    jcfg, tcfg = _cfgs()
+    ref, ref_poses = _np(jbatch.align_sequences(jnp.asarray(frames[0]), jnp.asarray(frames[1]), _jintr(INTR), jcfg,
+                                                warm_start=warm_start))
+    port, poses = tbatch.align_sequences(_t(frames[0]), _t(frames[1]), INTR, tcfg, warm_start=warm_start)
+    assert port.state.shape == (S, T - 1, 6) and poses.shape == (S, T - 1, 4, 4)
+    _assert_match(port, ref)
+    np.testing.assert_allclose(poses.numpy(), ref_poses, rtol=0, atol=2e-4)
+
+
+def test_two_camera_rig_matches_jax_vmap():
+    """Per-stream intrinsics: the port groups the streams by camera, one
+    level-major batch a camera; phovo_tpu vmaps over (S,) intrinsic
+    vectors."""
+    IA, DA = _streams(INTR, (96, 128), s=2)
+    IB, DB = _streams(INTR_B, (96, 128), s=2)
+    order = [0, 2, 1, 3]  # cameras A, B, A, B
+    I, D = np.concatenate([IA, IB])[order], np.concatenate([DA, DB])[order]
+    cams = [INTR, INTR_B, INTR, INTR_B]
+    jcfg, tcfg = _cfgs()
+    jcams = JIntrinsics(*(jnp.asarray(np.array(v, np.float32)) for v in zip(*cams)))
+    ref, ref_poses = _np(jbatch.align_sequences(jnp.asarray(I), jnp.asarray(D), jcams, jcfg))
+    port, poses = tbatch.align_sequences(_t(I), _t(D), cams, tcfg)
+    _assert_match(port, ref)
+    np.testing.assert_allclose(poses.numpy(), ref_poses, rtol=0, atol=2e-4)
+    # each camera's streams are their own batch: the bits of the camera alone
+    alone, _ = tbatch.align_sequences(_t(I[[1, 3]]), _t(D[[1, 3]]), INTR_B, tcfg)
+    assert torch.equal(port.state[[1, 3]], alone.state)
+
+
+@pytest.mark.parametrize("warm_start", [False, True])
+def test_serve_sequences_chunk_matches_jax(frames, warm_start):
+    """One streaming step: uint8 carries and frames, uint16 depth counts
+    converted on the device with depth_scale."""
+    I8 = frames[0]
+    D16 = np.round(frames[1] / DEPTH_SCALE).astype(np.uint16)
+    carry_d = D16[:, 0].astype(np.float32) * np.float32(DEPTH_SCALE)
+    args = (I8[:, 0], carry_d, I8[:, 1:], D16[:, 1:])
+    jcfg, tcfg = _cfgs()
+    ref, ref_poses, jci, jcd = _np(jbatch.serve_sequences_chunk(
+        *map(jnp.asarray, args), _jintr(INTR), jcfg, warm_start=warm_start, depth_scale=DEPTH_SCALE))
+    port, poses, ci, cd = tbatch.serve_sequences_chunk(
+        *map(_t, args), INTR, tcfg, warm_start=warm_start, depth_scale=DEPTH_SCALE)
+    assert port.state.shape == (S, T - 1, 6)
+    _assert_match(port, ref)
+    np.testing.assert_allclose(poses.numpy(), ref_poses, rtol=0, atol=2e-4)
+    np.testing.assert_array_equal(ci.numpy(), jci)
+    np.testing.assert_array_equal(cd.numpy(), jcd)
+
+
+@pytest.mark.parametrize("variant", [{}, dict(robust_loss="tdist", robust_delta=0.1), dict(gradient_at="source")])
+def test_served_stream_is_its_own_chain(frames, variant):
+    """Each served stream is the port's align_sequence of that stream, bit
+    for bit: the zero-init flatten (tdist too), and the exact path's serial
+    pairs."""
+    _, tcfg = _cfgs(**variant)
+    res, _ = tbatch.align_sequences(_t(frames[0]), _t(frames[1]), INTR, tcfg)
+    for s in range(S):
+        own = tan.align_sequence(_t(frames[0][s]), _t(frames[1][s]), INTR, tcfg)
+        for a, b in zip(res, own):
+            assert torch.equal(a[s], b)
+
+
+@pytest.fixture(scope="module")
+def small_streams():
+    return _streams(INTR.at_level(1), (48, 64), border=4)
+
+
+def test_align_batch_fused_matches_jax(small_streams):
+    """S pairs through one multi-stream level per active level (the B7
+    route) against phovo_tpu's align_batch_fused with its kernels in
+    interpret mode."""
+    I, D = small_streams[0][:, 0], small_streams[1][:, 0]
+    It, Dt = small_streams[0][:, 1], small_streams[1][:, 1]
+    init = (np.random.default_rng(4).standard_normal((S, 6)) * 1e-3).astype(np.float32)
+    cfg = dict(MULTI, robust_loss="huber", robust_delta=0.02)
+    ref = _np(jax_align_batch_fused(*map(jnp.asarray, (I, D, It, Dt)), _jintr(INTR.at_level(1)),
+                                    jnp.asarray(init), JConfig(**cfg), interpret=True))
+    before = tfused.MULTI_LAUNCHES
+    port = tan.align_batch_fused(*map(_t, (I, D, It, Dt)), INTR.at_level(1), _t(init), PhovoConfig(**cfg))
+    assert tfused.MULTI_LAUNCHES == before
+    _assert_match(port, ref, MULTI_COST_RTOL)
+
+
+def test_align_sequences_multi_matches_jax(small_streams):
+    """align_sequences_multi (a loop over time, one align_batch_fused a
+    step), warm-started, against phovo_tpu's in interpret mode; the same
+    streams through align_sequences for the contract (shapes, poses)."""
+    I, D = small_streams
+    intr = INTR.at_level(1)
+    ref, ref_poses = _np(jbatch.align_sequences_multi(jnp.asarray(I), jnp.asarray(D), _jintr(intr),
+                                                      JConfig(**MULTI), warm_start=True, interpret=True))
+    port, poses = tbatch.align_sequences_multi(_t(I), _t(D), intr, PhovoConfig(**MULTI), warm_start=True)
+    assert port.state.shape == (S, T - 1, 6) and poses.shape == (S, T - 1, 4, 4)
+    _assert_match(port, ref, MULTI_COST_RTOL)
+    np.testing.assert_allclose(poses.numpy(), ref_poses, rtol=0, atol=2e-4)
+    zero, _ = tbatch.align_sequences_multi(_t(I), _t(D), intr, PhovoConfig(**MULTI))
+    chain, _ = tbatch.align_sequences(_t(I), _t(D), intr, PhovoConfig(**MULTI))
+    np.testing.assert_allclose(zero.state.numpy(), chain.state.numpy(), rtol=0, atol=2e-4)
+
+
+def test_multi_route_takes_float_streams(small_streams):
+    """float32 frames (each time step a strided view of the (S, T, H, W)
+    stack) give the bits of the same frames in uint8, through
+    align_sequences_multi and align_batch."""
+    I, D = small_streams
+    intr = INTR.at_level(1)
+    cfg = PhovoConfig(**MULTI)
+    If = tan.device_unit_intensity(_t(I))
+    ref, _ = tbatch.align_sequences_multi(_t(I), _t(D), intr, cfg)
+    port, _ = tbatch.align_sequences_multi(If, _t(D), intr, cfg)
+    assert all(torch.equal(a, b) for a, b in zip(port, ref))
+    init = torch.zeros((S, 6))
+    one = tbatch.align_batch(If[:, 0], _t(D)[:, 0], If[:, 1], _t(D)[:, 1], intr, init, cfg, use_fused=True)
+    assert torch.equal(one.state, ref.state[:, 0])
+
+
+def test_multi_route_refuses_tdist_and_cpu_launches_nothing(small_streams):
+    I, D = small_streams
+    cfg = PhovoConfig(**dict(MULTI, robust_loss="tdist"))
+    assert not tan.multi_kernel_eligible(cfg) and tan.multi_kernel_eligible(PhovoConfig(**MULTI))
+    with pytest.raises(ValueError, match="tdist"):
+        tbatch.align_sequences_multi(_t(I), _t(D), INTR.at_level(1), cfg)
+    with pytest.raises(ValueError, match="intrinsics for"):
+        tbatch.align_sequences(_t(I), _t(D), [INTR] * (S - 1), PhovoConfig(**MULTI))
+    before = (FB.LAUNCHES, FB.TR_LAUNCHES, tfused.MULTI_LAUNCHES)
+    tbatch.align_sequences(_t(I), _t(D), INTR.at_level(1), PhovoConfig(**MULTI))
+    assert (FB.LAUNCHES, FB.TR_LAUNCHES, tfused.MULTI_LAUNCHES) == before

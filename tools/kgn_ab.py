@@ -47,8 +47,12 @@ def build(tree: Path, out: Path) -> ctypes.CDLL:
     lib = ctypes.CDLL(str(out))
     fn = lib.phovo_fused_gn_level_batch
     P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    n_ptr = 8 if "depth_gains" in (csrc / "fused_gn_batch.cu").read_text() else 7
-    fn.argtypes = [P] * n_ptr + [I] * 6 + [F] * 4 + [I, F, F, I, P]
+    source = (csrc / "fused_gn_batch.cu").read_text()
+    n_ptr = 8 if "depth_gains" in source else 7
+    # the integer arguments after H and W: sampling, loss, esm, and the
+    # shared-source flag where the tree has it
+    fn.flags = (0, 0, 0, 0) if "shared_source" in source else (0, 0, 0)
+    fn.argtypes = [P] * n_ptr + [I] * (3 + len(fn.flags)) + [F] * 4 + [I, F, F, I, P]
     fn.restype = I
     fn.n_ptr = n_ptr
     return fn
@@ -67,7 +71,7 @@ def launcher(fn, i0, geom, t_all, intr, init, H, W, iterations):
 
     def run():
         assert keep
-        err = fn(*ptrs, B, H, W, 0, 0, 0, intr.fx, intr.fy, intr.cx, intr.cy, iterations, 0.0, 1.0, 0,
+        err = fn(*ptrs, B, H, W, *fn.flags, intr.fx, intr.fy, intr.cx, intr.cy, iterations, 0.0, 1.0, 0,
                  torch.cuda.current_stream().cuda_stream)
         if err:
             raise RuntimeError(f"launch failed: CUDA error {err}")
