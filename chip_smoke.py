@@ -101,14 +101,21 @@ Phases, each of which raises on failure (exit code 1, no result line):
  7e. timing: the keyframe path's frames/s with its dispatches, closures
      and finalize apart, align_sequences beside align_sequence on the same
      256 pairs, align_sequences_multi a time step, and per level K-GN
-     shared vs replicated, K-TR shared and fused_gn_level_multi vs plain
+     shared vs replicated, K-TR shared and fused_gn_level_multi (on
+     prebuilt packs, the packing wrapper beside it) vs plain
+ 7f. the cluster layout: per level, K-TR and K-GN at the rule's cluster
+     size (ops/fused_batch.py::cluster_size) against one block a pair,
+     through their C entries: K-TR at B = 1, 16 shared targets and 256
+     pairs, K-GN at B = 1, 16 shared targets and 256 pairs, K-GN-bi at
+     B = 1 and 256 pairs
 Each of the paths of phases 4, 4b, 4c, 4d, 4e, 5, 6, 6b, 6d, 6e and 6f
 runs with the launch counts set to 0 just before it and read just after. A line
 "[t s] phase" marks each phase's start. The line before the last is the
 kernels' JSON record (for fused_lin, max_abs_err is the largest Gram
 difference over the Gram's largest entry; bound_ms is the least time the
 card could take for the timed work, from the bytes it must move and the
-float32 operations it does); the last line is
+float32 operations it does; cluster is the blocks a pair by level of the
+timed work, 1 for a kernel of one block a pair); the last line is
 {"ok": true, "device": {...}}.
 """
 
@@ -130,12 +137,14 @@ DEPTH_SCALE = 1.0 / 5000.0  # TUM 16-bit depth counts
 N_FRAMES = 257  # 256 pairs, as bench.py
 CHUNKS = ((1, 129), (129, 257))  # frame ranges of the two chunks
 STATE_ATOL = 2e-4  # tests/test_fused_batch.py's level for the batch kernel
-# Costs are float32 sums of r^2 >= 0. The kernel sums 1,200 pixels a thread
-# at 480x640 before its shuffle and warp passes, so the standard bound on
-# such a sum (Higham's gamma_n, n = 1,211 additions) is 7.2e-5 of the cost
-# on its side alone; torch's tree reduction adds its own. The reading there
-# is 9.675e-5 on every run (both sums are deterministic); 1e-4 is kept as
-# the bound tests/test_fused_batch.py pins for the TPU kernels. It holds
+# Costs are float32 sums of r^2 >= 0. The kernel sums 150 pixels a thread
+# at 480x640 (8 blocks a pair) before its shuffle, warp and cluster
+# passes, so the standard bound on such a sum (Higham's gamma_n, n = 169
+# additions) is 1.0e-5 of the cost on its side alone; torch's tree
+# reduction adds its own. With one block a pair (1,200 pixels a thread,
+# n = 1,211, 7.2e-5) the reading there was 9.675e-5 on every run (both
+# sums are deterministic); 1e-4 is kept as the bound
+# tests/test_fused_batch.py pins for the TPU kernels. It holds
 # one linearization's cost at the same state, and bilinear runs. A nearest
 # run's cost moves by a whole pixel's residual once a sample flips between
 # the two versions' states (3 iterations at 240x320: 1.070e-4 huber,
@@ -1630,8 +1639,9 @@ def phase_bi_timing(Is, Ds, card):
                       NEAREST_ITERATIONS * SHAPE[0] * SHAPE[1] * (GN_FLOPS["nearest"] + BI_EXTRA_FLOPS["nearest"]))
     rec["b1_ms"], rec["b1_plain_ms"], rec["b1_bound_ms"] = (k1 + k2) / 2, (p1 + p2) / 2, one_bound[0]
     print(f"layer bi-objective level kernel at B = 1 (B4, the per-pair level): {SHAPE[0]}x{SHAPE[1]}, "
-          f"{NEAREST_ITERATIONS} nearest iterations, one SM: kernel {(k1 + k2) / 2:.3f} ms ({k1:.3f}, {k2:.3f}), "
-          f"plain {(p1 + p2) / 2:.3f} ms ({p1:.3f}, {p2:.3f}), bound {one_bound[0]:.4f} ms ({one_bound[1]}) [{card}]")
+          f"{NEAREST_ITERATIONS} nearest iterations, {fb.cluster_size(*SHAPE)} blocks: kernel {(k1 + k2) / 2:.3f} ms "
+          f"({k1:.3f}, {k2:.3f}), plain {(p1 + p2) / 2:.3f} ms ({p1:.3f}, {p2:.3f}), bound {one_bound[0]:.4f} ms "
+          f"({one_bound[1]}) [{card}]")
 
     cfg_an = config_from_dict(ANALYTIC_PRESET)
     zero6 = torch.zeros(6, device=dev)
@@ -2158,38 +2168,208 @@ def phase_keyframe_serving_timing(fb, fused_ops, frames, I8, D16, card):
     rec["fused_tr_level_batch_shared"] = dict(ms=t["ms"], plain_ms=t["plain_ms"])
     rec["fused_tr_level_batch_shared"]["bound_ms"], rec["fused_tr_level_batch_shared"]["bound_by"] = bound(n_bytes, flops)
 
-    # fused_gn_level_multi at S = 8: the serving step's first time step
+    # fused_gn_level_multi at S = 8: the serving step's first time step.
+    # The kernel's time is fused_gn_level_multi_packs on packs built once
+    # (as align_batch_fused calls it); the packing wrapper
+    # fused_gn_level_multi, which packs the geometry on every call, is
+    # timed beside it.
     L, scales = cfg_an.num_levels, cfg_an.gradient_scales
     fI = analytic.device_unit_intensity(I[:, 0]).to(torch.float32)
     tI = analytic.device_unit_intensity(I[:, 1]).to(torch.float32)
     int0, dep0, int1 = pyr.build_pyramid(fI, L), pyr.build_pyramid(D[:, 0], L), pyr.build_pyramid(tI, L)
     gx1, gy1 = pyr.build_gradient_pyramid(int1, scales)
     n_bytes = flops = 0.0
-    args = {}
+    args, packs = {}, {}
     for level in sorted(kf_prep, reverse=True):
         H, W = level_shape(SHAPE, level)
         init = torch.zeros((S, 6), device=dev)
         args[level] = (int0[level], dep0[level], torch.cat([int1[level], gx1[level], gy1[level]], -2),
                        TUM_FR1.at_level(level), init, cfg_an.min_depth, cfg_an.max_depth,
                        *analytic._gn_options(cfg_an, level), cfg_an.sampling)
-        res = fused_ops.fused_gn_level_multi(*args[level])
-        # the inputs it reads: intensity, depth and the target stacks (the
-        # geometry rows are packed from the depth inside the call)
-        n_bytes += nbytes(*args[level][:3], init, *res)
+        packs[level] = (*fused_ops._multi_packs(*args[level][:5], cfg_an.min_depth, cfg_an.max_depth, None),
+                        *analytic._gn_options(cfg_an, level))
+        res = fused_ops.fused_gn_level_multi_packs(*packs[level][:3], TUM_FR1.at_level(level), *packs[level][3:],
+                                                   H=H, W=W, sampling=cfg_an.sampling)
+        # the packs it reads and the results it writes
+        n_bytes += nbytes(*packs[level][:4], *res)
         flops += float(res.iterations.double().sum()) * H * W * GN_FLOPS[cfg_an.sampling]
     t = timed_levels(
         "multi-stream level (B7 on K-GN)",
-        [(lv, f"level {lv} {level_shape(SHAPE, lv)} S = {S}, the analytic preset") for lv in sorted(kf_prep, reverse=True)],
-        lambda lv: fused_ops.fused_gn_level_multi(*args[lv]),
+        [(lv, f"level {lv} {level_shape(SHAPE, lv)} S = {S} on prebuilt packs, the analytic preset; beside it the "
+              f"packing wrapper fused_gn_level_multi") for lv in sorted(kf_prep, reverse=True)],
+        lambda lv: fused_ops.fused_gn_level_multi_packs(*packs[lv][:3], TUM_FR1.at_level(lv), *packs[lv][3:],
+                                                        H=level_shape(SHAPE, lv)[0], W=level_shape(SHAPE, lv)[1],
+                                                        sampling=cfg_an.sampling),
         lambda lv: fused_ops.fused_gn_level_multi_reference(*args[lv]),
+        lambda lv: fused_ops.fused_gn_level_multi(*args[lv]),
         card=card,
     )
-    rec["fused_gn_level_multi"] = dict(ms=t["ms"], plain_ms=t["plain_ms"])
+    rec["fused_gn_level_multi"] = dict(ms=t["ms"], plain_ms=t["plain_ms"], packing_wrapper_ms=t["other_ms"])
     rec["fused_gn_level_multi"]["bound_ms"], rec["fused_gn_level_multi"]["bound_by"] = bound(n_bytes, flops)
     for name, r in rec.items():
         print(f"{name}: {r['ms']:.4f} ms, plain {r['plain_ms']:.3f} ms, bound {r['bound_ms']:.5f} ms ({r['bound_by']})"
-              + (f", K-GN replicated {r['replicated_ms']:.4f} ms" if "replicated_ms" in r else "") + f" [{card}]")
+              + (f", K-GN replicated {r['replicated_ms']:.4f} ms" if "replicated_ms" in r else "")
+              + (f", packing wrapper {r['packing_wrapper_ms']:.4f} ms" if "packing_wrapper_ms" in r else "")
+              + f" [{card}]")
     return rec
+
+
+# Phase 7f: the cluster layout of K-TR and K-GN. The C entry of each, and
+# the source that declares it.
+LEVEL_ENTRIES = {"tr": ("fused_tr_batch.cu", "phovo_fused_tr_level_batch"),
+                 "gn": ("fused_gn_batch.cu", "phovo_fused_gn_level_batch")}
+
+
+def entry_names(kind: str) -> list:
+    """The parameter names of this tree's C entry of a level kernel ('tr'
+    or 'gn'), from its `extern "C"` signature."""
+    from phovo_tpu_torch.ops import _build
+
+    source, name = LEVEL_ENTRIES[kind]
+    return [n for n, _ in _build.entry_signatures((_build.CSRC / source).read_text())[name]]
+
+
+def entry_launcher(fn, names, kind, args, kw, cluster=None):
+    """(run, states, diag): run() launches a level kernel's C entry fn,
+    whose parameters are `names` (another tree's entry may lack some of
+    this tree's, such as `cluster`), once on a wrapper call's inputs (args
+    and kw of fused_tr_level_batch for 'tr', of fused_gn_level_batch for
+    'gn') with `cluster` blocks a pair (default: the rule's). Such launches
+    are not counted; a refused one raises."""
+    from phovo_tpu_torch.ops import fused_batch as fb
+
+    make = fb._tr_launch_args if kind == "tr" else fb._gn_launch_args
+    values, outs = make(*args, **kw, stream=torch.cuda.current_stream().cuda_stream, cluster=cluster)
+    named = dict(zip(entry_names(kind), values))
+    call = [named[n] for n in names]
+
+    def run():
+        assert outs  # the buffers live as long as run
+        err = fn(*call)
+        if err:
+            raise RuntimeError(f"{LEVEL_ENTRIES[kind][1]} failed: CUDA error {err} (cluster {cluster})")
+
+    return run, outs[0], outs[1]
+
+
+def cluster_workloads(dev, frames):
+    """[(group, label, kind, wrapper args, wrapper kw)]: the level launches
+    whose layout the cluster rule sets, on the timing workloads' frames
+    (make_pair alternated; the keyframe loop's first 17 frames):
+      * K-TR at B = 1: one pair's 480x640 level of the ceres preset, from
+        zero (the B5 row);
+      * K-GN and K-GN-bi at B = 1: one pair's 480x640 level, 3 nearest
+        iterations (the B3 and B4 rows);
+      * K-TR shared: KF_CHUNK targets of one keyframe, the ceres preset's
+        five levels chained from zero (the B2-shared row);
+      * K-GN shared: the same targets, the analytic preset's three levels;
+      * the ceres chain: 256 pairs, K-TR's five levels chained from zero;
+      * the bench chain: 256 pairs, K-GN and K-GN-bi at 120x160, 60x80 and
+        30x40 with 5, 20 and 50 nearest iterations.
+    Chained levels start from the kernel's states of the level before."""
+    from phovo_tpu_torch.models import analytic, biobjective
+    from phovo_tpu_torch.models.analytic import prep_frame_analytic, prep_frame_targets, prep_keyframe
+    from phovo_tpu_torch.ops import fused_batch as fb
+    from phovo_tpu_torch.ops.camera import TUM_FR1
+    from phovo_tpu_torch.ops.pyramid import level_shape
+    from phovo_tpu_torch.utils.config import config_from_dict
+    from phovo_tpu_torch.utils.synthetic import make_pair
+
+    cfg_tr, cfg_an = config_from_dict(CERES_PRESET), config_from_dict(ANALYTIC_PRESET)
+    cfg0, cfg_fixed = config_from_dict(LEVEL0_PRESET), bench_config(0.0)
+    I0, D0, I1, D1, _ = make_pair(TUM_FR1, SHAPE)
+    Is = torch.from_numpy(np.stack([I0, I1] * ((N_FRAMES + 1) // 2))[:N_FRAMES]).to(dev)
+    Ds = torch.from_numpy(np.stack([D0, D1] * ((N_FRAMES + 1) // 2))[:N_FRAMES]).to(dev)
+    n_pairs = N_FRAMES - 1
+    cases = []
+
+    def tr_chain(group, packs, n):
+        init = torch.zeros((n, 6), device=dev)
+        for level in sorted(packs, reverse=True):
+            H, W = level_shape(SHAPE, level)
+            args = (*packs[level], TUM_FR1.at_level(level), init, cfg_tr.trust_region_options(level))
+            cases.append((group, f"level {level} {H}x{W}", "tr", args, dict(H=H, W=W)))
+            init = fb.fused_tr_level_batch(*args, H=H, W=W).state
+
+    one = pair_packs(prep_frame_analytic(Is[:2], Ds[:2], TUM_FR1, cfg_tr))[0]
+    z1 = torch.zeros((1, 6), device=dev)
+    full = dict(H=SHAPE[0], W=SHAPE[1])
+    label = f"level 0 {SHAPE[0]}x{SHAPE[1]}"
+    cases.append(("K-TR B = 1", label, "tr", (*one, TUM_FR1, z1, cfg_tr.trust_region_options(0)), full))
+    gn1 = (*one, TUM_FR1, z1, NEAREST_ITERATIONS, 0.0, 1.0)
+    cases.append(("K-GN B = 1", label, "gn", gn1, dict(full, sampling="nearest")))
+    bi1 = pair_packs(biobjective.prep_frame_biobjective(Is[:2], Ds[:2], TUM_FR1, cfg0))[0]
+    cases.append(("K-GN-bi B = 1", label, "gn", (*bi1[:3], *gn1[3:]), dict(full, sampling="nearest", depth_gains=bi1[3])))
+
+    kfI = torch.from_numpy(frames[0].intensity).to(dev)
+    kfD = torch.from_numpy(frames[0].depth).to(dev).to(torch.float32) * float(np.float32(DEPTH_SCALE))
+    chunk = analytic.device_unit_intensity(torch.from_numpy(np.stack([f.intensity for f in frames[1:KF_CHUNK + 1]])).to(dev))
+    kf, tgt = prep_keyframe(kfI, kfD, TUM_FR1, cfg_tr), prep_frame_targets(chunk, cfg_tr)
+    tr_chain(f"K-TR shared ({KF_CHUNK} targets)", {lv: (*kf[lv], tgt[lv]) for lv in kf}, KF_CHUNK)
+    kf, tgt = prep_keyframe(kfI, kfD, TUM_FR1, cfg_an), prep_frame_targets(chunk, cfg_an)
+    for level in sorted(kf, reverse=True):
+        H, W = level_shape(SHAPE, level)
+        args = (*kf[level], tgt[level], TUM_FR1.at_level(level), torch.zeros((KF_CHUNK, 6), device=dev),
+                *analytic._gn_options(cfg_an, level))
+        cases.append((f"K-GN shared ({KF_CHUNK} targets)", f"level {level} {H}x{W}", "gn", args,
+                      dict(H=H, W=W, sampling=cfg_an.sampling)))
+
+    tr_chain(f"ceres chain ({n_pairs} pairs)", pair_packs(prep_frame_analytic(Is, Ds, TUM_FR1, cfg_tr)), n_pairs)
+    z = torch.zeros((n_pairs, 6), device=dev)
+    for group, prep in ((f"bench chain K-GN ({n_pairs} pairs)", prep_frame_analytic),
+                        (f"bench chain K-GN-bi ({n_pairs} pairs)", biobjective.prep_frame_biobjective)):
+        packs = pair_packs(prep(Is, Ds, TUM_FR1, cfg_fixed))
+        for level in sorted((lv for lv, n in enumerate(cfg_fixed.max_iterations) if n > 0), reverse=True):
+            H, W = level_shape(SHAPE, level)
+            i0, geom, t_all, *gains = packs[level]
+            kw = dict(H=H, W=W, sampling="nearest", **({"depth_gains": gains[0]} if gains else {}))
+            cases.append((group, f"level {level} {H}x{W}", "gn",
+                          (i0, geom, t_all, TUM_FR1.at_level(level), z, cfg_fixed.max_iterations[level], 0.0, 1.0),
+                          kw))
+    return cases
+
+
+def level_clusters(levels) -> dict:
+    """{'HxW': the rule's blocks a pair} of pyramid levels of SHAPE."""
+    from phovo_tpu_torch.ops.fused_batch import cluster_size
+    from phovo_tpu_torch.ops.pyramid import level_shape
+
+    return {"x".join(map(str, level_shape(SHAPE, lv))): cluster_size(*level_shape(SHAPE, lv)) for lv in levels}
+
+
+def phase_cluster_timing(frames, dev, card):
+    """Phase 7f: each of cluster_workloads' launches at the rule's cluster
+    size against one block a pair, through the C entries in turns (one,
+    rule, rule, one), with the states' largest difference and the pairs
+    whose iteration counts differ (a converged trust-region pair stops on
+    float32 noise). Returns {group: (rule ms, one-block ms)} over its
+    levels."""
+    from phovo_tpu_torch.ops import _build
+    from phovo_tpu_torch.ops.fused_batch import cluster_size
+
+    lib = _build.library()
+    totals = {}
+    for group, label, kind, args, kw in cluster_workloads(dev, frames):
+        fn, names = getattr(lib, LEVEL_ENTRIES[kind][1]), entry_names(kind)
+        c = cluster_size(kw["H"], kw["W"])
+        rule = entry_launcher(fn, names, kind, args, kw)
+        one = entry_launcher(fn, names, kind, args, kw, 1)
+        o1 = cuda_ms(one[0], REPEATS)
+        r1 = cuda_ms(rule[0], REPEATS)
+        r2 = cuda_ms(rule[0], REPEATS)
+        o2 = cuda_ms(one[0], REPEATS)
+        r, o = (r1 + r2) / 2, (o1 + o2) / 2
+        diff = float((rule[1] - one[1]).abs().max())
+        n_it = int((rule[2][:, 0] != one[2][:, 0]).sum())
+        acc = totals.setdefault(group, [0.0, 0.0])
+        acc[0] += r
+        acc[1] += o
+        print(f"layer cluster layout, {group}, {label}: C = {c} {r:.4f} ms ({r1:.4f}, {r2:.4f}), C = 1 {o:.4f} ms "
+              f"({o1:.4f}, {o2:.4f}), C / one block {r / o:.4f}; max|state diff| {diff:.3e}, "
+              f"{n_it} pairs with other iteration counts [{card}]")
+    for group, (r, o) in totals.items():
+        print(f"cluster layout {group}: rule {r:.4f} ms, one block a pair {o:.4f} ms, {r / o:.4f} [{card}]")
+    return totals
 
 
 T_START = time.perf_counter()
@@ -2498,9 +2678,9 @@ def main() -> int:
     one_tr_bound = bound(nbytes(*one, init1, *one_tr),
                          float(1 + one_tr.iterations.double().sum()) * SHAPE[0] * SHAPE[1] * GN_FLOPS[cfg_tr.sampling])
     print(f"per-pair route: align_autodiff {ms_pair:.3f} ms a VGA pair; its 480x640 level "
-          f"(B = 1, one SM, {int(one_tr.iterations.sum())} iterations): kernel {(k1 + k2) / 2:.3f} ms ({k1:.3f}, "
-          f"{k2:.3f}), plain {(p1 + p2) / 2:.3f} ms ({p1:.3f}, {p2:.3f}), bound {one_tr_bound[0]:.4f} ms "
-          f"({one_tr_bound[1]}) [{card}]")
+          f"(B = 1, {fb.cluster_size(*SHAPE)} blocks, {int(one_tr.iterations.sum())} iterations): kernel "
+          f"{(k1 + k2) / 2:.3f} ms ({k1:.3f}, {k2:.3f}), plain {(p1 + p2) / 2:.3f} ms ({p1:.3f}, {p2:.3f}), bound "
+          f"{one_tr_bound[0]:.4f} ms ({one_tr_bound[1]}) [{card}]")
 
     # 7b. this slice's paths: the per-pair analytic route, the analytic
     # chain with each variant, the ceres chain with huber, the
@@ -2527,7 +2707,7 @@ def main() -> int:
     gn1_bound = bound(nbytes(*gn1[:3], gn1[4], *fb.fused_gn_level_batch(*gn1, **gn1_kw)),
                       NEAREST_ITERATIONS * SHAPE[0] * SHAPE[1] * GN_FLOPS["nearest"])
     print(f"layer GN level kernel at B = 1 (the per-pair level): {SHAPE[0]}x{SHAPE[1]}, {NEAREST_ITERATIONS} nearest "
-          f"iterations, one SM: kernel {(k1 + k2) / 2:.3f} ms ({k1:.3f}, {k2:.3f}), plain "
+          f"iterations, {fb.cluster_size(*SHAPE)} blocks: kernel {(k1 + k2) / 2:.3f} ms ({k1:.3f}, {k2:.3f}), plain "
           f"{(p1 + p2) / 2:.3f} ms ({p1:.3f}, {p2:.3f}), bound {gn1_bound[0]:.4f} ms ({gn1_bound[1]}) [{card}]")
     lin = (*one, TUM_FR1, torch.full((1, 6), 1e-3, device=dev))
     lin_kw = dict(H=SHAPE[0], W=SHAPE[1], sampling="bilinear")
@@ -2552,9 +2732,16 @@ def main() -> int:
     stamp("7e. keyframe and serving timing")
     del Is, Ds
     kf_rec = phase_keyframe_serving_timing(fb, fused_ops, kf_frames, I8, D16, card)
+    # 7f. the cluster layout of K-TR and K-GN against one block a pair
+    stamp("7f. cluster layout timing")
+    phase_cluster_timing(kf_frames[:KF_CHUNK + 1], dev, card)
     stamp("done")
 
     gn_bound, tr_bound = bound(gn_bytes, gn_flops), bound(tr_bytes, tr_flops)
+    # blocks a pair by level of each row's timed work (1: one block a pair,
+    # the kernels without a cluster layout)
+    bench_levels = [lv for lv, n in enumerate(cfg_fixed.max_iterations) if n > 0]
+    an_levels = [lv for lv, n in enumerate(config_from_dict(ANALYTIC_PRESET).max_iterations) if n > 0]
     record = {"kernels": [
         {
             "name": "fused_gn_level_batch",
@@ -2570,6 +2757,7 @@ def main() -> int:
             "library_ms": None,
             "variants": variants["fused_gn_level_batch"][1],
             "per_pair_launches": an_launches,
+            "cluster": level_clusters(bench_levels),
         },
         {
             "name": "fused_tr_level_batch",
@@ -2584,6 +2772,7 @@ def main() -> int:
             "bound_by": tr_bound[1],
             "library_ms": None,
             "variants": variants["fused_tr_level_batch"][1],
+            "cluster": level_clusters(range(5)),
         },
         {
             "name": "fused_lin",
@@ -2598,6 +2787,7 @@ def main() -> int:
             "bound_by": lin_bound[1],
             "library_ms": None,
             "variants": variants["fused_lin"][1],
+            "cluster": 1,
         },
         {
             "name": "ic_precompute",
@@ -2609,6 +2799,7 @@ def main() -> int:
             "factor_rel_err": ic_l_err,
             **ic_rec["ic_precompute"],
             "library_ms": None,
+            "cluster": 1,
         },
         {
             "name": "ic_gn_level_batch",
@@ -2620,6 +2811,7 @@ def main() -> int:
             **ic_rec["ic_gn_level_batch"],
             "library_ms": None,
             "per_pair_launches": ic_api_launches,
+            "cluster": 1,
         },
         {
             "name": "fused_gn_level_batch_bi",
@@ -2632,6 +2824,7 @@ def main() -> int:
             "library_ms": None,
             "variants": list(BI_LOSSES),
             "per_pair_launches": bi_api_launches,
+            "cluster": level_clusters(bench_levels),
         },
         {
             "name": "fused_gn_level_batch_shared",
@@ -2643,6 +2836,7 @@ def main() -> int:
             **kf_rec["fused_gn_level_batch_shared"],
             "library_ms": None,
             "variants": list(SHARED_VARIANTS),
+            "cluster": level_clusters(an_levels),
         },
         {
             "name": "fused_tr_level_batch_shared",
@@ -2653,6 +2847,7 @@ def main() -> int:
             "max_abs_err": max(shared_tr_err, kf_out["ceres"][1]),
             **kf_rec["fused_tr_level_batch_shared"],
             "library_ms": None,
+            "cluster": level_clusters(range(5)),
         },
         {
             "name": "fused_gn_level_multi",
@@ -2663,6 +2858,7 @@ def main() -> int:
             "max_abs_err": max(multi_err, serve_err),
             **kf_rec["fused_gn_level_multi"],
             "library_ms": None,
+            "cluster": level_clusters(an_levels),
         },
     ]}
     print(json.dumps(record))

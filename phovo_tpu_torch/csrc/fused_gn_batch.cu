@@ -47,11 +47,21 @@
 // With a shared source only the targets stream: the keyframe's intensity
 // and geometry (20 B a pixel, 6.1 MB at 480x640) stay in L2 for every
 // block.
-// The design: one thread block per pair runs the level's whole iteration
-// loop, so nothing but the final state and diagnostics goes back to device
-// memory, and each pair freezes on its own. Sums are per-thread in
-// registers, then warp shuffles, then a fixed-order pass over the warps in
-// shared memory: no atomics, so every run gives the same bits.
+// The design: one thread-block cluster per pair runs the level's whole
+// iteration loop, so nothing but the final state and diagnostics goes back
+// to device memory, and each pair freezes on its own. One block per pair
+// left most of the 132 SMs idle at small B (a pair alone, the 16 targets
+// of a tracked chunk, S = 8 streams) and swept a 480x640 level on one SM,
+// so a pair's level is spread over `cluster` blocks, a function of the
+// level's shape alone (ops/fused_batch.py::cluster_size: 1 at 30x40 and
+// 60x80, where the serial tail of each iteration, not the sweep, sets the
+// time). Each block sweeps every C-th run of 256 pixels; sums are
+// per-thread in registers, then warp shuffles, then a fixed-order pass
+// over the warps in shared memory, then the blocks' partial sums in rank
+// order through distributed shared memory (linearize_cluster): no
+// atomics, so every run gives the same bits, and every block of the
+// cluster holds them, runs the same solve and stops at the same iteration.
+// Block rank 0 writes the pair's results.
 //
 // The per-pixel code, the block reduction and the solve live in
 // phovo_linearize.cuh, shared with the trust-region kernel
@@ -65,7 +75,9 @@ namespace {
 
 using namespace phovo;
 
-template <bool kBilinear, int kLoss, bool kEsm, bool kBi>
+// kCluster: a pair over a cluster of `cluster` blocks (linearize_cluster);
+// without it, one block a pair.
+template <bool kBilinear, int kLoss, bool kEsm, bool kBi, bool kCluster>
 __global__ void __launch_bounds__(kThreads)
 fused_gn_batch_kernel(const float* __restrict__ i0_all,     // (B|1, N)
                       const float* __restrict__ geom_all,   // (B|1, 4|6, N)
@@ -78,10 +90,12 @@ fused_gn_batch_kernel(const float* __restrict__ i0_all,     // (B|1, N)
                       int H, int W, float fx, float fy, float cx, float cy,
                       int max_iterations, float min_gradient_norm,
                       float lambda_step, int tdist_burnin,
-                      int shared_source) {
+                      int shared_source, int cluster) {
   constexpr int kRows = kEsm ? 6 : 4;
   constexpr int kCh = kBi ? 6 : 3;
-  const int pair = blockIdx.x;
+  // one cluster of `cluster` consecutive blocks per pair
+  const int pair = kCluster ? blockIdx.x / cluster : blockIdx.x;
+  const bool writer = !kCluster || blockIdx.x % cluster == 0;
   const int tid = threadIdx.x;
   const int N = H * W;
   // the source pack: the pair's own, or with shared_source pair 0's, read
@@ -96,11 +110,13 @@ fused_gn_batch_kernel(const float* __restrict__ i0_all,     // (B|1, N)
   __shared__ Terms terms;
   __shared__ float state[6];
   __shared__ float partial[kWarps][kSums];
+  __shared__ float slots[2][kSums];
   __shared__ float total[kSums];
   // it, gnorm, cost, nvalid of the pair (fused_batch.py:659-686), and the
   // loss's scale (the Student-t sigma, carried; otherwise robust_delta)
   __shared__ float it, gnorm, cost, nvalid, delta;
   __shared__ int active;
+  int parity = 0;
 
   if (tid == 0) {
     for (int k = 0; k < 6; ++k) state[k] = init_states[pair * 6 + k];
@@ -117,16 +133,18 @@ fused_gn_batch_kernel(const float* __restrict__ i0_all,     // (B|1, N)
   if constexpr (kLoss == kTdist) {
     // scale-only passes at the initial state (the first active level)
     for (int b = 0; b < tdist_burnin && max_iterations > 0; ++b) {
-      linearize_block<kBilinear, kLoss, kEsm, kSums>(
-          terms, i0, geom, tgt, H, W, fx, fy, cx, cy, delta, partial, total);
+      linearize_cluster<kCluster, kBilinear, kLoss, kEsm, kSums>(
+          terms, i0, geom, tgt, H, W, fx, fy, cx, cy, delta, cluster, parity,
+          partial, slots, total);
       if (tid == 0) delta = tdist_scale_update(total[27], total[28]);
       __syncthreads();
     }
   }
 
   while (active) {
-    linearize_block<kBilinear, kLoss, kEsm, kSums, kBi>(
-        terms, i0, geom, tgt, H, W, fx, fy, cx, cy, delta, partial, total, gain);
+    linearize_cluster<kCluster, kBilinear, kLoss, kEsm, kSums, kBi>(
+        terms, i0, geom, tgt, H, W, fx, fy, cx, cy, delta, cluster, parity,
+        partial, slots, total, gain);
     if (tid == 0) {
       float A[6][6], b[6], x[6];
       unpack_jtj(total, A);
@@ -150,7 +168,7 @@ fused_gn_batch_kernel(const float* __restrict__ i0_all,     // (B|1, N)
     __syncthreads();
   }
 
-  if (tid == 0) {
+  if (writer && tid == 0) {
     for (int k = 0; k < 6; ++k) states_out[pair * 6 + k] = state[k];
     diag_out[pair * 6 + 0] = it;
     diag_out[pair * 6 + 1] = isfinite(gnorm) ? gnorm : 0.0f;
@@ -159,12 +177,14 @@ fused_gn_batch_kernel(const float* __restrict__ i0_all,     // (B|1, N)
     diag_out[pair * 6 + 4] = 0.0f;
     diag_out[pair * 6 + 5] = delta;
   }
+  cluster_done<kCluster>();
 }
 
 }  // namespace
 
-// Launches the level kernel for B pairs on `stream` (a cudaStream_t); the
-// caller owns every buffer. loss is a phovo::Loss, esm selects the six-row
+// Launches the level kernel for B pairs on `stream` (a cudaStream_t) as B
+// clusters of `cluster` blocks (launch_clusters); the caller owns every
+// buffer. loss is a phovo::Loss, esm selects the six-row
 // geometry; scale_in holds each pair's loss scale (robust_delta, or the
 // Student-t sigma). depth_gains (B,) selects the bi-objective variant with
 // a six-channel t_all (nullptr: photometric, three channels); it exists
@@ -172,32 +192,34 @@ fused_gn_batch_kernel(const float* __restrict__ i0_all,     // (B|1, N)
 // (1, N) and geom (1, 4|6, N) are one source read by every pair (the
 // photometric level only). diag_out rows are [it,
 // ||J^T r||, cost, nvalid, band_masked = 0, scale out]. Returns
-// cudaGetLastError() after the launch, or cudaErrorInvalidValue for a
-// variant that does not exist.
+// launch_clusters' error, or cudaErrorInvalidValue for a variant that does
+// not exist.
 extern "C" int phovo_fused_gn_level_batch(
     const float* i0, const float* geom, const float* t_all,
     const float* init_states, const float* scale_in, const float* depth_gains,
     float* states_out, float* diag_out, int B, int H, int W, int bilinear,
-    int loss, int esm, int shared_source, float fx, float fy, float cx,
-    float cy, int max_iterations, float min_gradient_norm, float lambda_step,
-    int tdist_burnin, void* stream) {
+    int loss, int esm, int shared_source, int cluster, float fx, float fy,
+    float cx, float cy, int max_iterations, float min_gradient_norm,
+    float lambda_step, int tdist_burnin, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err = cudaErrorInvalidValue;
   auto launch = [&](auto kb, auto kl, auto ke, auto kbi) {
-    fused_gn_batch_kernel<decltype(kb)::value, decltype(kl)::value,
-                          decltype(ke)::value, decltype(kbi)::value>
-        <<<B, kThreads, 0, s>>>(i0, geom, t_all, init_states, scale_in,
-                                depth_gains, states_out, diag_out, H, W, fx,
-                                fy, cx, cy, max_iterations, min_gradient_norm,
-                                lambda_step, tdist_burnin, shared_source);
+    constexpr bool b = decltype(kb)::value, e = decltype(ke)::value, bi = decltype(kbi)::value;
+    constexpr int l = decltype(kl)::value;
+    err = launch_clusters(
+        fused_gn_batch_kernel<b, l, e, bi, false>, fused_gn_batch_kernel<b, l, e, bi, true>,
+        B, cluster, s, i0, geom, t_all, init_states, scale_in, depth_gains,
+        states_out, diag_out, H, W, fx, fy, cx, cy, max_iterations,
+        min_gradient_norm, lambda_step, tdist_burnin, shared_source, cluster);
   };
-  const bool known =
-      depth_gains != nullptr
-          ? dispatch_variant<kTukey, false>(
-                bilinear, loss, esm,
-                [&](auto kb, auto kl, auto ke) { launch(kb, kl, ke, std::true_type{}); })
-          : dispatch_variant<kTdist, true>(
-                bilinear, loss, esm,
-                [&](auto kb, auto kl, auto ke) { launch(kb, kl, ke, std::false_type{}); });
-  if (!known) return static_cast<int>(cudaErrorInvalidValue);
-  return static_cast<int>(cudaGetLastError());
+  if (depth_gains != nullptr) {
+    dispatch_variant<kTukey, false>(
+        bilinear, loss, esm,
+        [&](auto kb, auto kl, auto ke) { launch(kb, kl, ke, std::true_type{}); });
+  } else {
+    dispatch_variant<kTdist, true>(
+        bilinear, loss, esm,
+        [&](auto kb, auto kl, auto ke) { launch(kb, kl, ke, std::false_type{}); });
+  }
+  return static_cast<int>(err);
 }

@@ -27,14 +27,24 @@
 //
 // What bounds it on an H100: each LM iteration is one linearization (the
 // B1 per-pixel code, phovo_linearize.cuh) plus a serial 6x6 solve and a
-// dozen scalar tests on thread 0. At 30x40 to 120x160 it is bound as the
-// GN kernel is (gather latency and the per-iteration reduction at the
-// coarse levels, bytes at 120x160). The ceres schedules also iterate at
-// 240x320 and 480x640, where one pair's packs are 2.4 and 9.8 MB and a
-// 256-pair chunk streams 0.6 and 2.5 GB from device memory per iteration.
-// One block per pair keeps the whole loop on chip and each pair freezes on
-// its own; a single pair (B = 1) then runs on one SM, which is slow at
-// 480x640 but correct (splitting a pair over a cluster is later work).
+// dozen scalar tests. At 30x40 to 120x160 it is bound as the GN kernel is
+// (gather latency and the per-iteration reduction at the coarse levels,
+// bytes at 120x160). The ceres schedules also iterate at 240x320 and
+// 480x640, where one pair's packs are 2.4 and 9.8 MB and a 256-pair chunk
+// streams 0.6 and 2.5 GB from device memory per iteration.
+// The design: one thread-block cluster per pair keeps the level's whole
+// loop on chip, and each pair freezes on its own. One block per pair left
+// 116-131 of the 132 SMs idle at the small batches that keyframe tracking
+// (16 targets), loop closures and the per-pair route (B = 1) launch, and
+// swept a 480x640 level's 307,200 pixels on one SM. So a pair's level is
+// spread over a cluster of `cluster` blocks (ops/fused_batch.py::
+// cluster_size, a function of the level's shape alone: 1 at the coarse
+// levels, whose time is the serial tail, more where the pixel sweep is
+// long): each block sweeps every C-th run of 256 pixels, the partial sums
+// meet through distributed shared memory in rank order
+// (linearize_cluster), and every block then runs the same solve and tests
+// on the same bits, so the blocks agree on the state and on every stop
+// without a broadcast. Block rank 0 writes the pair's results.
 //
 // Arithmetic order follows phovo_tpu_torch/ops/fused_batch.py::
 // fused_tr_level_batch_reference; the maxima propagate NaN as jnp.maximum
@@ -64,8 +74,14 @@ __device__ __forceinline__ float max_abs6(const float* g) {
   return m;
 }
 
-template <bool kBilinear, int kLoss>
-__global__ void __launch_bounds__(kThreads)
+// kCluster: a pair over a cluster of `cluster` blocks (linearize_cluster);
+// without it, one block a pair. The cluster instantiations ask for three
+// blocks an SM (at most 80 registers a thread), which ran them 3-10%
+// faster on an H100 (PERF.md); the one-block ones set no minimum (0), as
+// the kernel had none before the cluster layout: a minimum of 1 already
+// changes their machine code.
+template <bool kBilinear, int kLoss, bool kCluster>
+__global__ void __launch_bounds__(kThreads, kCluster ? 3 : 0)
 fused_tr_batch_kernel(const float* __restrict__ i0_all,     // (B|1, N)
                       const float* __restrict__ geom_all,   // (B|1, 4, N)
                       const float* __restrict__ t_all,      // (B, 3, H, W)
@@ -73,8 +89,11 @@ fused_tr_batch_kernel(const float* __restrict__ i0_all,     // (B|1, N)
                       float* __restrict__ states_out,       // (B, 6)
                       float* __restrict__ diag_out,         // (B, 6)
                       int H, int W, float fx, float fy, float cx, float cy,
-                      float delta, TROptions opts, int shared_source) {
-  const int pair = blockIdx.x;
+                      float delta, TROptions opts, int shared_source,
+                      int cluster) {
+  // one cluster of `cluster` consecutive blocks per pair
+  const int pair = kCluster ? blockIdx.x / cluster : blockIdx.x;
+  const bool writer = !kCluster || blockIdx.x % cluster == 0;
   const int tid = threadIdx.x;
   const int N = H * W;
   // the pair's own source pack, or pair 0's read by every block
@@ -88,19 +107,22 @@ fused_tr_batch_kernel(const float* __restrict__ i0_all,     // (B|1, N)
   __shared__ float trial[6];
   __shared__ float step[6];
   __shared__ float partial[kWarps][kSums];
+  __shared__ float slots[2][kSums];
   __shared__ float total[kSums];
   // the last ACCEPTED linearization: 21 JtJ, 6 Jtr, cost, nvalid
   __shared__ float ne[kSums];
   __shared__ float it, radius;
   __shared__ int active;
+  int parity = 0;
 
   if (tid == 0) {
     for (int k = 0; k < 6; ++k) state[k] = init_states[pair * 6 + k];
     make_terms(state, &terms);
   }
   __syncthreads();
-  linearize_block<kBilinear, kLoss, false, kSums>(
-      terms, i0, geom, tgt, H, W, fx, fy, cx, cy, delta, partial, total);
+  linearize_cluster<kCluster, kBilinear, kLoss, false, kSums>(
+      terms, i0, geom, tgt, H, W, fx, fy, cx, cy, delta, cluster, parity,
+      partial, slots, total);
   if (tid == 0) {
     for (int k = 0; k < kSums; ++k) ne[k] = total[k];
     it = 0.0f;
@@ -133,8 +155,9 @@ fused_tr_batch_kernel(const float* __restrict__ i0_all,     // (B|1, N)
     }
     __syncthreads();
     // 3. linearize at the trial state
-    linearize_block<kBilinear, kLoss, false, kSums>(
-        terms, i0, geom, tgt, H, W, fx, fy, cx, cy, delta, partial, total);
+    linearize_cluster<kCluster, kBilinear, kLoss, false, kSums>(
+        terms, i0, geom, tgt, H, W, fx, fy, cx, cy, delta, cluster, parity,
+        partial, slots, total);
     // 4-6. ratio test, radius rule, keep or drop the trial, termination
     if (tid == 0) {
       float A[6][6];
@@ -181,7 +204,7 @@ fused_tr_batch_kernel(const float* __restrict__ i0_all,     // (B|1, N)
     __syncthreads();
   }
 
-  if (tid == 0) {
+  if (writer && tid == 0) {
     for (int k = 0; k < 6; ++k) states_out[pair * 6 + k] = state[k];
     diag_out[pair * 6 + 0] = it;
     diag_out[pair * 6 + 1] = max_abs6(ne + 21);
@@ -190,37 +213,38 @@ fused_tr_batch_kernel(const float* __restrict__ i0_all,     // (B|1, N)
     diag_out[pair * 6 + 4] = radius;
     diag_out[pair * 6 + 5] = 0.0f;
   }
+  cluster_done<kCluster>();
 }
 
 }  // namespace
 
 // Launches the trust-region level kernel for B pairs on `stream` (a
-// cudaStream_t); the caller owns every buffer. loss is a phovo::Loss other
-// than kTdist, at scale delta. shared_source != 0: i0 (1, N) and geom
-// (1, 4, N) are one source read by every pair. diag_out rows are [it,
-// max|J^T r|, 0.5 cost, nvalid, radius, band_masked = 0]. Returns
-// cudaGetLastError() after the launch, or cudaErrorInvalidValue for a
-// variant that does not exist.
+// cudaStream_t) as B clusters of `cluster` blocks (launch_clusters); the
+// caller owns every buffer. loss is a phovo::Loss other than kTdist, at
+// scale delta. shared_source != 0: i0 (1, N) and geom (1, 4, N) are one
+// source read by every pair. diag_out rows are [it, max|J^T r|, 0.5 cost,
+// nvalid, radius, band_masked = 0]. Returns launch_clusters' error, or
+// cudaErrorInvalidValue for a variant that does not exist.
 extern "C" int phovo_fused_tr_level_batch(
     const float* i0, const float* geom, const float* t_all,
     const float* init_states, float* states_out, float* diag_out, int B, int H,
-    int W, int bilinear, int loss, int shared_source, float delta, float fx,
-    float fy, float cx, float cy, int max_iterations, float function_tolerance,
-    float gradient_tolerance, float parameter_tolerance, float initial_radius,
-    float max_radius, float min_radius, float min_relative_decrease,
-    void* stream) {
+    int W, int bilinear, int loss, int shared_source, int cluster, float delta,
+    float fx, float fy, float cx, float cy, int max_iterations,
+    float function_tolerance, float gradient_tolerance,
+    float parameter_tolerance, float initial_radius, float max_radius,
+    float min_radius, float min_relative_decrease, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const TROptions opts{max_iterations,      function_tolerance,
                        gradient_tolerance,  parameter_tolerance,
                        initial_radius,      max_radius,
                        min_radius,          min_relative_decrease};
-  const bool known = dispatch_variant<kTukey, false>(
-      bilinear, loss, 0, [&](auto kb, auto kl, auto) {
-        fused_tr_batch_kernel<decltype(kb)::value, decltype(kl)::value>
-            <<<B, kThreads, 0, s>>>(i0, geom, t_all, init_states, states_out,
-                                    diag_out, H, W, fx, fy, cx, cy, delta, opts,
-                                    shared_source);
-      });
-  if (!known) return static_cast<int>(cudaErrorInvalidValue);
-  return static_cast<int>(cudaGetLastError());
+  cudaError_t err = cudaErrorInvalidValue;
+  dispatch_variant<kTukey, false>(bilinear, loss, 0, [&](auto kb, auto kl, auto) {
+    constexpr bool b = decltype(kb)::value;
+    constexpr int l = decltype(kl)::value;
+    err = launch_clusters(fused_tr_batch_kernel<b, l, false>, fused_tr_batch_kernel<b, l, true>, B,
+                          cluster, s, i0, geom, t_all, init_states, states_out, diag_out, H, W,
+                          fx, fy, cx, cy, delta, opts, shared_source, cluster);
+  });
+  return static_cast<int>(err);
 }

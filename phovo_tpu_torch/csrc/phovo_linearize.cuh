@@ -2,10 +2,11 @@
 // fused_tr_batch.cu, fused_lin.cu): the state's rotation terms, target
 // sampling, one pixel's residual and Jacobian row with its robust (IRLS)
 // weight and ESM gradient (and, for the bi-objective level, its depth
-// residual and row), the block reduction of the normal equations, the
-// 6x6 Cholesky solve, and the host-side dispatch over the variants. The
-// inverse-compositional kernels (ic_precompute.cu, ic_gn_batch.cu) share
-// its block size, block_sum, clamp_index and nan_max.
+// residual and row), the block reduction of the normal equations and its
+// cluster form (one pair over a thread-block cluster, for K-GN and K-TR),
+// the 6x6 Cholesky solve, and the host-side dispatch over the variants and
+// the cluster launch. The inverse-compositional kernels (ic_precompute.cu,
+// ic_gn_batch.cu) share its block size, block_sum, clamp_index and nan_max.
 //
 // Arithmetic order follows phovo_tpu_torch/ops/fused_batch.py::
 // _pixel_columns and ops/robust.py term by term; build with -fmad=false and
@@ -16,10 +17,12 @@
 
 #pragma once
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <math.h>
 
 #include <type_traits>
+#include <utility>
 
 namespace phovo {
 
@@ -349,6 +352,75 @@ static __device__ __forceinline__ void linearize_block(
   block_sum<kN>(acc, partial, total);
 }
 
+// The cluster form of linearize_block, for the level kernels (K-GN, K-TR):
+// one pair's level is spread over a thread-block cluster of `cluster`
+// blocks. kCluster is false for a launch of one block a pair: then it is
+// linearize_block itself, so those instantiations compile to the
+// one-block kernels' code (slots, parity and cluster go unused). With
+// kCluster, block rank r sweeps pixels r * kThreads + tid, stepping by
+// cluster * kThreads, reduces its sums with block_sum into slots[parity],
+// and after one cluster barrier every block reads the C slots through
+// distributed shared memory in rank order, 0 to C - 1, adding them in that
+// order. So every block holds the same bits in total[kN], and the serial
+// code after it (make_terms, the solve, the termination tests) runs alike
+// in every block: state and control flow agree without a broadcast. No
+// atomics. parity flips per call: a block writes slots[parity] again only
+// two calls later, after the next barrier, which no block passes before
+// every peer has read this call's slots, so one barrier per linearization
+// suffices. (On an H100 this strided sweep timed faster than contiguous
+// row bands a block on the 256-pair chains and for K-GN at B = 1:
+// PERF.md.) Every thread of every block of the cluster calls it; it ends
+// with a block barrier, so total is ready for every thread. Call
+// cluster_done before a block exits.
+template <bool kCluster, bool kBilinear, int kLoss, bool kEsm, int kN, bool kBi = false>
+static __device__ __forceinline__ void linearize_cluster(
+    const Terms& terms, const float* __restrict__ i0,
+    const float* __restrict__ geom, const float* __restrict__ tgt, int H,
+    int W, float fx, float fy, float cx, float cy, float delta, int cluster,
+    int& parity, float (*partial)[kN], float (*slots)[kN], float* total,
+    float gain = 0.0f) {
+  if constexpr (!kCluster) {
+    linearize_block<kBilinear, kLoss, kEsm, kN, kBi>(terms, i0, geom, tgt, H, W, fx, fy, cx, cy,
+                                                     delta, partial, total, gain);
+  } else {
+    const int tid = threadIdx.x;
+    const int N = H * W;
+    // one cluster is `cluster` consecutive blocks, so this is the block's rank
+    const int rank = static_cast<int>(blockIdx.x) % cluster;
+    float acc[kN];
+#pragma unroll
+    for (int k = 0; k < kN; ++k) acc[k] = 0.0f;
+    for (int p = rank * kThreads + tid; p < N; p += cluster * kThreads) {
+      float sgx = 0.0f, sgy = 0.0f;
+      if constexpr (kEsm) {
+        sgx = geom[4 * N + p];
+        sgy = geom[5 * N + p];
+      }
+      accumulate_pixel<kBilinear, kLoss, kEsm, kN, kBi>(
+          terms, geom[p], geom[N + p], geom[2 * N + p], geom[3 * N + p], sgx,
+          sgy, i0[p], tgt, H, W, fx, fy, cx, cy, delta, gain, acc);
+    }
+    float* slot = slots[parity];
+    block_sum<kN>(acc, partial, slot);
+    const cooperative_groups::cluster_group cl = cooperative_groups::this_cluster();
+    cl.sync();
+    if (tid < kN) {
+      float a = *cl.map_shared_rank(slot + tid, 0);
+      for (int r = 1; r < cluster; ++r) a += *cl.map_shared_rank(slot + tid, r);
+      total[tid] = a;
+    }
+    __syncthreads();
+    parity ^= 1;
+  }
+}
+
+// Before a block of a cluster launch exits: no block may leave while a
+// peer can still read its slots.
+template <bool kCluster>
+static __device__ __forceinline__ void cluster_done() {
+  if constexpr (kCluster) cooperative_groups::this_cluster().sync();
+}
+
 // Unpack the 21 upper-triangle sums into a full symmetric 6x6 matrix.
 static __device__ __forceinline__ void unpack_jtj(const float* sums, float A[6][6]) {
   int k = 0;
@@ -433,6 +505,45 @@ static bool dispatch_variant(int bilinear, int loss, int esm, F&& f) {
   }
   return bilinear ? dispatch_loss<true, false, kMaxLoss>(loss, f)
                   : dispatch_loss<false, false, kMaxLoss>(loss, f);
+}
+
+// Launch a level kernel over B pairs as B clusters of `cluster` blocks of
+// kThreads (grid B * cluster, cluster dimension {cluster, 1, 1}) on stream
+// s: `one` (the kernel's kCluster = false instantiation) when cluster is 1,
+// else `many` (kCluster = true). A cluster above 8 blocks is non-portable: it is allowed first, and
+// cudaOccupancyMaxActiveClusters must find room for one, else
+// cudaErrorInvalidClusterSize and nothing is launched. Returns the first
+// error, else cudaGetLastError() after the launch; the error of a refused
+// launch is cleared, so it cannot surface at a later launch. There is no
+// retry with smaller clusters.
+template <typename... Params, typename... Args>
+static cudaError_t launch_clusters(void (*one)(Params...), void (*many)(Params...), int B,
+                                   int cluster, cudaStream_t s, Args&&... args) {
+  if (cluster < 1) return cudaErrorInvalidValue;
+  void (*const kernel)(Params...) = cluster > 1 ? many : one;
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = static_cast<unsigned>(cluster);
+  attr.val.clusterDim.y = 1;
+  attr.val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(static_cast<unsigned>(B * cluster));
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = 0;
+  cfg.stream = s;
+  // one block a pair launches as a plain grid, without a cluster dimension
+  cfg.attrs = &attr;
+  cfg.numAttrs = cluster > 1 ? 1 : 0;
+  cudaError_t err = cudaSuccess;
+  if (cluster > 8) {
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    int clusters = 0;
+    if (err == cudaSuccess) err = cudaOccupancyMaxActiveClusters(&clusters, kernel, &cfg);
+    if (err == cudaSuccess && clusters < 1) err = cudaErrorInvalidClusterSize;
+  }
+  if (err == cudaSuccess) err = cudaLaunchKernelEx(&cfg, kernel, std::forward<Args>(args)...);
+  const cudaError_t last = cudaGetLastError();
+  return err != cudaSuccess ? err : last;
 }
 
 }  // namespace phovo

@@ -17,6 +17,7 @@ import ctypes
 import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from concurrent.futures import ThreadPoolExecutor
@@ -38,11 +39,11 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C entry points: (argtypes, restype); every entry returns cudaGetLastError()
 _ENTRIES = {
     "phovo_fused_gn_level_batch": (
-        [_P] * 8 + [_I] * 7 + [_F] * 4 + [_I, _F, _F, _I, _P],
+        [_P] * 8 + [_I] * 8 + [_F] * 4 + [_I, _F, _F, _I, _P],
         _I,
     ),
     "phovo_fused_tr_level_batch": (
-        [_P] * 6 + [_I] * 6 + [_F] * 5 + [_I] + [_F] * 7 + [_P],
+        [_P] * 6 + [_I] * 7 + [_F] * 5 + [_I] + [_F] * 7 + [_P],
         _I,
     ),
     "phovo_fused_lin": (
@@ -58,6 +59,23 @@ _ENTRIES = {
         _I,
     ),
 }
+
+
+_C_SCALARS = {"int": _I, "float": _F}
+
+
+def entry_signatures(source: str) -> dict[str, list[tuple[str, type]]]:
+    """The `extern "C" int name(...)` entry points of a CUDA source, each as
+    its parameters in order: (name, ctypes type), every pointer a
+    c_void_p."""
+    entries = {}
+    for name, params in re.findall(r'extern "C" int (\w+)\(([^)]*)\)', source):
+        entries[name] = []
+        for param in params.split(","):
+            *words, arg = param.replace("*", " * ").split()
+            scalar = " ".join(w for w in words if w != "const")
+            entries[name].append((arg, _P if "*" in words else _C_SCALARS[scalar]))
+    return entries
 
 
 def nvcc() -> str:

@@ -6,12 +6,12 @@ Levenberg-Marquardt (::fused_tr_level_batch); and one linearization of B
 pairs (phovo_tpu/ops/fused.py::_fused_kernel).
 
 On a CUDA tensor each wrapper launches its hand-written kernel,
-csrc/fused_gn_batch.cu, csrc/fused_tr_batch.cu (one thread block per
-pair, the level's whole iteration loop inside the block) or
-csrc/fused_lin.cu (one block per pair, one linearization). The two level
-kernels also take one source pack shared by every pair (keyframe
-tracking: phovo_tpu's shared_source mode), which gives the bits of the
-same pack repeated B times. On a CPU tensor
+csrc/fused_gn_batch.cu, csrc/fused_tr_batch.cu (one thread-block cluster
+per pair, of cluster_size(H, W) blocks, the level's whole iteration loop
+inside the cluster) or csrc/fused_lin.cu (one block per pair, one
+linearization). The two level kernels also take one source pack shared by
+every pair (keyframe tracking: phovo_tpu's shared_source mode), which
+gives the bits of the same pack repeated B times. On a CPU tensor
 it runs the plain batched torch version of the same function
 (fused_gn_level_batch_reference, fused_tr_level_batch_reference,
 fused_lin_batch_reference): every pair advances in lockstep and freezes on
@@ -51,6 +51,21 @@ TR_SHARED_LAUNCHES = 0
 _SAMPLINGS = ("nearest", "bilinear")
 # the kernels' loss codes (csrc/phovo_linearize.cuh enum Loss)
 _LOSS_CODES = {name: code for code, name in enumerate(LOSSES)}
+
+def cluster_size(H: int, W: int) -> int:
+    """Blocks of the thread-block cluster that K-GN and K-TR spread one
+    pair's H x W level over: 1 up to 60x80 (4,800 pixels), 8 above. The
+    order of the pixel sums depends on it, so it is a function of the
+    level's shape alone, never of B, the mode or the variant: a pair gives
+    the same bits alone, in a batch, against a shared source and as a
+    served stream."""
+    # From timing every cluster size per level on the card (tools/ktr_ab.py
+    # --sweep; PERF.md). At 30x40 and 60x80 a pair's iteration is mostly
+    # the serial tail (two block barriers, the 6x6 solve on one thread),
+    # which every block of a cluster would repeat, so they keep one block.
+    # 16 blocks halve a lone 480x640 pair's time against 8, but cost a
+    # 256-pair launch 5-10%, since fewer clusters of 16 fit the card at once.
+    return 1 if H * W <= 4_800 else 8
 
 
 class LevelBatchResult(NamedTuple):
@@ -210,33 +225,61 @@ def fused_gn_level_batch(
     from phovo_tpu_torch.ops import _build
 
     lib = _build.library()
-    B = t_all.shape[0]
-    scale_in = _scales(robust_delta, robust_scale, B, i0.device)
-    states = torch.empty((B, 6), dtype=torch.float32, device=i0.device)
-    diag = torch.empty((B, 6), dtype=torch.float32, device=i0.device)
-    if B:
-        with torch.cuda.device(i0.device):
-            stream = torch.cuda.current_stream(i0.device).cuda_stream
-            err = lib.phovo_fused_gn_level_batch(
-                i0.data_ptr(), geom.data_ptr(), t_all.data_ptr(),
-                init_states.data_ptr(), scale_in.data_ptr(),
-                None if depth_gains is None else depth_gains.data_ptr(),
-                states.data_ptr(), diag.data_ptr(), B, H, W, int(sampling == "bilinear"),
-                _LOSS_CODES[robust_loss], int(esm), int(shared),
-                intr.fx, intr.fy, intr.cx, intr.cy,
-                int(max_iterations), float(min_gradient_norm),
-                float(lambda_step), int(tdist_burnin), stream,
-            )
-        if err:
-            raise RuntimeError(
-                f"fused_gn_batch kernel launch failed: CUDA error {err}"
-            )
-        LAUNCHES += 1
-        SHARED_LAUNCHES += shared
+    with torch.cuda.device(i0.device):
+        args, (states, diag, _) = _gn_launch_args(
+            i0, geom, t_all, intr, init_states, max_iterations, min_gradient_norm,
+            lambda_step, H=H, W=W, shared=shared, sampling=sampling, robust_loss=robust_loss,
+            robust_delta=robust_delta, esm=esm, robust_scale=robust_scale,
+            tdist_burnin=tdist_burnin, depth_gains=depth_gains,
+            stream=torch.cuda.current_stream(i0.device).cuda_stream,
+        )
+        if t_all.shape[0]:
+            _raise_on_launch_error("fused_gn_batch", lib.phovo_fused_gn_level_batch(*args), t_all.shape[0], H, W)
+            LAUNCHES += 1
+            SHARED_LAUNCHES += shared
     # one contiguous (B,) row per diagnostic: the sigma out goes back in
     # as the next level's robust_scale
     cols = diag.t().contiguous()
     return LevelBatchResult(states, cols[0].to(torch.int32), *cols[1:])
+
+
+def _raise_on_launch_error(kernel: str, err: int, B: int, H: int, W: int) -> None:
+    if err:
+        raise RuntimeError(
+            f"{kernel} kernel launch failed: CUDA error {err} (B = {B} pairs, "
+            f"{H}x{W}, clusters of {cluster_size(H, W)} blocks by the rule)"
+        )
+
+
+def _gn_launch_args(i0, geom, t_all, intr, init_states, max_iterations,
+                    min_gradient_norm, lambda_step, *, H, W, shared=None,
+                    sampling="nearest", robust_loss="none", robust_delta=0.1,
+                    esm=False, robust_scale=None, tdist_burnin=0,
+                    depth_gains=None, stream=0, cluster=None):
+    """phovo_fused_gn_level_batch's arguments in its order
+    (csrc/fused_gn_batch.cu), from fused_gn_level_batch's arguments, with
+    the tensors they point at: (args, (states_out, diag_out, scale_in)).
+    shared is _check_inputs' answer for them; None checks them here.
+    cluster defaults to cluster_size(H, W); another value forces a cluster
+    size through the C entry (the card tests and the timing of the rule
+    against one block a pair)."""
+    if shared is None:
+        shared = _check_inputs(i0, geom, t_all, init_states, H, W, sampling, esm, robust_loss, robust_scale,
+                               depth_gains)
+    B = t_all.shape[0]
+    scale_in = _scales(robust_delta, robust_scale, B, i0.device)
+    states = torch.empty((B, 6), dtype=torch.float32, device=i0.device)
+    diag = torch.empty((B, 6), dtype=torch.float32, device=i0.device)
+    args = (
+        i0.data_ptr(), geom.data_ptr(), t_all.data_ptr(), init_states.data_ptr(),
+        scale_in.data_ptr(), None if depth_gains is None else depth_gains.data_ptr(),
+        states.data_ptr(), diag.data_ptr(), B, H, W, int(sampling == "bilinear"),
+        _LOSS_CODES[robust_loss], int(esm), int(shared),
+        cluster_size(H, W) if cluster is None else int(cluster),
+        intr.fx, intr.fy, intr.cx, intr.cy, int(max_iterations),
+        float(min_gradient_norm), float(lambda_step), int(tdist_burnin), stream,
+    )
+    return args, (states, diag, scale_in)
 
 
 def _rotation_terms(s3, s4, s5):
@@ -581,29 +624,43 @@ def fused_tr_level_batch(
     from phovo_tpu_torch.ops import _build
 
     lib = _build.library()
-    B = t_all.shape[0]
-    states = torch.empty((B, 6), dtype=torch.float32, device=i0.device)
-    diag = torch.empty((B, 6), dtype=torch.float32, device=i0.device)
-    if B:
-        with torch.cuda.device(i0.device):
-            stream = torch.cuda.current_stream(i0.device).cuda_stream
-            err = lib.phovo_fused_tr_level_batch(
-                i0.data_ptr(), geom.data_ptr(), t_all.data_ptr(),
-                init_states.data_ptr(), states.data_ptr(), diag.data_ptr(),
-                B, H, W, int(sampling == "bilinear"), _LOSS_CODES[robust_loss],
-                int(shared), float(robust_delta), intr.fx, intr.fy, intr.cx, intr.cy,
-                int(opts.max_iterations), *_tr_scalars(opts), stream,
-            )
-        if err:
-            raise RuntimeError(
-                f"fused_tr_batch kernel launch failed: CUDA error {err}"
-            )
-        TR_LAUNCHES += 1
-        TR_SHARED_LAUNCHES += shared
+    with torch.cuda.device(i0.device):
+        args, (states, diag) = _tr_launch_args(
+            i0, geom, t_all, intr, init_states, opts, H=H, W=W, shared=shared,
+            sampling=sampling, robust_loss=robust_loss, robust_delta=robust_delta,
+            stream=torch.cuda.current_stream(i0.device).cuda_stream,
+        )
+        if t_all.shape[0]:
+            _raise_on_launch_error("fused_tr_batch", lib.phovo_fused_tr_level_batch(*args), t_all.shape[0], H, W)
+            TR_LAUNCHES += 1
+            TR_SHARED_LAUNCHES += shared
     return TRLevelBatchResult(
         states, diag[:, 0].to(torch.int32), diag[:, 2], diag[:, 1],
         diag[:, 4], diag[:, 3], diag[:, 5],
     )
+
+
+def _tr_launch_args(i0, geom, t_all, intr, init_states, opts, *, H, W,
+                    shared=None, sampling="bilinear", robust_loss="none",
+                    robust_delta=0.1, stream=0, cluster=None):
+    """phovo_fused_tr_level_batch's arguments in its order
+    (csrc/fused_tr_batch.cu), from fused_tr_level_batch's arguments, with
+    the tensors they point at: (args, (states_out, diag_out)). shared and
+    cluster as in _gn_launch_args."""
+    if shared is None:
+        shared = _check_inputs(i0, geom, t_all, init_states, H, W, sampling, robust_loss=robust_loss)
+    B = t_all.shape[0]
+    states = torch.empty((B, 6), dtype=torch.float32, device=i0.device)
+    diag = torch.empty((B, 6), dtype=torch.float32, device=i0.device)
+    args = (
+        i0.data_ptr(), geom.data_ptr(), t_all.data_ptr(), init_states.data_ptr(),
+        states.data_ptr(), diag.data_ptr(), B, H, W, int(sampling == "bilinear"),
+        _LOSS_CODES[robust_loss], int(shared),
+        cluster_size(H, W) if cluster is None else int(cluster), float(robust_delta),
+        intr.fx, intr.fy, intr.cx, intr.cy, int(opts.max_iterations), *_tr_scalars(opts),
+        stream,
+    )
+    return args, (states, diag)
 
 
 def _tr_scalars(opts) -> tuple[float, ...]:

@@ -32,8 +32,10 @@ intensity's sums, the plain version sums the channels apart: another
 order of the same float32 sums).
 """
 
+import functools
 import importlib.util
 from pathlib import Path
+from types import SimpleNamespace
 from unittest import mock
 
 import numpy as np
@@ -707,3 +709,173 @@ def test_keyframe_run_chunked_on_the_card():
     assert len(kern.loop_closures) >= 1
     for a, b in zip(tk, tp):
         np.testing.assert_allclose(a.pose, b.pose, atol=1e-4)
+
+
+# -- the cluster layout: one pair over cluster_size(H, W) blocks --------------
+
+STATE_ATOL = 2e-4
+VGA_LEVELS = {0: (480, 640), 2: (120, 160)}
+# the C entries, by kernel
+ENTRY = {"tr": "phovo_fused_tr_level_batch", "gn": "phovo_fused_gn_level_batch", "bi": "phovo_fused_gn_level_batch"}
+
+
+@functools.cache
+def _vga_packs(bi):
+    """Per-frame packs at levels 0 and 2 of 257 synthetic VGA frames
+    (make_pair's two frames alternated, as chip_smoke.py's timing
+    workload), photometric or bi-objective."""
+    from phovo_tpu_torch.models.analytic import prep_frame_analytic
+    from phovo_tpu_torch.models.biobjective import prep_frame_biobjective
+    from phovo_tpu_torch.ops.camera import TUM_FR1
+    from phovo_tpu_torch.utils.config import PhovoConfig
+    from phovo_tpu_torch.utils.synthetic import make_pair
+
+    cfg = PhovoConfig(num_levels=3, blur_filter_sizes=(0,) * 3, gradient_scales=(0.0625,) * 3,
+                      max_iterations=(1,) * 3, lambda_steps=(1.0,) * 3, min_gradient_norms=(0.0,) * 3)
+    I0, D0, I1, D1, _ = make_pair(TUM_FR1, (480, 640))
+    Is = torch.from_numpy(np.stack([I0, I1] * 129)[:257]).cuda()
+    Ds = torch.from_numpy(np.stack([D0, D1] * 129)[:257]).cuda()
+    prep = (prep_frame_biobjective if bi else prep_frame_analytic)(Is, Ds, TUM_FR1, cfg)
+    return {level: prep[level] for level in VGA_LEVELS}
+
+
+def _vga_call(kernel, level, B, shared=False, seed=0):
+    """(args, kw) of the wrapper for B pairs (frame k to k + 1) at a VGA
+    level from small seeded states: K-TR 4 iterations with its stopping
+    tests off, K-GN and K-GN-bi ('bi') 4 bilinear iterations. shared: frame
+    0's pack is every pair's source (K-TR and K-GN only)."""
+    from phovo_tpu_torch.ops.camera import TUM_FR1
+
+    i0, geom, t_all, *gains = _vga_packs(kernel == "bi")[level]
+    src = slice(0, 1) if shared else slice(0, B)
+    init = torch.from_numpy((np.random.default_rng(seed).standard_normal((B, 6)) * 1e-3).astype(np.float32)).cuda()
+    H, W = VGA_LEVELS[level]
+    packs = (i0[src].contiguous(), geom[src].contiguous(), t_all[1:B + 1].contiguous(), TUM_FR1.at_level(level), init)
+    if kernel == "tr":
+        return (*packs, TROptions(4, **TESTS_OFF)), dict(H=H, W=W)
+    kw = dict(H=H, W=W, sampling="bilinear")
+    if kernel == "bi":
+        kw["depth_gains"] = gains[0][1:B + 1].contiguous()
+    return (*packs, 4, 0.0, 1.0), kw
+
+
+def _wrapper(kernel):
+    return FB.fused_tr_level_batch if kernel == "tr" else FB.fused_gn_level_batch
+
+
+def _plain_in_chunks(kernel, args, kw, chunk=64):
+    """The plain version's result (state, iterations, num_valid), run on at
+    most `chunk` pairs at a time (each pair's result is its own)."""
+    plain = FB.fused_tr_level_batch_reference if kernel == "tr" else FB.fused_gn_level_batch_reference
+    B = args[2].shape[0]
+    shared = args[0].shape[0] == 1 and B > 1
+    outs = []
+    for lo in range(0, B, chunk):
+        sl = slice(lo, lo + chunk)
+        src = (args[0], args[1]) if shared else (args[0][sl], args[1][sl])
+        kw_sl = dict(kw, depth_gains=kw["depth_gains"][sl]) if "depth_gains" in kw else kw
+        res = plain(*src, args[2][sl], args[3], args[4][sl], *args[5:], **kw_sl)
+        outs.append((res.state, res.iterations, res.num_valid))
+        torch.cuda.empty_cache()
+    return SimpleNamespace(**dict(zip(("state", "iterations", "num_valid"), (torch.cat(x) for x in zip(*outs)))))
+
+
+def _assert_valid_counts(kernel, args, kw, k, p, run_k, run_p):
+    """Valid counts equal, or apart only by pixels whose warp crosses the
+    image edge between the two runs' states (chip_smoke.explain_valid_diff:
+    states ~1e-7 apart move such a pixel by less than 1e-3 px) at the last
+    linearization: K-TR's final state, K-GN's one iteration before its end.
+    run_k, run_p(args) rerun the two versions."""
+    if torch.equal(k.num_valid, p.num_valid):
+        return
+    if kernel != "tr":
+        before = (*args[:5], args[5] - 1, *args[6:])
+        k = SimpleNamespace(state=run_k(before).state, num_valid=k.num_valid)
+        p = SimpleNamespace(state=run_p(before).state, num_valid=p.num_valid)
+    _chip_smoke().explain_valid_diff(FB, args[1], args[3], kw["H"], kw["W"], k, p, f"{kernel} valid counts")
+
+
+@pytest.mark.parametrize("layout", ["alone", "shared", "batch"])
+@pytest.mark.parametrize("level", sorted(VGA_LEVELS))
+@pytest.mark.parametrize("kernel", ["tr", "gn", "bi"])
+def test_cluster_kernels_match_plain_at_vga(kernel, level, layout):
+    """K-TR, K-GN and K-GN-bi in their cluster layout against the plain
+    versions at 480x640 and 120x160: a pair alone (B = 1), 16 pairs of one
+    shared source (16 pairs of their own for K-GN-bi, which takes no
+    shared source) and 256 pairs. States within STATE_ATOL, iteration
+    counts equal, valid counts equal but for edge pixels."""
+    B = {"alone": 1, "shared": 16, "batch": 256}[layout]
+    args, kw = _vga_call(kernel, level, B, shared=layout == "shared" and kernel != "bi")
+    k = _wrapper(kernel)(*args, **kw)
+    p = _plain_in_chunks(kernel, args, kw)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(k.state, p.state, rtol=0, atol=STATE_ATOL)
+    assert torch.equal(k.iterations, p.iterations)
+    _assert_valid_counts(kernel, args, kw, k, p, lambda a: _wrapper(kernel)(*a, **kw),
+                         lambda a: _plain_in_chunks(kernel, a, kw))
+
+
+def _entry_launch(kernel, args, kw, cluster):
+    """One launch through the C entry with `cluster` blocks a pair: (the
+    CUDA error, the result's state, iterations and num_valid)."""
+    from phovo_tpu_torch.ops import _build
+
+    make = FB._tr_launch_args if kernel == "tr" else FB._gn_launch_args
+    values, (states, diag, *_) = make(*args, **kw, stream=torch.cuda.current_stream().cuda_stream, cluster=cluster)
+    err = getattr(_build.library(), ENTRY[kernel])(*values)
+    torch.cuda.synchronize()
+    # diag's rows: [it, ..., nvalid (column 3), ...] in both kernels
+    return err, SimpleNamespace(state=states, iterations=diag[:, 0], num_valid=diag[:, 3])
+
+
+@pytest.mark.parametrize("level", sorted(VGA_LEVELS))
+@pytest.mark.parametrize("kernel", ["tr", "gn", "bi"])
+def test_every_cluster_size_matches_one_block(kernel, level):
+    """Every cluster size forced through the C entry (16 where the card
+    schedules it; a refusal must be cudaErrorInvalidClusterSize, 912)
+    against one block a pair, on 16 pairs: states within STATE_ATOL,
+    iteration counts equal, valid counts equal but for edge pixels."""
+    args, kw = _vga_call(kernel, level, 16, shared=kernel != "bi")
+    err, base = _entry_launch(kernel, args, kw, 1)
+    assert err == 0
+    for c in (2, 4, 8, 16):
+        err, res = _entry_launch(kernel, args, kw, c)
+        if c == 16 and err == 912:
+            continue
+        assert err == 0, (c, err)
+        torch.testing.assert_close(res.state, base.state, rtol=0, atol=STATE_ATOL)
+        assert torch.equal(res.iterations, base.iterations), c
+        _assert_valid_counts(kernel, args, kw, res, base, lambda a: _entry_launch(kernel, a, kw, c)[1],
+                             lambda a: _entry_launch(kernel, a, kw, 1)[1])
+
+
+@pytest.mark.parametrize("kernel", ["tr", "gn", "bi"])
+def test_pair_alone_gives_its_bits_in_a_256_pair_launch(kernel):
+    """At 480x640 a pair alone gives the bits it has inside a 256-pair
+    launch: the cluster size is the level's, whatever B."""
+    args, kw = _vga_call(kernel, 0, 256)
+    batch = _wrapper(kernel)(*args, **kw)
+    for j in (0, 1, 128, 255):
+        one_args = (args[0][j:j + 1], args[1][j:j + 1], args[2][j:j + 1], args[3], args[4][j:j + 1], *args[5:])
+        one_kw = dict(kw, depth_gains=kw["depth_gains"][j:j + 1]) if "depth_gains" in kw else kw
+        one = _wrapper(kernel)(*one_args, **one_kw)
+        for x, y in zip(one, batch):
+            assert torch.equal(x, y[j:j + 1]), j
+
+
+@pytest.mark.parametrize("kernel", ["tr", "gn"])
+def test_unschedulable_cluster_raises(kernel, monkeypatch):
+    """A cluster the card cannot schedule (32 blocks, above Hopper's 16)
+    raises through the wrapper and counts no launch; there is no retry
+    with smaller clusters, and the next launch is unaffected."""
+    args, kw = _vga_call(kernel, 2, 4)
+    ok = _wrapper(kernel)(*args, **kw)
+    before = (FB.LAUNCHES, FB.TR_LAUNCHES)
+    monkeypatch.setattr(FB, "cluster_size", lambda H, W: 32)
+    with pytest.raises(RuntimeError, match="launch failed: CUDA error"):
+        _wrapper(kernel)(*args, **kw)
+    assert (FB.LAUNCHES, FB.TR_LAUNCHES) == before
+    monkeypatch.undo()
+    again = _wrapper(kernel)(*args, **kw)
+    for x, y in zip(ok, again):
+        assert torch.equal(x, y)
