@@ -54,7 +54,13 @@ Phases, each of which raises on failure (exit code 1, no result line):
      at all five levels (rows within 1e-6, the factor within 1e-4 of its
      largest entry); K-IC on 8 VGA pairs at every active level of the
      bench schedule, bilinear over the whole schedule, nearest over 3
-     iterations, and an early-exit case per sampling
+     iterations, and an early-exit case per sampling; their cluster
+     layout: K-IC on one pair at 480x640 and 240x320 (streamed, in
+     clusters) and K-ICpre on one 480x640 frame against plain, every
+     cluster size (1-16) against one block a pair and a resident pack
+     against a streamed one (the same bits) at every level, and pairs and
+     frames alone against their 256-pair and 257-frame launches at
+     480x640, 120x160 and 60x80 (the same bits)
  4b. IC main path: the 257 frames through align_sequence_chunk_ic in the
      two chunks, early exit at 300 and fixed-75: launch counts, kernel vs
      plain, the ATE
@@ -62,8 +68,10 @@ Phases, each of which raises on failure (exit code 1, no result line):
      against the level-major chain; one 480x640 pair of
      config_only_level_0_analytic
  7c. IC timing: the IC chain beside the analytic chain (fixed-75, early
-     exit), the IC prep layer, K-IC and K-ICpre per level vs their plain
-     versions, align_ic a VGA pair
+     exit), the IC prep layer, K-ICpre and K-IC per level through their C
+     entries vs their plain versions, at 256 pairs (257 frames) on the
+     bench levels and at B = 1 on all five, each with its bound, cluster
+     size and residency, align_ic a VGA pair
  3d. the bi-objective level kernel (K-GN-bi) vs plain: 8 VGA pairs at all
      five levels with 'none', huber, cauchy and tukey: bilinear over the
      bench schedule's iterations (3 at 480x640 and 240x320), nearest over
@@ -115,7 +123,8 @@ kernels' JSON record (for fused_lin, max_abs_err is the largest Gram
 difference over the Gram's largest entry; bound_ms is the least time the
 card could take for the timed work, from the bytes it must move and the
 float32 operations it does; cluster is the blocks a pair by level of the
-timed work, 1 for a kernel of one block a pair); the last line is
+timed work, 1 for a kernel of one block a pair; K-IC's resident says by
+level whether its pack stays in shared memory); the last line is
 {"ok": true, "device": {...}}.
 """
 
@@ -274,6 +283,18 @@ def cuda_ms(fn, repeats: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / repeats
+
+
+def timing_frames(dev):
+    """The timing workloads' N_FRAMES VGA frames on the card: make_pair's
+    two frames alternated (bench.py's workload), (intensities, depths)."""
+    from phovo_tpu_torch.ops.camera import TUM_FR1
+    from phovo_tpu_torch.utils.synthetic import make_pair
+
+    I0, D0, I1, D1, _ = make_pair(TUM_FR1, SHAPE)
+    Is = torch.from_numpy(np.stack([I0, I1] * ((N_FRAMES + 1) // 2))[:N_FRAMES]).to(dev)
+    Ds = torch.from_numpy(np.stack([D0, D1] * ((N_FRAMES + 1) // 2))[:N_FRAMES]).to(dev)
+    return Is, Ds
 
 
 def pair_packs(prep: dict) -> dict:
@@ -1065,6 +1086,24 @@ def compare_ic_level(ICB, args, kw, n, threshold, sampling, what, card):
     return k, err
 
 
+def compare_ic_pre(IC, args, what, card):
+    """K-ICpre against its plain version on the same frames: J8 within
+    IC_J8_ATOL, the factor within IC_L_RTOL of its largest entry. Returns
+    (J8 difference, factor relative difference)."""
+    J8, L = IC.ic_precompute_batch(*args)
+    pJ8, pL = IC.ic_precompute_batch_reference(*args)
+    torch.cuda.synchronize()
+    j8 = float((J8 - pJ8).abs().max())
+    l_rel = float(((L - pL).abs() / pL.abs().amax(dim=1, keepdim=True)).max())
+    H, W = args[0].shape[1:]
+    print(f"IC precompute kernel vs plain: {what} {H}x{W}, {args[0].shape[0]} frames, {ic_layout('icpre', H, W)}: "
+          f"max|J8 diff| {j8:.3e} ({int((J8 != pJ8).sum())} of {J8.numel()} entries differ), max|L diff| / max|L| "
+          f"{l_rel:.3e} [{card}]")
+    check(j8 <= IC_J8_ATOL, f"IC precompute {what}: J8 diff {j8} > {IC_J8_ATOL}")
+    check(l_rel <= IC_L_RTOL, f"IC precompute {what}: factor rel diff {l_rel} > {IC_L_RTOL}")
+    return j8, l_rel
+
+
 def phase_ic_kernels(I9, D9, card):
     """Phase 3c: K-ICpre against its plain version on 8 VGA frames at all
     five levels; K-IC against its plain version on 8 VGA pairs at every
@@ -1088,16 +1127,7 @@ def phase_ic_kernels(I9, D9, card):
         scale = cfg.gradient_scales[level]
         args = (img, dep, pyr.scharr(img, "x", scale), pyr.scharr(img, "y", scale), TUM_FR1.at_level(level),
                 cfg.min_depth, cfg.max_depth)
-        J8, L = IC.ic_precompute_batch(*args)
-        pJ8, pL = IC.ic_precompute_batch_reference(*args)
-        torch.cuda.synchronize()
-        j8 = float((J8 - pJ8).abs().max())
-        l_rel = float(((L - pL).abs() / pL.abs().amax(dim=1, keepdim=True)).max())
-        print(f"IC precompute kernel vs plain: level {level} {img.shape[1]}x{img.shape[2]}, 8 frames: "
-              f"max|J8 diff| {j8:.3e} ({int((J8 != pJ8).sum())} of {J8.numel()} entries differ), max|L diff| / "
-              f"max|L| {l_rel:.3e} [{card}]")
-        check(j8 <= IC_J8_ATOL, f"IC precompute J8 diff {j8} > {IC_J8_ATOL}")
-        check(l_rel <= IC_L_RTOL, f"IC precompute factor rel diff {l_rel} > {IC_L_RTOL}")
+        j8, l_rel = compare_ic_pre(IC, args, f"level {level}", card)
         j8_err, l_err = max(j8_err, j8), max(l_err, l_rel)
     del ints, deps
 
@@ -1124,6 +1154,105 @@ def phase_ic_kernels(I9, D9, card):
             check(k.iterations.cpu().tolist() == stops.tolist(),
                   f"IC early exit level {level} {sampling}: stopped after {k.iterations.tolist()}, predicted {stops.tolist()}")
             pose_err = max(pose_err, err)
+    return j8_err, l_err, pose_err
+
+
+# Cluster sizes of K-IC's and K-ICpre's layout checks (above 8 only where
+# the card schedules it)
+IC_SWEEP = (1, 2, 4, 8, 16)
+
+
+def phase_ic_layouts(I9, D9, card):
+    """Phase 3c, the cluster layout of K-IC and K-ICpre: (a) K-IC against
+    its plain version on one pair at 480x640 and 240x320 (streamed, in
+    clusters), bilinear and nearest over NEAREST_ITERATIONS, and K-ICpre
+    on one 480x640 frame; (b) on 8 pairs at every VGA level through the C
+    entries, every size of IC_SWEEP against one block a pair (poses within
+    STATE_ATOL, iteration and valid counts equal; K-ICpre's J8 the same
+    bits, its factor within IC_L_RTOL) and a resident pack against a
+    streamed one at the same size (the same bits); (c) at 480x640, 120x160
+    and 60x80, pairs and frames alone against the same ones inside a
+    256-pair (257-frame) launch, bit for bit. Returns the largest
+    differences: (J8, L relative, pose)."""
+    from phovo_tpu_torch.ops import _build
+    from phovo_tpu_torch.ops import ic as IC
+    from phovo_tpu_torch.ops import ic_batch as ICB
+    from phovo_tpu_torch.ops.camera import TUM_FR1
+
+    j8_err = l_err = pose_err = 0.0
+    prep, pre = ic_timing_prep(I9, D9)
+    for level in (0, 1):
+        args, kw = ic_pair_args({level: tuple(x[:2] for x in prep[level])}, level, TUM_FR1)
+        for sampling in ("bilinear", "nearest"):
+            what = f"B = 1, {ic_layout('ic', kw['H'], kw['W'])}, level {level}"
+            pose_err = max(pose_err, compare_ic_level(ICB, args, kw, NEAREST_ITERATIONS, 0.0, sampling, what, card)[1])
+    j8, l_rel = compare_ic_pre(IC, tuple(x[:1] for x in pre[0][:4]) + pre[0][4:], "B = 1", card)
+    j8_err, l_err = max(j8_err, j8), max(l_err, l_rel)
+
+    lib = _build.library()
+    for group, label, kind, args, kw in ic_workloads(prep, pre, (8,)):
+        fn, names = getattr(lib, LEVEL_ENTRIES[kind][1]), entry_names(kind)
+        H, W = (kw["H"], kw["W"]) if kind == "ic" else args[0].shape[1:]
+        if kind == "ic":
+            kw = dict(kw, sampling="bilinear")
+        base = entry_launcher(fn, names, kind, args, kw, 1, **({"resident": False} if kind == "ic" else {}))
+        base[0]()
+        seen = []
+        for c in IC_SWEEP:
+            forms = [False, True] if kind == "ic" and ICB.ic_pack_fits(H, W, c) else [False]
+            outs = {}
+            for resident in forms:
+                run = entry_launcher(fn, names, kind, args, kw, c, **({"resident": resident} if kind == "ic" else {}))
+                try:
+                    run[0]()
+                except RuntimeError as err:
+                    check(c > 8 and "CUDA error 912" in str(err), f"{group} {label}: C = {c} failed: {err}")
+                    print(f"IC layouts, {group}, {label}: C = {c} refused by the card ({err})")
+                    break
+                torch.cuda.synchronize()
+                outs[resident] = run[1:]
+            if not outs:
+                continue
+            out, diag = outs[False]
+            if True in outs:
+                check(all(torch.equal(a, b) for a, b in zip(outs[True], outs[False])),
+                      f"{group} {label}: C = {c} resident differs from streamed")
+            if kind == "ic":
+                err = float((out - base[1]).abs().max())
+                same = torch.equal(diag[:, 0], base[2][:, 0]) and torch.equal(diag[:, 3], base[2][:, 3])
+                check(err <= STATE_ATOL and same, f"{group} {label}: C = {c} against C = 1: pose {err}, counts {same}")
+                pose_err = max(pose_err, err)
+                seen.append(f"C = {c}{' (resident = streamed bits)' if True in outs else ''} {err:.1e}")
+            else:
+                l_rel = float(((out - base[1]).abs() / base[1].abs().amax(dim=1, keepdim=True)).max())
+                check(torch.equal(diag, base[2]) and l_rel <= IC_L_RTOL,
+                      f"{group} {label}: C = {c} against C = 1: J8 bits {torch.equal(diag, base[2])}, L {l_rel}")
+                l_err = max(l_err, l_rel)
+                seen.append(f"C = {c} {l_rel:.1e}")
+        print(f"IC layouts, {group}, {label}, rule {ic_layout(kind, H, W)}: against C = 1 "
+              f"({'pose' if kind == 'ic' else 'J8 the same bits, L relative'}): {'; '.join(seen)} [{card}]")
+    del prep, pre
+
+    # (c) 257 frames cycled from the 9; pairs and frames alone at three levels
+    idx = torch.arange(N_FRAMES, device=I9.device) % I9.shape[0]
+    prep, pre = ic_timing_prep(I9[idx].contiguous(), D9[idx].contiguous())
+    for level in (0, 2, 3):
+        args, kw = ic_pair_args(prep, level, TUM_FR1)
+        full = ICB.ic_gn_level_batch(*args, IC_ITERATIONS[level], 0.0, 1.0, sampling="bilinear", **kw)
+        J8, L = IC.ic_precompute_batch(*pre[level])
+        bits = True
+        for j in (0, 1, 128, 255):
+            one = ICB.ic_gn_level_batch(*(x[j:j + 1] for x in args[:5]), args[5], IC_ITERATIONS[level], 0.0, 1.0,
+                                        sampling="bilinear", **kw)
+            bits &= all(torch.equal(a, b[j:j + 1]) for a, b in zip(one, full))
+            oJ8, oL = IC.ic_precompute_batch(*(x[j:j + 1] for x in pre[level][:4]), *pre[level][4:])
+            bits &= torch.equal(oJ8, J8[j:j + 1]) and torch.equal(oL, L[j:j + 1])
+        torch.cuda.synchronize()
+        print(f"IC layouts, level {level} {kw['H']}x{kw['W']}: pairs 0, 1, 128, 255 alone against their {args[0].shape[0]}-pair "
+              f"K-IC launch ({ic_layout('ic', kw['H'], kw['W'])}) and frames alone against their {N_FRAMES}-frame K-ICpre "
+              f"launch ({ic_layout('icpre', kw['H'], kw['W'])}): the same bits {bits} [{card}]")
+        check(bits, f"IC level {level}: a pair or frame alone differs from its batch")
+        del full, J8, L
     return j8_err, l_err, pose_err
 
 
@@ -1249,18 +1378,93 @@ def phase_ic_api(I8, D16, card):
     return launches[1], err
 
 
+# K-IC's nearest iterations per VGA level in the timing workloads and the
+# sweep: the bench schedule's at levels 2-4, NEAREST_ITERATIONS at the
+# levels it skips
+IC_ITERATIONS = (NEAREST_ITERATIONS, NEAREST_ITERATIONS, 5, 20, 50)
+
+
+def ic_timing_prep(Is, Ds):
+    """The IC products of the timing frames at all five levels: ({level:
+    (geom, J8, L, target image)} from prep_frame_ic, {level: K-ICpre's
+    inputs (img, depth, gx, gy, intrinsics, min_depth, max_depth)})."""
+    from phovo_tpu_torch.models.ic import prep_frame_ic
+    from phovo_tpu_torch.ops import pyramid as pyr
+    from phovo_tpu_torch.ops.camera import TUM_FR1
+
+    cfg = dataclasses.replace(bench_config(0.0), max_iterations=IC_ITERATIONS)
+    prep = prep_frame_ic(Is, Ds, TUM_FR1, cfg)
+    ints = pyr.build_pyramid(Is, cfg.num_levels)
+    deps = pyr.build_pyramid(Ds, cfg.num_levels)
+    pre = {}
+    for level in range(cfg.num_levels):
+        img, dep = ints[level].contiguous(), deps[level].contiguous()
+        scale = cfg.gradient_scales[level]
+        pre[level] = (img, dep, pyr.scharr(img, "x", scale), pyr.scharr(img, "y", scale), TUM_FR1.at_level(level),
+                      cfg.min_depth, cfg.max_depth)
+    return prep, pre
+
+
+def ic_workloads(prep, pre, batches, levels=range(5)):
+    """[(group, label, kind, wrapper args, wrapper kw)] of K-ICpre and K-IC
+    per level on ic_timing_prep's products: K-ICpre on the first B frames
+    (all 257 for B = 256, the chain's launch), K-IC on the first B pairs
+    from the identity, IC_ITERATIONS[level] nearest iterations, threshold
+    0 (the same work every run)."""
+    from phovo_tpu_torch.ops.camera import TUM_FR1
+
+    cases = []
+    for B in batches:
+        frames = B + 1 if B == N_FRAMES - 1 else B
+        for level in levels:
+            img, dep, gx, gy, *rest = pre[level]
+            H, W = img.shape[1:]
+            label = f"level {level} {H}x{W}"
+            cases.append((f"K-ICpre B = {frames}", label, "icpre", (img[:frames], dep[:frames], gx[:frames],
+                                                                    gy[:frames], *rest), {}))
+            args, kw = ic_pair_args({level: tuple(x[:B + 1] for x in prep[level])}, level, TUM_FR1)
+            cases.append((f"K-IC B = {B}", label, "ic", (*args, IC_ITERATIONS[level], 0.0, 1.0),
+                          dict(kw, sampling="nearest")))
+    return cases
+
+
+def ic_layout(kind, H, W) -> str:
+    """The rule's layout of a level: 'C = 8, resident' for K-IC, 'C = 8'
+    for K-ICpre."""
+    from phovo_tpu_torch.ops import ic as IC
+    from phovo_tpu_torch.ops import ic_batch as ICB
+
+    if kind == "icpre":
+        return f"C = {IC.ic_precompute_cluster_size(H, W)}"
+    c = ICB.ic_cluster_size(H, W)
+    return f"C = {c}, " + ("resident" if ICB.ic_resident(H, W, c) else "streamed")
+
+
+def ic_case_work(kind, args, kw, out, diag) -> tuple[int, float]:
+    """(bytes, float32 operations) of one ic_workloads launch for bound:
+    its inputs read once, its outputs written once, K-IC's pixel work for
+    the iterations each pair ran."""
+    if kind == "icpre":
+        return nbytes(*args[:4], out, diag), args[0].numel() * IC_PRE_FLOPS
+    Ts, geom, J8, L, t_i = args[:5]
+    flops = float(diag[:, 0].double().sum()) * kw["H"] * kw["W"] * IC_FLOPS[kw["sampling"]]
+    return nbytes(Ts, geom[:, :3], J8, L, t_i, out, diag), flops
+
+
 def phase_ic_timing(Is, Ds, card):
     """Phase 7c: the IC chain per 256 pairs (fixed-75 and early exit at 300)
     beside the analytic chain at the same config, in turns (analytic, IC,
-    IC, analytic); the IC prep layer; K-IC per level and K-ICpre per level
-    against their plain versions (plain, kernel, kernel, plain); align_ic a
-    VGA pair. Returns the kernels' record fields."""
+    IC, analytic); the IC prep layer; K-ICpre and K-IC per level at 256
+    pairs (the bench chain's levels) and at B = 1 (all five levels) through
+    their C entries at the rule's layout, against their plain versions
+    (plain, kernel, kernel, plain), each with its bound, C and residency;
+    align_ic a VGA pair. Returns the kernels' record fields."""
     from phovo_tpu_torch.models import ic
     from phovo_tpu_torch.models.analytic import align_sequence
     from phovo_tpu_torch.models.ic import prep_frame_ic
+    from phovo_tpu_torch.ops import _build
     from phovo_tpu_torch.ops import ic as IC
     from phovo_tpu_torch.ops import ic_batch as ICB
-    from phovo_tpu_torch.ops import pyramid as pyr
     from phovo_tpu_torch.ops.camera import TUM_FR1
 
     dev = Is.device
@@ -1276,66 +1480,41 @@ def phase_ic_timing(Is, Ds, card):
     ms_prep = cuda_ms(lambda: prep_frame_ic(Is, Ds, TUM_FR1, cfg_fixed), REPEATS)
     print(f"layer IC prep (pyramids, source Scharr, K-ICpre, geometry of {Is.shape[0]} frames): {ms_prep:.3f} ms [{card}]")
 
-    prep = prep_frame_ic(Is, Ds, TUM_FR1, cfg_fixed)
-    rec = {"ic_gn_level_batch": dict(ms=0.0, plain_ms=0.0, bytes=0, flops=0),
-           "ic_precompute": dict(ms=0.0, plain_ms=0.0, bytes=0, flops=0)}
-    ints = pyr.build_pyramid(Is, cfg_fixed.num_levels)
-    deps = pyr.build_pyramid(Ds, cfg_fixed.num_levels)
-    for level in sorted(prep, reverse=True):
-        args, kw = ic_pair_args(prep, level, TUM_FR1)
-        n = cfg_fixed.max_iterations[level]
-        kw.update(sampling="nearest")
-        p1 = cuda_ms(lambda: ICB.ic_gn_level_batch_reference(*args, n, 0.0, 1.0, **kw), 2)
-        k1 = cuda_ms(lambda: ICB.ic_gn_level_batch(*args, n, 0.0, 1.0, **kw), REPEATS)
-        k2 = cuda_ms(lambda: ICB.ic_gn_level_batch(*args, n, 0.0, 1.0, **kw), REPEATS)
-        p2 = cuda_ms(lambda: ICB.ic_gn_level_batch_reference(*args, n, 0.0, 1.0, **kw), 2)
-        res = ICB.ic_gn_level_batch(*args, n, 0.0, 1.0, **kw)
-        N = kw["H"] * kw["W"]
-        r = rec["ic_gn_level_batch"]
-        r["ms"] += (k1 + k2) / 2
-        r["plain_ms"] += (p1 + p2) / 2
-        r["bytes"] += nbytes(args[0], args[1][:, :3], *args[2:5], *res[:5])
-        r["flops"] += float(res.iterations.double().sum()) * N * IC_FLOPS["nearest"]
-        print(f"layer IC level kernel: level {level} {kw['H']}x{kw['W']}, {n_pairs} pairs x {n} it: kernel "
-              f"{(k1 + k2) / 2:.3f} ms ({k1:.3f}, {k2:.3f}), plain {(p1 + p2) / 2:.3f} ms ({p1:.3f}, {p2:.3f}) [{card}]")
-
-        img, dep = ints[level].contiguous(), deps[level].contiguous()
-        scale = cfg_fixed.gradient_scales[level]
-        pre = (img, dep, pyr.scharr(img, "x", scale), pyr.scharr(img, "y", scale), TUM_FR1.at_level(level),
-               cfg_fixed.min_depth, cfg_fixed.max_depth)
-        p1 = cuda_ms(lambda: IC.ic_precompute_batch_reference(*pre), 2)
-        k1 = cuda_ms(lambda: IC.ic_precompute_batch(*pre), REPEATS)
-        k2 = cuda_ms(lambda: IC.ic_precompute_batch(*pre), REPEATS)
-        p2 = cuda_ms(lambda: IC.ic_precompute_batch_reference(*pre), 2)
-        r = rec["ic_precompute"]
-        r["ms"] += (k1 + k2) / 2
-        r["plain_ms"] += (p1 + p2) / 2
-        r["bytes"] += nbytes(*pre[:4], *IC.ic_precompute_batch(*pre))
-        r["flops"] += img.numel() * IC_PRE_FLOPS
-        print(f"layer IC precompute kernel: level {level} {kw['H']}x{kw['W']}, {img.shape[0]} frames: kernel "
-              f"{(k1 + k2) / 2:.3f} ms ({k1:.3f}, {k2:.3f}), plain {(p1 + p2) / 2:.3f} ms ({p1:.3f}, {p2:.3f}) [{card}]")
-    # K-IC at B = 1 (the per-pair level): one pair's 120x160 level
-    level = 2
-    args, kw = ic_pair_args({level: tuple(x[:2] for x in prep[level])}, level, TUM_FR1)
-    n = cfg_fixed.max_iterations[level]
-    p1 = cuda_ms(lambda: ICB.ic_gn_level_batch_reference(*args, n, 0.0, 1.0, **kw), 3)
-    k1 = cuda_ms(lambda: ICB.ic_gn_level_batch(*args, n, 0.0, 1.0, **kw), REPEATS)
-    k2 = cuda_ms(lambda: ICB.ic_gn_level_batch(*args, n, 0.0, 1.0, **kw), REPEATS)
-    p2 = cuda_ms(lambda: ICB.ic_gn_level_batch_reference(*args, n, 0.0, 1.0, **kw), 3)
-    res = ICB.ic_gn_level_batch(*args, n, 0.0, 1.0, **kw)
-    one_bound = bound(nbytes(args[0], args[1][:, :3], *args[2:5], *res[:5]),
-                      float(res.iterations.double().sum()) * kw["H"] * kw["W"] * IC_FLOPS["nearest"])
-    print(f"layer IC level kernel at B = 1 (the per-pair level): level {level} {kw['H']}x{kw['W']}, {n} nearest "
-          f"iterations, one SM: kernel {(k1 + k2) / 2:.4f} ms ({k1:.4f}, {k2:.4f}), plain {(p1 + p2) / 2:.3f} ms "
-          f"({p1:.3f}, {p2:.3f}), bound {one_bound[0]:.5f} ms ({one_bound[1]}) [{card}]")
-    del prep, ints, deps
+    lib = _build.library()
+    names = {"ic": "ic_gn_level_batch", "icpre": "ic_precompute"}
+    plains = {"ic": ICB.ic_gn_level_batch_reference, "icpre": IC.ic_precompute_batch_reference}
+    rec = {name: dict(ms=0.0, plain_ms=0.0, bytes=0, flops=0) for name in names.values()}
+    prep, pre = ic_timing_prep(Is, Ds)
+    bench_levels = [lv for lv, n in enumerate(cfg_fixed.max_iterations) if n > 0]
+    cases = ic_workloads(prep, pre, (n_pairs,), bench_levels) + ic_workloads(prep, pre, (1,))
+    for group, label, kind, args, kw in cases:
+        H, W = (kw["H"], kw["W"]) if kind == "ic" else args[0].shape[1:]
+        run, out, diag = entry_launcher(getattr(lib, LEVEL_ENTRIES[kind][1]), entry_names(kind), kind, args, kw)
+        n_plain = 2 if args[0].shape[0] > 1 else 3
+        p1 = cuda_ms(lambda: plains[kind](*args, **kw), n_plain)
+        k1 = cuda_ms(run, REPEATS)
+        k2 = cuda_ms(run, REPEATS)
+        p2 = cuda_ms(lambda: plains[kind](*args, **kw), n_plain)
+        k, p = (k1 + k2) / 2, (p1 + p2) / 2
+        work = ic_case_work(kind, args, kw, out, diag)
+        b = bound(*work)
+        its = f", {int(diag[:, 0].max())} it" if kind == "ic" else ""
+        print(f"layer {group}, {label}{its}, {ic_layout(kind, H, W)}: kernel {k:.4f} ms ({k1:.4f}, {k2:.4f}), plain "
+              f"{p:.3f} ms ({p1:.3f}, {p2:.3f}), bound {b[0]:.5f} ms ({b[1]}), kernel / bound {k / b[0]:.2f} [{card}]")
+        if args[0].shape[0] > 1:
+            r = rec[names[kind]]
+            r["ms"] += k
+            r["plain_ms"] += p
+            r["bytes"] += work[0]
+            r["flops"] += work[1]
+    del prep, pre
     zero6 = torch.zeros(6, device=dev)
     ms_pair = cuda_ms(lambda: ic.align_ic(Is[0], Ds[0], Is[1], Ds[1], TUM_FR1, zero6, cfg_ee), REPEATS)
     print(f"per-pair IC route: align_ic {ms_pair:.3f} ms a VGA pair (bench schedule, early exit at 300, "
           f"3 launches of each kernel at B = 1) [{card}]")
     for name, r in rec.items():
         r["bound_ms"], r["bound_by"] = bound(r.pop("bytes"), r.pop("flops"))
-        print(f"{name}: bench chain {r['ms']:.3f} ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']}) [{card}]")
+        print(f"{name}: bench chain {r['ms']:.4f} ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']}) [{card}]")
     return rec
 
 
@@ -2214,40 +2393,58 @@ def phase_keyframe_serving_timing(fb, fused_ops, frames, I8, D16, card):
     return rec
 
 
-# Phase 7f: the cluster layout of K-TR and K-GN. The C entry of each, and
-# the source that declares it.
+# Phase 7f: the cluster layout of K-TR and K-GN, and phase 7c's of K-IC
+# and K-ICpre. The C entry of each, and the source that declares it.
 LEVEL_ENTRIES = {"tr": ("fused_tr_batch.cu", "phovo_fused_tr_level_batch"),
-                 "gn": ("fused_gn_batch.cu", "phovo_fused_gn_level_batch")}
+                 "gn": ("fused_gn_batch.cu", "phovo_fused_gn_level_batch"),
+                 "ic": ("ic_gn_batch.cu", "phovo_ic_gn_level_batch"),
+                 "icpre": ("ic_precompute.cu", "phovo_ic_precompute")}
 
 
 def entry_names(kind: str) -> list:
-    """The parameter names of this tree's C entry of a level kernel ('tr'
-    or 'gn'), from its `extern "C"` signature."""
+    """The parameter names of this tree's C entry of a level kernel ('tr',
+    'gn', 'ic' or 'icpre'), from its `extern "C"` signature."""
     from phovo_tpu_torch.ops import _build
 
     source, name = LEVEL_ENTRIES[kind]
     return [n for n, _ in _build.entry_signatures((_build.CSRC / source).read_text())[name]]
 
 
-def entry_launcher(fn, names, kind, args, kw, cluster=None):
-    """(run, states, diag): run() launches a level kernel's C entry fn,
-    whose parameters are `names` (another tree's entry may lack some of
-    this tree's, such as `cluster`), once on a wrapper call's inputs (args
-    and kw of fused_tr_level_batch for 'tr', of fused_gn_level_batch for
-    'gn') with `cluster` blocks a pair (default: the rule's). Such launches
-    are not counted; a refused one raises."""
+def entry_launcher(fn, names, kind, args, kw, cluster=None, **force):
+    """(run, out, diag): run() launches a level kernel's C entry fn, whose
+    parameters are `names` (another tree's entry may lack some of this
+    tree's, such as `cluster`), once on a wrapper call's inputs (args and
+    kw of fused_tr_level_batch for 'tr', fused_gn_level_batch for 'gn',
+    ic_gn_level_batch for 'ic', ic_precompute_batch for 'icpre') with
+    `cluster` blocks a pair (default: the rule's) and `force` (K-IC's
+    `resident`). out and diag are the buffers it writes: the states (K-IC:
+    the pose rows) and the diagnostics, whose column 0 is the iteration
+    count; for 'icpre' the factors L and the rows J8. Such launches are not
+    counted; a refused one raises."""
     from phovo_tpu_torch.ops import fused_batch as fb
+    from phovo_tpu_torch.ops import ic as IC
+    from phovo_tpu_torch.ops import ic_batch as ICB
 
-    make = fb._tr_launch_args if kind == "tr" else fb._gn_launch_args
-    values, outs = make(*args, **kw, stream=torch.cuda.current_stream().cuda_stream, cluster=cluster)
+    stream = torch.cuda.current_stream().cuda_stream
+    if kind == "ic":
+        values, buffers = ICB._ic_launch_args(args[0].to(torch.float32).contiguous(), *args[1:], **kw,
+                                              stream=stream, cluster=cluster, **force)
+        outs = buffers[1:]
+    elif kind == "icpre":
+        values, buffers = IC._ic_precompute_launch_args(*args, **kw, stream=stream, cluster=cluster)
+        outs = buffers[::-1]
+    else:
+        make = fb._tr_launch_args if kind == "tr" else fb._gn_launch_args
+        values, buffers = make(*args, **kw, stream=stream, cluster=cluster)
+        outs = buffers
     named = dict(zip(entry_names(kind), values))
     call = [named[n] for n in names]
 
     def run():
-        assert outs  # the buffers live as long as run
+        assert buffers  # every buffer the call points at lives as long as run
         err = fn(*call)
         if err:
-            raise RuntimeError(f"{LEVEL_ENTRIES[kind][1]} failed: CUDA error {err} (cluster {cluster})")
+            raise RuntimeError(f"{LEVEL_ENTRIES[kind][1]} failed: CUDA error {err} (cluster {cluster}, {force})")
 
     return run, outs[0], outs[1]
 
@@ -2273,13 +2470,10 @@ def cluster_workloads(dev, frames):
     from phovo_tpu_torch.ops.camera import TUM_FR1
     from phovo_tpu_torch.ops.pyramid import level_shape
     from phovo_tpu_torch.utils.config import config_from_dict
-    from phovo_tpu_torch.utils.synthetic import make_pair
 
     cfg_tr, cfg_an = config_from_dict(CERES_PRESET), config_from_dict(ANALYTIC_PRESET)
     cfg0, cfg_fixed = config_from_dict(LEVEL0_PRESET), bench_config(0.0)
-    I0, D0, I1, D1, _ = make_pair(TUM_FR1, SHAPE)
-    Is = torch.from_numpy(np.stack([I0, I1] * ((N_FRAMES + 1) // 2))[:N_FRAMES]).to(dev)
-    Ds = torch.from_numpy(np.stack([D0, D1] * ((N_FRAMES + 1) // 2))[:N_FRAMES]).to(dev)
+    Is, Ds = timing_frames(dev)
     n_pairs = N_FRAMES - 1
     cases = []
 
@@ -2329,12 +2523,14 @@ def cluster_workloads(dev, frames):
     return cases
 
 
-def level_clusters(levels) -> dict:
-    """{'HxW': the rule's blocks a pair} of pyramid levels of SHAPE."""
+def level_clusters(levels, rule=None) -> dict:
+    """{'HxW': the rule's blocks a pair} of pyramid levels of SHAPE; rule
+    defaults to K-GN's and K-TR's, fused_batch.cluster_size."""
     from phovo_tpu_torch.ops.fused_batch import cluster_size
     from phovo_tpu_torch.ops.pyramid import level_shape
 
-    return {"x".join(map(str, level_shape(SHAPE, lv))): cluster_size(*level_shape(SHAPE, lv)) for lv in levels}
+    rule = rule or cluster_size
+    return {"x".join(map(str, level_shape(SHAPE, lv))): rule(*level_shape(SHAPE, lv)) for lv in levels}
 
 
 def phase_cluster_timing(frames, dev, card):
@@ -2392,11 +2588,13 @@ def main() -> int:
     from phovo_tpu_torch.ops import _build, se3
     from phovo_tpu_torch.ops import fused as fused_ops
     from phovo_tpu_torch.ops import fused_batch as fb
+    from phovo_tpu_torch.ops import ic as IC
+    from phovo_tpu_torch.ops import ic_batch as ICB
     from phovo_tpu_torch.ops.camera import TUM_FR1
     from phovo_tpu_torch.ops.pyramid import level_shape
     from phovo_tpu_torch.utils import trajectory as traj
     from phovo_tpu_torch.utils.config import config_from_dict
-    from phovo_tpu_torch.utils.synthetic import make_pair, make_sequence
+    from phovo_tpu_torch.utils.synthetic import make_sequence
 
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
@@ -2440,6 +2638,8 @@ def main() -> int:
     # 3c. the inverse-compositional kernels vs plain versions
     stamp("3c. IC kernels vs plain")
     ic_j8_err, ic_l_err, ic_pose_err = phase_ic_kernels(I9, D9, card)
+    ic_errs = phase_ic_layouts(I9, D9, card)
+    ic_j8_err, ic_l_err, ic_pose_err = (max(a, b) for a, b in zip((ic_j8_err, ic_l_err, ic_pose_err), ic_errs))
 
     # 3d. the bi-objective level kernel vs its plain version
     stamp("3d. bi-objective kernel vs plain")
@@ -2597,9 +2797,7 @@ def main() -> int:
 
     # 7. timing, device-resident frames: the bench.py workload
     stamp("7. timing")
-    I0, D0, I1, D1, _ = make_pair(TUM_FR1, SHAPE)
-    Is = torch.from_numpy(np.stack([I0, I1] * ((N_FRAMES + 1) // 2))[:N_FRAMES]).to(dev)
-    Ds = torch.from_numpy(np.stack([D0, D1] * ((N_FRAMES + 1) // 2))[:N_FRAMES]).to(dev)
+    Is, Ds = timing_frames(dev)
     n_pairs = N_FRAMES - 1
     ms_fixed = cuda_ms(lambda: align_sequence(Is, Ds, TUM_FR1, cfg_fixed), REPEATS)
     ms_ee = cuda_ms(lambda: align_sequence(Is, Ds, TUM_FR1, cfg_ee), REPEATS)
@@ -2799,7 +2997,7 @@ def main() -> int:
             "factor_rel_err": ic_l_err,
             **ic_rec["ic_precompute"],
             "library_ms": None,
-            "cluster": 1,
+            "cluster": level_clusters(range(5), IC.ic_precompute_cluster_size),
         },
         {
             "name": "ic_gn_level_batch",
@@ -2811,7 +3009,8 @@ def main() -> int:
             **ic_rec["ic_gn_level_batch"],
             "library_ms": None,
             "per_pair_launches": ic_api_launches,
-            "cluster": 1,
+            "cluster": level_clusters(range(5), ICB.ic_cluster_size),
+            "resident": level_clusters(range(5), lambda H, W: ICB.ic_resident(H, W, ICB.ic_cluster_size(H, W))),
         },
         {
             "name": "fused_gn_level_batch_bi",

@@ -208,7 +208,7 @@ extern "C" int phovo_fused_gn_level_batch(
     constexpr int l = decltype(kl)::value;
     err = launch_clusters(
         fused_gn_batch_kernel<b, l, e, bi, false>, fused_gn_batch_kernel<b, l, e, bi, true>,
-        B, cluster, s, i0, geom, t_all, init_states, scale_in, depth_gains,
+        B, cluster, 0, s, i0, geom, t_all, init_states, scale_in, depth_gains,
         states_out, diag_out, H, W, fx, fy, cx, cy, max_iterations,
         min_gradient_norm, lambda_step, tdist_burnin, shared_source, cluster);
   };

@@ -243,7 +243,7 @@ extern "C" int phovo_fused_tr_level_batch(
     constexpr bool b = decltype(kb)::value;
     constexpr int l = decltype(kl)::value;
     err = launch_clusters(fused_tr_batch_kernel<b, l, false>, fused_tr_batch_kernel<b, l, true>, B,
-                          cluster, s, i0, geom, t_all, init_states, states_out, diag_out, H, W,
+                          cluster, 0, s, i0, geom, t_all, init_states, states_out, diag_out, H, W,
                           fx, fy, cx, cy, delta, opts, shared_source, cluster);
   });
   return static_cast<int>(err);

@@ -24,11 +24,25 @@
 // and does about 45 flops (58 bilinear), so it is bound by bytes where the
 // pairs' packs do not fit in the 50 MB L2: the bench chain's 256 pairs
 // hold ~310 MB at its three active levels, and at 120x160 every iteration
-// streams them from device memory.
-// The design: one thread block per pair runs the level's whole iteration
-// loop, so only the final pose and diagnostics go back to device memory,
-// and each pair stops on its own. Sums are per-thread in registers, then
-// block_sum's fixed order: the same bits every run.
+// streamed them from device memory again; one pair alone ran its level on
+// one SM of 132.
+// The design: one thread-block cluster of `cluster` blocks per pair
+// (ops/ic_batch.py::ic_cluster_size, a function of the level's shape
+// alone) runs the level's whole iteration loop, so only the final pose and
+// diagnostics go back to device memory, and each pair stops on its own.
+// Block rank r sweeps pixels r * kThreads + tid in steps of cluster *
+// kThreads; each block reduces its sums with block_sum, and
+// cluster_block_sum adds the blocks' sums in rank order through
+// distributed shared memory, so every block holds the same bits and runs
+// the same solve, update and stop test: no broadcast, no atomics, the same
+// bits every run. Where the block's share of the pack (geometry rows 0-2
+// and J8 rows 0-7, 44 bytes a pixel) fits in dynamic shared memory
+// (ops/ic_batch.py::ic_resident), the block copies it in once at the
+// level's start and every iteration reads it there: only the target
+// gather goes to device memory. A thread keeps its pixels and their order
+// either way, so a resident level gives the bits of a streamed one at the
+// same cluster size. One block a pair (kCluster false) streaming its pack
+// is the pre-cluster kernel's per-pixel order.
 
 #include "phovo_linearize.cuh"
 
@@ -101,7 +115,20 @@ static __device__ void compose_inverse_update(float* pose, const float* delta, f
   pose[11] = R20 * it0 + R21 * it1 + R22 * it2 + t2;
 }
 
-template <bool kBilinear>
+// The rows a block keeps of each of its pixels when its pack is resident:
+// geometry rows 0-2, then J8 rows 0-7.
+constexpr int kPackRows = 11;
+
+// Floats of one resident row: the pixels of the cluster's block with the
+// most, rounded up to whole sweeps of kThreads (the thread's j-th pixel
+// sits at j * kThreads + tid). ops/ic_batch.py::ic_pack_bytes is
+// kPackRows * 4 bytes of this.
+static __host__ __device__ __forceinline__ int pack_slots(int N, int cluster) {
+  const int sweep = cluster * kThreads;
+  return (N + sweep - 1) / sweep * kThreads;
+}
+
+template <bool kBilinear, bool kCluster, bool kResident>
 __global__ void __launch_bounds__(kThreads)
 ic_gn_batch_kernel(const float* __restrict__ state_in,  // (B, 12) [R, t]
                    const float* __restrict__ geom_all,  // (B, 4, N); row 3 unread
@@ -112,8 +139,12 @@ ic_gn_batch_kernel(const float* __restrict__ state_in,  // (B, 12) [R, t]
                    float* __restrict__ diag_out,        // (B, 4)
                    int H, int W, float fx, float fy, float cx, float cy,
                    int max_iterations, float min_gradient_norm,
-                   float lambda_step) {
-  const int pair = blockIdx.x;
+                   float lambda_step, int cluster) {
+  // one cluster is `cluster` consecutive blocks; one block a pair when
+  // kCluster is false
+  const int pair = kCluster ? static_cast<int>(blockIdx.x) / cluster : static_cast<int>(blockIdx.x);
+  const int rank = kCluster ? static_cast<int>(blockIdx.x) % cluster : 0;
+  const int step = kCluster ? cluster * kThreads : kThreads;
   const int tid = threadIdx.x;
   const int N = H * W;
   const float* geom = geom_all + static_cast<size_t>(pair) * 4 * N;
@@ -124,10 +155,25 @@ ic_gn_batch_kernel(const float* __restrict__ state_in,  // (B, 12) [R, t]
   __shared__ float L[36];
   __shared__ float inv_diag[6];
   __shared__ float partial[kWarps][kIcSums];
+  __shared__ float slots[2][kIcSums];
   __shared__ float total[kIcSums];
   __shared__ float it, gnorm, cost, nvalid;
   __shared__ int active;
+  // the resident pack: kPackRows rows of pack_slots(N, cluster) floats
+  extern __shared__ float pack[];
+  const int S = kResident ? pack_slots(N, cluster) : 0;
+  int parity = 0;
 
+  if constexpr (kResident) {
+    // each thread copies, and later reads, only its own slots: no barrier
+    for (int p = rank * kThreads + tid, q = tid; p < N; p += step, q += kThreads) {
+      pack[q] = geom[p];
+      pack[S + q] = geom[N + p];
+      pack[2 * S + q] = geom[2 * N + p];
+#pragma unroll
+      for (int k = 0; k < 8; ++k) pack[(3 + k) * S + q] = J8[k * N + p];
+    }
+  }
   if (tid == 0) {
     for (int k = 0; k < 12; ++k) pose[k] = state_in[pair * 12 + k];
     for (int k = 0; k < 36; ++k) L[k] = L_all[pair * 36 + k];
@@ -150,8 +196,16 @@ ic_gn_batch_kernel(const float* __restrict__ state_in,  // (B, 12) [R, t]
     float acc[kIcSums];
 #pragma unroll
     for (int k = 0; k < kIcSums; ++k) acc[k] = 0.0f;
-    for (int p = tid; p < N; p += kThreads) {
-      const float px = geom[p], py = geom[N + p], pz = geom[2 * N + p];
+    for (int p = rank * kThreads + tid, q = tid; p < N; p += step, q += kThreads) {
+      // the pixel's row k: J8 row k (k = 0..7), or geometry row k - 8
+      auto row = [&](int k) {
+        if constexpr (kResident) {
+          return pack[(k < 8 ? 3 + k : k - 8) * S + q];
+        } else {
+          return k < 8 ? J8[k * N + p] : geom[(k - 8) * N + p];
+        }
+      };
+      const float px = row(8), py = row(9), pz = row(10);
       const float tx = R[0] * px + R[1] * py + R[2] * pz + t[0];
       const float ty = R[3] * px + R[4] * py + R[5] * pz + t[1];
       const float tz = R[6] * px + R[7] * py + R[8] * pz + t[2];
@@ -161,15 +215,21 @@ ic_gn_batch_kernel(const float* __restrict__ state_in,  // (B, 12) [R, t]
       const float v = ty * fy * iz + cy;
       float i1w;
       const bool inb = sample_intensity<kBilinear>(tgt, H, W, u, v, &i1w);
-      const bool valid = (J8[7 * N + p] > 0.5f) & (tz > 0.0f) & inb;
+      const bool valid = (row(7) > 0.5f) & (tz > 0.0f) & inb;
       const float validf = valid ? 1.0f : 0.0f;
-      const float r = (i1w - J8[6 * N + p]) * validf;
+      const float r = (i1w - row(6)) * validf;
 #pragma unroll
-      for (int k = 0; k < 6; ++k) acc[k] += J8[k * N + p] * r;
+      for (int k = 0; k < 6; ++k) acc[k] += row(k) * r;
       acc[6] += r * r;
       acc[7] += validf;
     }
-    block_sum<kIcSums>(acc, partial, total);
+    if constexpr (kCluster) {
+      cluster_block_sum<kIcSums>(acc, cluster, parity, partial, slots, total);
+    } else {
+      block_sum<kIcSums>(acc, partial, total);
+    }
+    // every block of the cluster holds the same total: each runs the same
+    // solve, update and stop test
     if (tid == 0) {
       float ys[6], xs[6];
       for (int i = 0; i < 6; ++i) {
@@ -196,35 +256,47 @@ ic_gn_batch_kernel(const float* __restrict__ state_in,  // (B, 12) [R, t]
     __syncthreads();
   }
 
-  if (tid == 0) {
+  if (rank == 0 && tid == 0) {
     for (int k = 0; k < 12; ++k) state_out[pair * 12 + k] = pose[k];
     diag_out[pair * 4 + 0] = it;
     diag_out[pair * 4 + 1] = isfinite(gnorm) ? gnorm : 0.0f;
     diag_out[pair * 4 + 2] = cost;
     diag_out[pair * 4 + 3] = nvalid;
   }
+  cluster_done<kCluster>();
 }
 
 }  // namespace
 
-// Launches K-IC for B pairs on `stream` (a cudaStream_t); the caller owns
+// Launches K-IC for B pairs on `stream` (a cudaStream_t) as B clusters of
+// `cluster` blocks (launch_clusters), each block's share of the pack
+// resident in shared memory when `resident` is not 0; the caller owns
 // every buffer. state rows are [R row-major (9), t (3)]; diag_out rows are
-// [it, ||J0^T r||, cost, nvalid]. Returns cudaGetLastError() after the
-// launch.
+// [it, ||J0^T r||, cost, nvalid]. Returns launch_clusters' error: a
+// cluster or a resident pack the card cannot take is refused, and nothing
+// runs.
 extern "C" int phovo_ic_gn_level_batch(
     const float* state_in, const float* geom, const float* J8, const float* L,
     const float* t_i, float* state_out, float* diag_out, int B, int H, int W,
-    int bilinear, float fx, float fy, float cx, float cy, int max_iterations,
-    float min_gradient_norm, float lambda_step, void* stream) {
+    int bilinear, int cluster, int resident, float fx, float fy, float cx,
+    float cy, int max_iterations, float min_gradient_norm, float lambda_step,
+    void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (cluster < 1) return static_cast<int>(cudaErrorInvalidValue);
+  const size_t smem =
+      resident ? sizeof(float) * kPackRows * static_cast<size_t>(pack_slots(H * W, cluster)) : 0;
+  cudaError_t err = cudaErrorInvalidValue;
+  auto launch = [&](auto kb, auto kr) {
+    constexpr bool b = decltype(kb)::value, r = decltype(kr)::value;
+    err = launch_clusters(ic_gn_batch_kernel<b, false, r>, ic_gn_batch_kernel<b, true, r>, B,
+                          cluster, smem, s, state_in, geom, J8, L, t_i, state_out, diag_out, H,
+                          W, fx, fy, cx, cy, max_iterations, min_gradient_norm, lambda_step,
+                          cluster);
+  };
   if (bilinear) {
-    ic_gn_batch_kernel<true><<<B, kThreads, 0, s>>>(
-        state_in, geom, J8, L, t_i, state_out, diag_out, H, W, fx, fy, cx, cy,
-        max_iterations, min_gradient_norm, lambda_step);
+    resident ? launch(std::true_type{}, std::true_type{}) : launch(std::true_type{}, std::false_type{});
   } else {
-    ic_gn_batch_kernel<false><<<B, kThreads, 0, s>>>(
-        state_in, geom, J8, L, t_i, state_out, diag_out, H, W, fx, fy, cx, cy,
-        max_iterations, min_gradient_norm, lambda_step);
+    resident ? launch(std::false_type{}, std::true_type{}) : launch(std::false_type{}, std::false_type{});
   }
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(err);
 }

@@ -15,13 +15,21 @@
 // two gradients), writes 32 (the eight rows) and does about 90 flops (the
 // rows and the 21 Gram products). At under two flops a byte it is bound by
 // bytes: the bench chain's three active levels of 257 VGA frames move
-// ~311 MB, ~93 us at 3.35 TB/s.
-// The design: one thread block per frame, one launch per level for all
-// frames. Each thread walks its pixels (neighbouring threads on
-// neighbouring pixels, so the loads and the row stores coalesce), writes
-// their rows and keeps the 21 Gram sums in registers; block_sum reduces
-// them in a fixed order (no atomics, the same bits every run); one thread
-// factors the 6x6 system.
+// ~311 MB, ~93 us at 3.35 TB/s. One block a frame put too few loads in
+// flight for that (257 blocks of 8 warps on 132 SMs at 120x160; a lone
+// 480x640 frame on one SM).
+// The design: one thread-block cluster of `cluster` blocks per frame
+// (ops/ic.py::ic_precompute_cluster_size, a function of the level's shape
+// alone), one launch per level for all frames. Block rank r walks pixels
+// r * kThreads + tid in steps of cluster * kThreads (neighbouring threads
+// on neighbouring pixels, so the loads and the row stores coalesce),
+// writes their rows and keeps the 21 Gram sums in registers; block_sum
+// reduces them in a fixed order and cluster_block_sum adds the blocks'
+// sums in rank order through distributed shared memory (no atomics, the
+// same bits every run); the block of rank 0 factors the 6x6 system. Each
+// pixel's rows are the same expressions whatever the cluster size, so the
+// J8 bits do not depend on it. One block a frame (kCluster false) is the
+// pre-cluster kernel.
 
 #include "phovo_linearize.cuh"
 
@@ -31,6 +39,7 @@ using namespace phovo;
 
 constexpr int kGram = 21;  // upper triangle of the 6x6 Gram, row-major
 
+template <bool kCluster>
 __global__ void __launch_bounds__(kThreads)
 ic_precompute_kernel(const float* __restrict__ i0_all,  // (B, N)
                      const float* __restrict__ d0_all,  // (B, N)
@@ -39,8 +48,12 @@ ic_precompute_kernel(const float* __restrict__ i0_all,  // (B, N)
                      float* __restrict__ J8_all,        // (B, 8, N)
                      float* __restrict__ L_all,         // (B, 36)
                      int H, int W, float fx, float fy, float cx, float cy,
-                     float min_depth, float max_depth) {
-  const int frame = blockIdx.x;
+                     float min_depth, float max_depth, int cluster) {
+  // one cluster is `cluster` consecutive blocks; one block a frame when
+  // kCluster is false
+  const int frame = kCluster ? static_cast<int>(blockIdx.x) / cluster : static_cast<int>(blockIdx.x);
+  const int rank = kCluster ? static_cast<int>(blockIdx.x) % cluster : 0;
+  const int step = kCluster ? cluster * kThreads : kThreads;
   const int tid = threadIdx.x;
   const int N = H * W;
   const size_t base = static_cast<size_t>(frame) * N;
@@ -51,12 +64,13 @@ ic_precompute_kernel(const float* __restrict__ i0_all,  // (B, N)
   float* J8 = J8_all + 8 * base;
 
   __shared__ float partial[kWarps][kGram];
+  __shared__ float slots[2][kGram];
   __shared__ float total[kGram];
 
   float acc[kGram];
 #pragma unroll
   for (int k = 0; k < kGram; ++k) acc[k] = 0.0f;
-  for (int p = tid; p < N; p += kThreads) {
+  for (int p = rank * kThreads + tid; p < N; p += step) {
     const float row = static_cast<float>(p / W);
     const float col = static_cast<float>(p % W);
     const float pz = d0[p];
@@ -91,9 +105,14 @@ ic_precompute_kernel(const float* __restrict__ i0_all,  // (B, N)
       for (int b = a; b < 6; ++b) acc[k++] += j[a] * j[b];
     }
   }
-  block_sum<kGram>(acc, partial, total);
+  if constexpr (kCluster) {
+    int parity = 0;
+    cluster_block_sum<kGram>(acc, cluster, parity, partial, slots, total);
+  } else {
+    block_sum<kGram>(acc, partial, total);
+  }
 
-  if (tid == 0) {
+  if (rank == 0 && tid == 0) {
     float A[6][6];
     int k = 0;
     for (int a = 0; a < 6; ++a) {
@@ -121,21 +140,24 @@ ic_precompute_kernel(const float* __restrict__ i0_all,  // (B, N)
       for (int c = 0; c < 6; ++c) out[i * 6 + c] = c <= i ? L[i][c] : 0.0f;
     }
   }
+  cluster_done<kCluster>();
 }
 
 }  // namespace
 
-// Launches K-ICpre for B frames on `stream` (a cudaStream_t); the caller
-// owns every buffer: four (B, H, W) inputs, J8 (B, 8, H*W) and L (B, 36)
-// row-major lower factors. Returns cudaGetLastError() after the launch.
+// Launches K-ICpre for B frames on `stream` (a cudaStream_t) as B clusters
+// of `cluster` blocks (launch_clusters); the caller owns every buffer: four
+// (B, H, W) inputs, J8 (B, 8, H*W) and L (B, 36) row-major lower factors.
+// Returns launch_clusters' error: a cluster the card cannot take is
+// refused, and nothing runs.
 extern "C" int phovo_ic_precompute(const float* i0, const float* d0,
                                    const float* gx, const float* gy,
                                    float* J8, float* L, int B, int H, int W,
-                                   float fx, float fy, float cx, float cy,
-                                   float min_depth, float max_depth,
+                                   int cluster, float fx, float fy, float cx,
+                                   float cy, float min_depth, float max_depth,
                                    void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  ic_precompute_kernel<<<B, kThreads, 0, s>>>(i0, d0, gx, gy, J8, L, H, W, fx,
-                                              fy, cx, cy, min_depth, max_depth);
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(launch_clusters(ic_precompute_kernel<false>, ic_precompute_kernel<true>, B,
+                                          cluster, 0, s, i0, d0, gx, gy, J8, L, H, W, fx, fy, cx,
+                                          cy, min_depth, max_depth, cluster));
 }

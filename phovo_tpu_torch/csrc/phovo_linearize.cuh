@@ -6,7 +6,8 @@
 // cluster form (one pair over a thread-block cluster, for K-GN and K-TR),
 // the 6x6 Cholesky solve, and the host-side dispatch over the variants and
 // the cluster launch. The inverse-compositional kernels (ic_precompute.cu,
-// ic_gn_batch.cu) share its block size, block_sum, clamp_index and nan_max.
+// ic_gn_batch.cu) share its block size, block_sum, cluster_block_sum, the
+// cluster launch, clamp_index and nan_max.
 //
 // Arithmetic order follows phovo_tpu_torch/ops/fused_batch.py::
 // _pixel_columns and ops/robust.py term by term; build with -fmad=false and
@@ -352,22 +353,45 @@ static __device__ __forceinline__ void linearize_block(
   block_sum<kN>(acc, partial, total);
 }
 
+// Sum each thread's acc[kN] over the `cluster` blocks of a thread-block
+// cluster into total[kN], the same bits in every block: each block reduces
+// its own with block_sum into slots[parity], and after one cluster barrier
+// every block reads the C slots through distributed shared memory in rank
+// order, 0 to C - 1, adding them in that order. No atomics. parity flips
+// per call: a block writes slots[parity] again only two calls later, after
+// the next barrier, which no block passes before every peer has read this
+// call's slots, so one cluster barrier per call suffices. Every thread of
+// every block of the cluster calls it; it ends with a block barrier, so
+// total is ready for every thread. Call cluster_done before a block exits.
+template <int kN>
+static __device__ __forceinline__ void cluster_block_sum(const float (&acc)[kN], int cluster,
+                                                         int& parity, float (*partial)[kN],
+                                                         float (*slots)[kN], float* total) {
+  const int tid = threadIdx.x;
+  float* slot = slots[parity];
+  block_sum<kN>(acc, partial, slot);
+  const cooperative_groups::cluster_group cl = cooperative_groups::this_cluster();
+  cl.sync();
+  if (tid < kN) {
+    float a = *cl.map_shared_rank(slot + tid, 0);
+    for (int r = 1; r < cluster; ++r) a += *cl.map_shared_rank(slot + tid, r);
+    total[tid] = a;
+  }
+  __syncthreads();
+  parity ^= 1;
+}
+
 // The cluster form of linearize_block, for the level kernels (K-GN, K-TR):
 // one pair's level is spread over a thread-block cluster of `cluster`
 // blocks. kCluster is false for a launch of one block a pair: then it is
 // linearize_block itself, so those instantiations compile to the
 // one-block kernels' code (slots, parity and cluster go unused). With
 // kCluster, block rank r sweeps pixels r * kThreads + tid, stepping by
-// cluster * kThreads, reduces its sums with block_sum into slots[parity],
-// and after one cluster barrier every block reads the C slots through
-// distributed shared memory in rank order, 0 to C - 1, adding them in that
+// cluster * kThreads, and cluster_block_sum adds the blocks' sums in rank
 // order. So every block holds the same bits in total[kN], and the serial
 // code after it (make_terms, the solve, the termination tests) runs alike
-// in every block: state and control flow agree without a broadcast. No
-// atomics. parity flips per call: a block writes slots[parity] again only
-// two calls later, after the next barrier, which no block passes before
-// every peer has read this call's slots, so one barrier per linearization
-// suffices. (On an H100 this strided sweep timed faster than contiguous
+// in every block: state and control flow agree without a broadcast.
+// (On an H100 this strided sweep timed faster than contiguous
 // row bands a block on the 256-pair chains and for K-GN at B = 1:
 // PERF.md.) Every thread of every block of the cluster calls it; it ends
 // with a block barrier, so total is ready for every thread. Call
@@ -400,17 +424,7 @@ static __device__ __forceinline__ void linearize_cluster(
           terms, geom[p], geom[N + p], geom[2 * N + p], geom[3 * N + p], sgx,
           sgy, i0[p], tgt, H, W, fx, fy, cx, cy, delta, gain, acc);
     }
-    float* slot = slots[parity];
-    block_sum<kN>(acc, partial, slot);
-    const cooperative_groups::cluster_group cl = cooperative_groups::this_cluster();
-    cl.sync();
-    if (tid < kN) {
-      float a = *cl.map_shared_rank(slot + tid, 0);
-      for (int r = 1; r < cluster; ++r) a += *cl.map_shared_rank(slot + tid, r);
-      total[tid] = a;
-    }
-    __syncthreads();
-    parity ^= 1;
+    cluster_block_sum<kN>(acc, cluster, parity, partial, slots, total);
   }
 }
 
@@ -508,17 +522,20 @@ static bool dispatch_variant(int bilinear, int loss, int esm, F&& f) {
 }
 
 // Launch a level kernel over B pairs as B clusters of `cluster` blocks of
-// kThreads (grid B * cluster, cluster dimension {cluster, 1, 1}) on stream
-// s: `one` (the kernel's kCluster = false instantiation) when cluster is 1,
-// else `many` (kCluster = true). A cluster above 8 blocks is non-portable: it is allowed first, and
+// kThreads (grid B * cluster, cluster dimension {cluster, 1, 1}) with
+// `smem` bytes of dynamic shared memory a block on stream s: `one` (the
+// kernel's kCluster = false instantiation) when cluster is 1, else `many`
+// (kCluster = true). Dynamic shared memory above 0 is allowed first
+// (cudaFuncAttributeMaxDynamicSharedMemorySize; more than the card gives
+// a block is refused there). A cluster above 8 blocks is non-portable: it is allowed first, and
 // cudaOccupancyMaxActiveClusters must find room for one, else
 // cudaErrorInvalidClusterSize and nothing is launched. Returns the first
 // error, else cudaGetLastError() after the launch; the error of a refused
 // launch is cleared, so it cannot surface at a later launch. There is no
-// retry with smaller clusters.
+// retry with smaller clusters or less shared memory.
 template <typename... Params, typename... Args>
 static cudaError_t launch_clusters(void (*one)(Params...), void (*many)(Params...), int B,
-                                   int cluster, cudaStream_t s, Args&&... args) {
+                                   int cluster, size_t smem, cudaStream_t s, Args&&... args) {
   if (cluster < 1) return cudaErrorInvalidValue;
   void (*const kernel)(Params...) = cluster > 1 ? many : one;
   cudaLaunchAttribute attr;
@@ -529,13 +546,17 @@ static cudaError_t launch_clusters(void (*one)(Params...), void (*many)(Params..
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(static_cast<unsigned>(B * cluster));
   cfg.blockDim = dim3(kThreads);
-  cfg.dynamicSmemBytes = 0;
+  cfg.dynamicSmemBytes = smem;
   cfg.stream = s;
   // one block a pair launches as a plain grid, without a cluster dimension
   cfg.attrs = &attr;
   cfg.numAttrs = cluster > 1 ? 1 : 0;
   cudaError_t err = cudaSuccess;
-  if (cluster > 8) {
+  if (smem > 0) {
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(smem));
+  }
+  if (err == cudaSuccess && cluster > 8) {
     err = cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
     int clusters = 0;
     if (err == cudaSuccess) err = cudaOccupancyMaxActiveClusters(&clusters, kernel, &cfg);

@@ -51,11 +51,11 @@ _ENTRIES = {
         _I,
     ),
     "phovo_ic_precompute": (
-        [_P] * 6 + [_I] * 3 + [_F] * 6 + [_P],
+        [_P] * 6 + [_I] * 4 + [_F] * 6 + [_P],
         _I,
     ),
     "phovo_ic_gn_level_batch": (
-        [_P] * 7 + [_I] * 4 + [_F] * 4 + [_I, _F, _F, _P],
+        [_P] * 7 + [_I] * 6 + [_F] * 4 + [_I, _F, _F, _P],
         _I,
     ),
 }

@@ -18,7 +18,8 @@ Two routes, as phovo_tpu has:
     Cholesky factor and solve, the 4x4 pose through se3.pose_matrix and
     se3.inverse; the counterpart of phovo_tpu's XLA form;
   * the kernel route: ic_precompute_batch launches csrc/ic_precompute.cu
-    (K-ICpre, one thread block per frame) on CUDA tensors, and ic_gn_level
+    (K-ICpre, one thread-block cluster of ic_precompute_cluster_size(H, W)
+    blocks per frame) on CUDA tensors, and ic_gn_level
     runs the level kernel csrc/ic_gn_batch.cu (K-IC, ops/ic_batch.py) at
     B = 1. On CPU tensors each runs its plain torch version, written over
     (B,) tensors in the TPU kernels' expression order (_chol_factor,
@@ -42,6 +43,22 @@ from phovo_tpu_torch.ops.warp import sample_bilinear, sample_nearest
 # nowhere else, so a caller can show that its run went through the kernel
 # (reset it to 0 before the run, read it after).
 IC_PRE_LAUNCHES = 0
+
+
+def ic_precompute_cluster_size(H: int, W: int) -> int:
+    """Blocks of the thread-block cluster that K-ICpre spreads one frame's
+    H x W level over: about 2,400 pixels a block, a power of two, at most
+    16 (30x40: 1, 60x80: 2, 120x160: 8, 240x320 and 480x640: 16). The
+    order of the Gram's pixel sums depends on it, so it is a function of
+    the level's shape alone: a frame gets the same factor alone and in a
+    batch."""
+    # From timing every cluster size per level at B = 1, 16, 128 and 257
+    # frames on the card (tools/ktr_ab.py --sweep; PERF.md): the size whose
+    # slowest B was closest to that B's best.
+    cluster = 1
+    while cluster < 16 and cluster * 2_400 < H * W:
+        cluster *= 2
+    return cluster
 
 
 def ic_precompute(
@@ -172,7 +189,7 @@ def ic_precompute_batch(
     """The IC level constants of B frames: (J8 (B, 8, H*W) = [J0..J5; I0;
     valid], L (B, 36) row-major lower Cholesky factors of J0^T J0 + 1e-8 I)
     at the identity warp (phovo_tpu/ops/ic.py::ic_precompute_pallas). The
-    CUDA kernel (K-ICpre, one block per frame) for CUDA tensors, the plain
+    CUDA kernel (K-ICpre, a cluster of blocks per frame) for CUDA tensors, the plain
     version for CPU tensors; any other device, a failed build or launch
     raises."""
     global IC_PRE_LAUNCHES
@@ -186,21 +203,39 @@ def ic_precompute_batch(
 
     lib = _build.library()
     B, H, W = intensity.shape
+    with torch.cuda.device(intensity.device):
+        args, (J8, L) = _ic_precompute_launch_args(
+            intensity, depth, grad_x, grad_y, intr, min_depth, max_depth,
+            stream=torch.cuda.current_stream(intensity.device).cuda_stream,
+        )
+        if B:
+            err = lib.phovo_ic_precompute(*args)
+            if err:
+                raise RuntimeError(
+                    f"ic_precompute kernel launch failed: CUDA error {err} (B = {B} frames, {H}x{W}, "
+                    f"clusters of {ic_precompute_cluster_size(H, W)} blocks by the rule)"
+                )
+            IC_PRE_LAUNCHES += 1
+    return J8, L
+
+
+def _ic_precompute_launch_args(intensity, depth, grad_x, grad_y, intr, min_depth, max_depth, *,
+                               stream=0, cluster=None):
+    """phovo_ic_precompute's arguments in its order (csrc/ic_precompute.cu),
+    from ic_precompute_batch's arguments, with the outputs they point at:
+    (args, (J8, L)). cluster defaults to ic_precompute_cluster_size(H, W);
+    another value forces it through the C entry (the card tests and the
+    sweep)."""
+    B, H, W = intensity.shape
     J8 = torch.empty((B, 8, H * W), dtype=torch.float32, device=intensity.device)
     L = torch.empty((B, 36), dtype=torch.float32, device=intensity.device)
-    if B:
-        with torch.cuda.device(intensity.device):
-            stream = torch.cuda.current_stream(intensity.device).cuda_stream
-            err = lib.phovo_ic_precompute(
-                intensity.data_ptr(), depth.data_ptr(), grad_x.data_ptr(),
-                grad_y.data_ptr(), J8.data_ptr(), L.data_ptr(), B, H, W,
-                intr.fx, intr.fy, intr.cx, intr.cy, float(min_depth),
-                float(max_depth), stream,
-            )
-        if err:
-            raise RuntimeError(f"ic_precompute kernel launch failed: CUDA error {err}")
-        IC_PRE_LAUNCHES += 1
-    return J8, L
+    args = (
+        intensity.data_ptr(), depth.data_ptr(), grad_x.data_ptr(), grad_y.data_ptr(),
+        J8.data_ptr(), L.data_ptr(), B, H, W,
+        ic_precompute_cluster_size(H, W) if cluster is None else int(cluster),
+        intr.fx, intr.fy, intr.cx, intr.cy, float(min_depth), float(max_depth), stream,
+    )
+    return args, (J8, L)
 
 
 def ic_precompute_batch_reference(intensity, depth, grad_x, grad_y, intr, min_depth, max_depth):

@@ -3,8 +3,10 @@ pairs (torch port of phovo_tpu/ops/ic_batch.py::ic_gn_level_batch and, at
 B = 1, phovo_tpu/ops/ic.py::ic_gn_level).
 
 On a CUDA tensor ic_gn_level_batch launches the hand-written kernel
-csrc/ic_gn_batch.cu (K-IC: one thread block per pair, the level's whole
-iteration loop inside the block, each pair stopping on its own). On a CPU
+csrc/ic_gn_batch.cu (K-IC: one thread-block cluster of
+ic_cluster_size(H, W) blocks per pair, the level's whole iteration loop
+inside the cluster, each pair stopping on its own; each block's share of
+the pack resident in shared memory where ic_resident says). On a CPU
 tensor it runs the plain batched torch version, ic_gn_level_batch_reference:
 every pair advances in lockstep and freezes once its gradient norm falls
 below the threshold or its budget is spent, the per-pair semantics of the
@@ -31,6 +33,62 @@ from phovo_tpu_torch.ops.ic import _compose_inverse_update, _tri_solve
 IC_LAUNCHES = 0
 
 _SAMPLINGS = ("nearest", "bilinear")
+
+# Threads of a block of the IC kernels (csrc/phovo_linearize.cuh kThreads).
+THREADS = 256
+# Dynamic shared memory one block may use on an H100 (227 KB).
+SMEM_PER_BLOCK = 232_448
+# A bound on K-IC's static shared memory (its pose, factor, sums and
+# cluster slots; ptxas counts 528 bytes one block a pair, 592 in a
+# cluster: tools/ktr_ab.py prints it for each kernel).
+IC_STATIC_SMEM = 1_024
+# The rows a resident block keeps of each of its pixels: geometry rows 0-2
+# and J8 rows 0-7 (csrc/ic_gn_batch.cu kPackRows).
+PACK_ROWS = 11
+
+
+def ic_cluster_size(H: int, W: int) -> int:
+    """Blocks of the thread-block cluster that K-IC spreads one pair's
+    H x W level over: 1 up to 60x80 (4,800 pixels), 16 above. The order of
+    the pixel sums depends on it, so it is a function of the level's shape
+    alone, never of B: a pair gives the same bits alone, in a batch and on
+    the per-pair route."""
+    # From timing every cluster size per level at B = 1, 16, 128 and 256 on
+    # the card (tools/ktr_ab.py --sweep; PERF.md). Above 60x80, 16 blocks
+    # (Hopper's largest cluster, non-portable) led at B = 1, 16 and 128;
+    # at 256 pairs 2 blocks led by 2% at 480x640 and 9% at 240x320. At
+    # 60x80 one resident block a pair led the chain's 128 and 256 pairs
+    # (clusters cost them 6% and more); at 30x40 one block led at every B:
+    # there an iteration is mostly its serial tail, which every block of a
+    # cluster would repeat.
+    return 1 if H * W <= 4_800 else 16
+
+
+def ic_pack_bytes(H: int, W: int, cluster: int) -> int:
+    """Dynamic shared memory of a resident K-IC block: PACK_ROWS rows of
+    the pixels of the cluster's block with the most, rounded up to whole
+    sweeps of THREADS (csrc/ic_gn_batch.cu pack_slots)."""
+    sweep = cluster * THREADS
+    return PACK_ROWS * 4 * (-(-(H * W) // sweep) * THREADS)
+
+
+def ic_pack_fits(H: int, W: int, cluster: int) -> bool:
+    """Whether a resident K-IC block's pack fits beside its static shared
+    memory in what a block may use: the layouts the kernel can run
+    resident (a launch past it is refused)."""
+    return ic_pack_bytes(H, W, cluster) + IC_STATIC_SMEM <= SMEM_PER_BLOCK
+
+
+def ic_resident(H: int, W: int, cluster: int) -> bool:
+    """Whether K-IC keeps each block's share of the pack in shared memory
+    for the whole level at this shape and cluster size: at 120x160 (19,200
+    pixels) and below, where it fits beside the static shared memory. A
+    resident level gives the bits of a streamed one at the same cluster
+    size."""
+    # From the same sweep: resident led wherever it fits up to 120x160; at
+    # 240x320 (only 16 blocks a pair fit, 214 KB, one block an SM) it cost
+    # 128 and 256 pairs 47-49% for a 14% gain at B = 1.
+    return H * W <= 19_200 and ic_pack_fits(H, W, cluster)
 
 
 class ICLevelBatchResult(NamedTuple):
@@ -113,28 +171,49 @@ def ic_gn_level_batch(
     from phovo_tpu_torch.ops import _build
 
     lib = _build.library()
-    B = Ts.shape[0]
-    state_in = torch.cat([Ts[:, :3, :3].reshape(B, 9), Ts[:, :3, 3]], dim=1).contiguous()
-    state_out = torch.empty((B, 12), dtype=torch.float32, device=geom.device)
-    diag = torch.empty((B, 4), dtype=torch.float32, device=geom.device)
-    if B:
-        with torch.cuda.device(geom.device):
-            stream = torch.cuda.current_stream(geom.device).cuda_stream
-            err = lib.phovo_ic_gn_level_batch(
-                state_in.data_ptr(), geom.data_ptr(), J8.data_ptr(), L.data_ptr(),
-                t_i.data_ptr(), state_out.data_ptr(), diag.data_ptr(), B, H, W,
-                int(sampling == "bilinear"), intr.fx, intr.fy, intr.cx, intr.cy,
-                int(max_iterations), float(min_gradient_norm), float(lambda_step),
-                stream,
-            )
-        if err:
-            raise RuntimeError(f"ic_gn_batch kernel launch failed: CUDA error {err}")
-        IC_LAUNCHES += 1
+    with torch.cuda.device(geom.device):
+        args, (_, state_out, diag) = _ic_launch_args(
+            Ts, geom, J8, L, t_i, intr, max_iterations, min_gradient_norm, lambda_step,
+            H=H, W=W, sampling=sampling, stream=torch.cuda.current_stream(geom.device).cuda_stream,
+        )
+        if Ts.shape[0]:
+            err = lib.phovo_ic_gn_level_batch(*args)
+            if err:
+                c = ic_cluster_size(H, W)
+                raise RuntimeError(
+                    f"ic_gn_batch kernel launch failed: CUDA error {err} (B = {Ts.shape[0]} pairs, "
+                    f"{H}x{W}, clusters of {c} blocks, resident {ic_resident(H, W, c)} by the rule)"
+                )
+            IC_LAUNCHES += 1
     cols = diag.t().contiguous()
     return ICLevelBatchResult(
         _poses(state_out[:, :9].unbind(1), state_out[:, 9:].unbind(1)),
         cols[0].to(torch.int32), cols[1], cols[2], cols[3], torch.zeros_like(cols[0]),
     )
+
+
+def _ic_launch_args(Ts, geom, J8, L, t_i, intr, max_iterations, min_gradient_norm,
+                    lambda_step, *, H, W, sampling="nearest", stream=0, cluster=None,
+                    resident=None):
+    """phovo_ic_gn_level_batch's arguments in its order
+    (csrc/ic_gn_batch.cu), from ic_gn_level_batch's arguments (Ts float32
+    and contiguous), with the tensors they point at: (args, (state_in,
+    state_out, diag_out)). cluster defaults to ic_cluster_size(H, W) and
+    resident to ic_resident(H, W, cluster); other values force them
+    through the C entry (the card tests and the sweep)."""
+    B = Ts.shape[0]
+    cluster = ic_cluster_size(H, W) if cluster is None else int(cluster)
+    resident = ic_resident(H, W, cluster) if resident is None else bool(resident)
+    state_in = torch.cat([Ts[:, :3, :3].reshape(B, 9), Ts[:, :3, 3]], dim=1).contiguous()
+    state_out = torch.empty((B, 12), dtype=torch.float32, device=geom.device)
+    diag = torch.empty((B, 4), dtype=torch.float32, device=geom.device)
+    args = (
+        state_in.data_ptr(), geom.data_ptr(), J8.data_ptr(), L.data_ptr(), t_i.data_ptr(),
+        state_out.data_ptr(), diag.data_ptr(), B, H, W, int(sampling == "bilinear"), cluster,
+        int(resident), intr.fx, intr.fy, intr.cx, intr.cy, int(max_iterations),
+        float(min_gradient_norm), float(lambda_step), stream,
+    )
+    return args, (state_in, state_out, diag)
 
 
 def _level_pass(R, t, geom, J8, t_flat, intr, H, W, bilinear):

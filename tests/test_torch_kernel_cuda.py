@@ -8,7 +8,8 @@ Needs an NVIDIA GPU and nvcc; skipped elsewhere. Run on the card with
 (tests/conftest.py imports jax, which the port's machines
 need not have). The kernel is held to the plain version, which the CPU
 tests hold to phovo_tpu. Tolerance: states 2e-4 absolute and cost 1e-4
-relative (pixel sums in another order), iterations and valid counts equal
+relative (pixel sums in another order; the Gauss-Newton level's cost at
+the state the kernel linearized last), iterations and valid counts equal
 (the per-pixel arithmetic is the same, built without contracted
 multiply-adds). Nearest sampling runs 2 iterations: from the third on, the
 states differ by enough (~1e-6) that a pixel within that distance of a
@@ -73,18 +74,23 @@ def _chip_smoke():
     ("bilinear", 8, 200.0),
 ])
 def test_kernel_matches_plain(sampling, iterations, threshold):
+    """End states within 2e-4, iteration and valid counts equal, nothing
+    band-masked; the cost of each pair's last linearization within 1e-4 of
+    the plain version's cost at the same state: the kernel's state before
+    that linearization (a run with one iteration less), linearized once by
+    the plain version. Near convergence the float32 cost at two states
+    ~1e-7 apart differs by more than 1e-4, and the plain version on the
+    CPU and on the card differ by 1.35e-4 on the bilinear case (PERF.md),
+    so the end costs of two runs are not held to 1e-4."""
     H, W = 96, 128
     I, D, _, _ = make_sequence(INTR, (H, W), 6)
     dev = torch.device("cuda")
     It = torch.from_numpy(np.stack(I)).to(dev)
     Dt = torch.from_numpy(np.stack(D)).to(dev)
     t_all = pack_target(It, pyr.scharr(It, "x", 0.0625), pyr.scharr(It, "y", 0.0625))
-    args = (
-        It[:-1].reshape(5, -1).contiguous(),
-        pack_geometry(Dt[:-1], INTR, 0.3, 5.0).contiguous(),
-        t_all[1:].contiguous(), INTR, torch.zeros((5, 6), device=dev),
-        iterations, threshold, 1.0,
-    )
+    packs = (It[:-1].reshape(5, -1).contiguous(), pack_geometry(Dt[:-1], INTR, 0.3, 5.0).contiguous(),
+             t_all[1:].contiguous(), INTR)
+    args = (*packs, torch.zeros((5, 6), device=dev), iterations, threshold, 1.0)
     before = FB.LAUNCHES
     k = FB.fused_gn_level_batch(*args, H=H, W=W, sampling=sampling)
     assert FB.LAUNCHES == before + 1
@@ -94,8 +100,14 @@ def test_kernel_matches_plain(sampling, iterations, threshold):
     torch.testing.assert_close(k.state, p.state, rtol=0, atol=2e-4)
     assert torch.equal(k.iterations, p.iterations)
     assert torch.equal(k.num_valid, p.num_valid)
-    torch.testing.assert_close(k.cost, p.cost, rtol=1e-4, atol=0)
     assert float(k.band_masked.abs().sum()) == 0.0
+    # a pair that ran m iterations linearized last at its state after m - 1
+    cost_there = torch.full_like(k.cost, float("nan"))
+    for m in k.iterations.unique().tolist():
+        prev = FB.fused_gn_level_batch(*args[:5], m - 1, threshold, 1.0, H=H, W=W, sampling=sampling)
+        one = FB.fused_gn_level_batch_reference(*packs, prev.state, 1, 0.0, 1.0, H=H, W=W, sampling=sampling)
+        cost_there = torch.where(k.iterations == m, one.cost, cost_there)
+    torch.testing.assert_close(k.cost, cost_there, rtol=1e-4, atol=0)
 
 
 def _packs(H=96, W=128, n=6):
@@ -879,3 +891,196 @@ def test_unschedulable_cluster_raises(kernel, monkeypatch):
     again = _wrapper(kernel)(*args, **kw)
     for x, y in zip(ok, again):
         assert torch.equal(x, y)
+
+
+# -- the cluster layout of the inverse-compositional kernels ------------------
+
+
+IC_LEVELS = {0: (480, 640), 2: (120, 160), 3: (60, 80)}
+IC_SIZES = (1, 2, 4, 8, 16)
+IC_ENTRY = {"ic": "phovo_ic_gn_level_batch", "icpre": "phovo_ic_precompute"}
+IC_ITERATIONS = 4
+
+
+@functools.cache
+def _ic_vga():
+    """chip_smoke.py's timing frames (257 synthetic VGA frames, make_pair's
+    two alternated) and their IC products at all five levels: (prep,
+    K-ICpre's inputs), chip_smoke.ic_timing_prep."""
+    smoke = _chip_smoke()
+    return smoke.ic_timing_prep(*smoke.timing_frames(torch.device("cuda")))
+
+
+def _ic_call(kernel, level, B):
+    """(args, kw) of the wrapper at a VGA level: K-ICpre on the first B
+    frames, K-IC on the first B pairs (frame k to k + 1) from the identity,
+    IC_ITERATIONS bilinear iterations."""
+    from phovo_tpu_torch.ops.camera import TUM_FR1
+
+    prep, pre = _ic_vga()
+    if kernel == "icpre":
+        return (*(x[:B] for x in pre[level][:4]), *pre[level][4:]), {}
+    geom, J8, L, img = prep[level]
+    H, W = img.shape[1:]
+    Ts = torch.eye(4, device="cuda").repeat(B, 1, 1)
+    return (Ts, geom[:B], J8[:B], L[:B], img[1:B + 1], TUM_FR1.at_level(level), IC_ITERATIONS, 0.0, 1.0), dict(
+        H=H, W=W, sampling="bilinear")
+
+
+def _ic_wrapper(kernel):
+    from phovo_tpu_torch.ops import ic as IC
+    from phovo_tpu_torch.ops import ic_batch as ICB
+
+    return IC.ic_precompute_batch if kernel == "icpre" else ICB.ic_gn_level_batch
+
+
+def _assert_icpre_close(J8, L, pJ8, pL):
+    """K-ICpre's bounds: J8 rows within 1e-6 (the same expressions), the
+    factor within 1e-4 of its largest entry (the Gram's sums in another
+    order)."""
+    torch.testing.assert_close(J8, pJ8, rtol=0, atol=1e-6)
+    scale = pL.abs().amax(dim=1, keepdim=True)
+    assert bool(((L - pL).abs() <= 1e-4 * scale).all()), float(((L - pL).abs() / scale).max())
+
+
+@pytest.mark.parametrize("B", [1, 16, 256])
+@pytest.mark.parametrize("level", sorted(IC_LEVELS))
+@pytest.mark.parametrize("kernel", ["ic", "icpre"])
+def test_ic_cluster_kernels_match_plain_at_vga(kernel, level, B):
+    """K-IC and K-ICpre in the rule's layout against their plain versions
+    at 480x640, 120x160 and 60x80, on 1, 16 and 256 pairs (frames): poses
+    within STATE_ATOL, iteration and valid counts equal; K-ICpre within
+    its bounds."""
+    from phovo_tpu_torch.ops import ic as IC
+    from phovo_tpu_torch.ops import ic_batch as ICB
+
+    args, kw = _ic_call(kernel, level, B)
+    k = _ic_wrapper(kernel)(*args, **kw)
+    if kernel == "icpre":
+        _assert_icpre_close(*k, *IC.ic_precompute_batch_reference(*args))
+        return
+    parts = []
+    for lo in range(0, B, 64):
+        sl = slice(lo, lo + 64)
+        parts.append(ICB.ic_gn_level_batch_reference(*(x[sl] for x in args[:5]), *args[5:], **kw))
+        torch.cuda.empty_cache()
+    p = type(parts[0])(*(torch.cat(x) for x in zip(*parts)))
+    torch.cuda.synchronize()
+    torch.testing.assert_close(k.T, p.T, rtol=0, atol=STATE_ATOL)
+    assert torch.equal(k.iterations, p.iterations)
+    assert torch.equal(k.num_valid, p.num_valid)
+
+
+def _ic_entry_launch(kernel, args, kw, cluster, resident=None):
+    """One launch through the C entry at `cluster` blocks a pair (K-IC
+    resident, streamed, or by the rule when None): (the CUDA error, the
+    outputs)."""
+    from phovo_tpu_torch.ops import _build
+    from phovo_tpu_torch.ops import ic as IC
+    from phovo_tpu_torch.ops import ic_batch as ICB
+
+    stream = torch.cuda.current_stream().cuda_stream
+    if kernel == "icpre":
+        values, outs = IC._ic_precompute_launch_args(*args, stream=stream, cluster=cluster)
+    else:
+        values, (_, *outs) = ICB._ic_launch_args(*args, **kw, stream=stream, cluster=cluster, resident=resident)
+    err = getattr(_build.library(), IC_ENTRY[kernel])(*values)
+    torch.cuda.synchronize()
+    return err, outs
+
+
+@pytest.mark.parametrize("level", range(5))
+@pytest.mark.parametrize("kernel", ["ic", "icpre"])
+def test_ic_every_cluster_size_matches_one_block(kernel, level):
+    """Every cluster size forced through the C entry (16 where the card
+    schedules it; a refusal must be cudaErrorInvalidClusterSize, 912)
+    against one block a pair, on 16 pairs (frames): K-IC's poses within
+    STATE_ATOL with equal iteration and valid counts; K-ICpre's J8 the
+    same bits, its factor within 1e-4 of its largest entry."""
+    args, kw = _ic_call(kernel, level, 16)
+    err, base = _ic_entry_launch(kernel, args, kw, 1, resident=False)
+    assert err == 0
+    for c in IC_SIZES[1:]:
+        err, outs = _ic_entry_launch(kernel, args, kw, c, resident=False)
+        if c == 16 and err == 912:
+            continue
+        assert err == 0, (c, err)
+        if kernel == "icpre":
+            J8, L = outs
+            assert torch.equal(J8, base[0]), c
+            _assert_icpre_close(J8, L, *base)
+        else:
+            state, diag = outs
+            torch.testing.assert_close(state, base[0], rtol=0, atol=STATE_ATOL)
+            assert torch.equal(diag[:, 0], base[1][:, 0]) and torch.equal(diag[:, 3], base[1][:, 3]), c
+
+
+@pytest.mark.parametrize("level", range(1, 5))
+def test_ic_resident_pack_gives_the_streamed_bits(level):
+    """At every cluster size whose pack fits in shared memory, a resident
+    level gives the bits of a streamed one: each thread keeps its pixels
+    and their order."""
+    from phovo_tpu_torch.ops import ic_batch as ICB
+
+    args, kw = _ic_call("ic", level, 16)
+    fits = [c for c in IC_SIZES if ICB.ic_pack_fits(kw["H"], kw["W"], c)]
+    assert fits
+    for c in fits:
+        err_s, streamed = _ic_entry_launch("ic", args, kw, c, resident=False)
+        err_r, resident = _ic_entry_launch("ic", args, kw, c, resident=True)
+        if c == 16 and 912 in (err_s, err_r):
+            continue
+        assert (err_s, err_r) == (0, 0), c
+        assert all(torch.equal(a, b) for a, b in zip(resident, streamed)), c
+
+
+@pytest.mark.parametrize("level", sorted(IC_LEVELS))
+@pytest.mark.parametrize("kernel", ["ic", "icpre"])
+def test_ic_pair_alone_gives_its_bits_in_a_256_pair_launch(kernel, level):
+    """A pair (frame) alone gives the bits it has inside a 256-pair
+    (257-frame) launch: the layout is the level's, whatever B."""
+    B = 256 if kernel == "ic" else 257
+    args, kw = _ic_call(kernel, level, B)
+    batch = _ic_wrapper(kernel)(*args, **kw)
+    n = 5 if kernel == "ic" else 4
+    for j in (0, 1, 128, 255):
+        one = _ic_wrapper(kernel)(*(x[j:j + 1] for x in args[:n]), *args[n:], **kw)
+        for x, y in zip(one, batch):
+            assert torch.equal(x, y[j:j + 1]), j
+
+
+@pytest.mark.parametrize("kernel", ["ic", "icpre"])
+def test_ic_unschedulable_cluster_raises(kernel, monkeypatch):
+    """A cluster the card cannot schedule (32 blocks, above Hopper's 16)
+    raises through the wrapper and counts no launch; there is no retry
+    with smaller clusters, and the next launch is unaffected."""
+    from phovo_tpu_torch.ops import ic as IC
+    from phovo_tpu_torch.ops import ic_batch as ICB
+
+    args, kw = _ic_call(kernel, 2, 4)
+    ok = _ic_wrapper(kernel)(*args, **kw)
+    before = (IC.IC_PRE_LAUNCHES, ICB.IC_LAUNCHES)
+    module, rule = (IC, "ic_precompute_cluster_size") if kernel == "icpre" else (ICB, "ic_cluster_size")
+    monkeypatch.setattr(module, rule, lambda H, W: 32)
+    with pytest.raises(RuntimeError, match="launch failed: CUDA error"):
+        _ic_wrapper(kernel)(*args, **kw)
+    assert (IC.IC_PRE_LAUNCHES, ICB.IC_LAUNCHES) == before
+    monkeypatch.undo()
+    again = _ic_wrapper(kernel)(*args, **kw)
+    for x, y in zip(ok, again):
+        assert torch.equal(x, y)
+
+
+def test_ic_resident_pack_too_large_raises(monkeypatch):
+    """A resident pack above the shared memory a block may use (480x640
+    at one block a pair: 13.5 MB) is refused, not run streamed: the
+    wrapper raises and counts no launch."""
+    from phovo_tpu_torch.ops import ic_batch as ICB
+
+    args, kw = _ic_call("ic", 0, 2)
+    before = ICB.IC_LAUNCHES
+    monkeypatch.setattr(ICB, "ic_cluster_size", lambda H, W: 1)
+    monkeypatch.setattr(ICB, "ic_resident", lambda H, W, cluster: True)
+    with pytest.raises(RuntimeError, match="launch failed: CUDA error"):
+        ICB.ic_gn_level_batch(*args, **kw)
+    assert ICB.IC_LAUNCHES == before

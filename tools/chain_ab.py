@@ -13,7 +13,9 @@ device-resident frames (`make_pair(TUM_FR1, (480, 640))` alternated into
 257 frames):
   * `align_sequence`, bench.py's schedule, fixed-75 and early exit at 300;
   * `align_sequence_autodiff`, config_5_level_optimization_ceres;
-  * `align_analytic`, one VGA pair, config_5_level_optimization_analytic.
+  * `align_analytic`, one VGA pair, config_5_level_optimization_analytic;
+  * `align_sequence_ic`, bench.py's schedule, fixed-75 and early exit at
+    300, and `align_ic`, one VGA pair, early exit at 300.
 Prints every time with the card's name and power limit.
 """
 
@@ -36,7 +38,7 @@ def measure(tree: Path) -> dict:
     import torch
 
     import chip_smoke
-    from phovo_tpu_torch.models import analytic, autodiff
+    from phovo_tpu_torch.models import analytic, autodiff, ic
     from phovo_tpu_torch.ops import _build
     from phovo_tpu_torch.ops.camera import TUM_FR1
     from phovo_tpu_torch.utils.config import config_from_dict
@@ -59,6 +61,13 @@ def measure(tree: Path) -> dict:
             lambda: autodiff.align_sequence_autodiff(Is, Ds, TUM_FR1, cfg_tr), 3),
         "align_analytic a VGA pair": chip_smoke.cuda_ms(
             lambda: analytic.align_analytic(Is[0], Ds[0], Is[1], Ds[1], TUM_FR1, zero6, cfg_an), REPEATS),
+        "align_sequence_ic fixed-75": chip_smoke.cuda_ms(
+            lambda: ic.align_sequence_ic(Is, Ds, TUM_FR1, chip_smoke.bench_config(0.0)), REPEATS),
+        "align_sequence_ic early exit": chip_smoke.cuda_ms(
+            lambda: ic.align_sequence_ic(Is, Ds, TUM_FR1, chip_smoke.bench_config(300.0)), REPEATS),
+        "align_ic a VGA pair": chip_smoke.cuda_ms(
+            lambda: ic.align_ic(Is[0], Ds[0], Is[1], Ds[1], TUM_FR1, zero6, chip_smoke.bench_config(300.0)),
+            REPEATS),
     }
 
 

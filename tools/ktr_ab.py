@@ -1,31 +1,43 @@
 #!/usr/bin/env python3
-"""A/B timing of phovo_tpu_torch's level kernels K-TR (fused_tr_batch.cu)
-and K-GN (fused_gn_batch.cu, with K-GN-bi) on one NVIDIA GPU: two source
-trees against each other, or this tree's cluster sizes against each other.
+"""A/B timing of phovo_tpu_torch's level kernels K-TR (fused_tr_batch.cu),
+K-GN (fused_gn_batch.cu, with K-GN-bi), K-IC (ic_gn_batch.cu) and K-ICpre
+(ic_precompute.cu) on one NVIDIA GPU: two source trees against each
+other, or this tree's cluster sizes (and K-IC's resident packs) against
+each other.
 
-    python3 tools/ktr_ab.py OTHER_TREE   # the A/B against another tree
-    python3 tools/ktr_ab.py --sweep      # every cluster size, this tree
+    python3 tools/ktr_ab.py OTHER_TREE [--kernels tr,gn,ic,icpre]   # the A/B
+    python3 tools/ktr_ab.py --sweep [--kernels ...]                 # this tree
 
 OTHER_TREE is another checkout of the repository (an unpacked `git
-archive` of another commit). The A/B compiles fused_tr_batch.cu and
-fused_gn_batch.cu of this tree and of OTHER_TREE, each alone into its own
-library with this tree's nvcc flags, prints ptxas's register, stack and
-spill summary of each (this tree's one-block and cluster instantiations
-apart), holds the machine code (cuobjdump -sass) of each of OTHER_TREE's
-kernels against this tree's one-block instantiation of the same variant,
-instruction by instruction, binds each tree's C entry from the `extern "C"`
-signature in its own source (a parameter the other tree lacks, such as
-`cluster`, is left out of its call), and times each launch of
-chip_smoke.cluster_workloads (K-TR, K-GN and K-GN-bi at B = 1 on a
+archive` of another commit). The A/B compiles fused_tr_batch.cu,
+fused_gn_batch.cu, fused_lin.cu, ic_gn_batch.cu and ic_precompute.cu of
+this tree and of OTHER_TREE, each alone into its own library with this
+tree's nvcc flags, prints ptxas's register, stack and spill summary of
+each (this tree's one-block and cluster instantiations apart; K-IC's and
+K-ICpre's kernels one by one, with their shared memory), holds the
+machine code (cuobjdump -sass) of each of OTHER_TREE's K-TR, K-GN and
+K-LIN kernels against this tree's one-block instantiation of the same
+variant, instruction by instruction, binds each tree's C entry from the
+`extern "C"` signature in its own source (a parameter the other tree
+lacks, such as `cluster`, is left out of its call), and times each launch
+of chip_smoke.cluster_workloads (K-TR, K-GN and K-GN-bi at B = 1 on a
 480x640 level; K-TR and K-GN on 16 targets of a shared keyframe; the
-ceres chain's five levels and the bench chain's three at 256 pairs) on
-the same inputs in turns (other, this, this, other), by CUDA events over
-repeated launches after a warm-up. The sweep launches this tree's kernels
-through their C entries at 1, 2, 4, 8 and 16 blocks a pair, in turns
-(1 ... 16, 16 ... 1; the rule's size marked), with each size's largest
-state difference from one block a pair: this is how
-fused_batch.cluster_size's rule was chosen. Prints every time with the
-card's name and power limit.
+ceres chain's five levels and the bench chain's three at 256 pairs) and
+of chip_smoke.ic_workloads (K-ICpre and K-IC per level on 257 frames and
+256 pairs, and at B = 1, at all five VGA levels) on the
+same inputs in turns (other, this, this, other), by CUDA events over
+repeated launches after a warm-up. For K-IC and K-ICpre it also holds
+this tree's one-block streamed launch (C = 1 forced) to OTHER_TREE's
+outputs, bit for bit. The sweep launches this tree's kernels through
+their C entries at 1, 2, 4, 8 and 16 blocks a pair (K-IC streamed and,
+where the pack fits, resident; K-IC and K-ICpre at B = 1, 16, 128 (the
+chunked chain's launches) and 256 at every VGA level), in turns (forward, then backward; the rule's layout
+marked), with each layout's largest difference from one block a pair,
+and times K-IC's serial tail (a 30x40 level's iteration against one of
+256 pixels, one a thread): this is how fused_batch.cluster_size's,
+ic_batch.ic_cluster_size's, ic_batch.ic_resident's and
+ic.ic_precompute_cluster_size's rules were chosen. Prints every time with
+the card's name and power limit.
 """
 
 from __future__ import annotations
@@ -46,6 +58,10 @@ sys.path.insert(0, str(ROOT))
 
 REPEATS = 20
 SWEEP = (1, 2, 4, 8, 16)
+KINDS = ("tr", "gn", "ic", "icpre")
+# the sources the A/B builds: the level kernels, and K-LIN for its SASS
+SOURCES = ("tr", "gn", "lin", "ic", "icpre")
+LIN_ENTRY = ("fused_lin.cu", "phovo_fused_lin")
 
 
 def chip_smoke():
@@ -68,16 +84,17 @@ def template_args(name: str) -> tuple:
 
 
 def ptxas_kernels(stderr: str) -> dict:
-    """{mangled kernel name: (registers, stack bytes, spill bytes)} from
-    ptxas -v."""
+    """{mangled kernel name: (registers, stack bytes, spill bytes, static
+    shared memory bytes)} from ptxas -v."""
     kernels = {}
     for chunk in stderr.split("Compiling entry function '")[1:]:
         name = chunk.split("'", 1)[0]
         regs = re.search(r"Used (\d+) registers", chunk)
         stack = re.search(r"(\d+) bytes stack frame", chunk)
         spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", chunk)
+        smem = re.search(r"(\d+) bytes smem", chunk)
         kernels[name] = (int(regs[1]) if regs else -1, int(stack[1]) if stack else 0,
-                         int(spill[1]) + int(spill[2]) if spill else 0)
+                         int(spill[1]) + int(spill[2]) if spill else 0, int(smem[1]) if smem else 0)
     return kernels
 
 
@@ -86,15 +103,23 @@ def ptxas_summary(kernels: dict, clustered: bool) -> str:
     loads over the kernels, and with a cluster layout (clustered) for its
     one-block and cluster instantiations apart."""
     def line(values):
-        regs = [r for r, _, _ in values]
+        regs = [r for r, *_ in values]
         return (f"{len(regs)} kernels, {min(regs)}-{max(regs)} registers, stack <= "
-                f"{max(s for _, s, _ in values)} B, spills <= {max(sp for _, _, sp in values)} B")
+                f"{max(v[1] for v in values)} B, spills <= {max(v[2] for v in values)} B")
 
     parts = [line(list(kernels.values()))]
     if clustered:
         for label, flag in (("one-block", "Lb0E"), ("cluster", "Lb1E")):
             parts.append(f"{label}: " + line([v for n, v in kernels.items() if template_args(n)[-1:] == (flag,)]))
     return "; ".join(parts)
+
+
+def ptxas_each(kernels: dict) -> str:
+    """Every kernel's template arguments, registers, static shared memory,
+    stack and spills (K-IC: bilinear, cluster, resident; K-ICpre:
+    cluster)."""
+    return "; ".join(f"{''.join(template_args(n)) or n} {r} registers, {sm} B smem, stack {st} B, spills {sp} B"
+                     for n, (r, st, sp, sm) in sorted(kernels.items()))
 
 
 def sass(lib: Path) -> dict:
@@ -149,7 +174,7 @@ def build(smoke, tree: Path, kind: str, out: Path):
     from phovo_tpu_torch.ops import _build
 
     csrc = tree / "phovo_tpu_torch" / "csrc"
-    source, name = smoke.LEVEL_ENTRIES[kind]
+    source, name = LIN_ENTRY if kind == "lin" else smoke.LEVEL_ENTRIES[kind]
     cmd = [_build.nvcc(), *_build.NVCC_FLAGS, "-Xptxas", "-v", "-shared", "-I", str(csrc), "-o", str(out),
            str(csrc / source)]
     start = time.perf_counter()
@@ -180,15 +205,17 @@ def ab(smoke, cases, other: Path, card: str) -> None:
     out = ROOT / "build" / "phovo_tpu_torch"
     out.mkdir(parents=True, exist_ok=True)
     trees = {"other": other, "this": ROOT}
-    with ThreadPoolExecutor(4) as pool:
+    with ThreadPoolExecutor(2 * len(SOURCES)) as pool:
         futures = {(key, kind): pool.submit(build, smoke, tree, kind, out / f"ktr_ab_{key}_{kind}.so")
-                   for key, tree in trees.items() for kind in smoke.LEVEL_ENTRIES}
+                   for key, tree in trees.items() for kind in SOURCES}
     entries = {k: f.result() for k, f in futures.items()}
     for (key, kind), (_, names, (kernels, _, clustered, seconds)) in entries.items():
-        print(f"ptxas {key} tree {smoke.LEVEL_ENTRIES[kind][0]}: {ptxas_summary(kernels, clustered)}; C entry "
-              f"parameters {len(names)}; nvcc {seconds:.1f} s")
-    for kind in smoke.LEVEL_ENTRIES:
-        compare_sass(entries["other", kind][2][:3], entries["this", kind][2][:3], smoke.LEVEL_ENTRIES[kind][0])
+        source = LIN_ENTRY[0] if kind == "lin" else smoke.LEVEL_ENTRIES[kind][0]
+        summary = ptxas_each(kernels) if kind in ("ic", "icpre") else ptxas_summary(kernels, clustered)
+        print(f"ptxas {key} tree {source}: {summary}; C entry parameters {len(names)}; nvcc {seconds:.1f} s")
+    for kind in ("tr", "gn", "lin"):
+        compare_sass(entries["other", kind][2][:3], entries["this", kind][2][:3],
+                     LIN_ENTRY[0] if kind == "lin" else smoke.LEVEL_ENTRIES[kind][0])
     rows = []
     for group, label, kind, args, kw in cases:
         runs = {key: smoke.entry_launcher(*entries[key, kind][:2], kind, args, kw) for key in trees}
@@ -196,48 +223,114 @@ def ab(smoke, cases, other: Path, card: str) -> None:
         for key in ("other", "this", "this", "other"):
             times[key].append(smoke.cuda_ms(runs[key][0], REPEATS))
         diff = float((runs["other"][1] - runs["this"][1]).abs().max())
-        n_it = int((runs["other"][2][:, 0] != runs["this"][2][:, 0]).sum())
         o, t = (sum(times[k]) / 2 for k in ("other", "this"))
         rows.append((group, o, t))
+        if kind in ("ic", "icpre"):
+            force = {"resident": False} if kind == "ic" else {}
+            one = smoke.entry_launcher(*entries["this", kind][:2], kind, args, kw, 1, **force)
+            one[0]()
+            torch.cuda.synchronize()
+            bits = all(torch.equal(a, b) for a, b in zip(one[1:], runs["other"][1:]))
+            rule_bits = all(torch.equal(a, b) for a, b in zip(runs["this"][1:], runs["other"][1:]))
+            H, W = (kw["H"], kw["W"]) if kind == "ic" else args[0].shape[1:]
+            b = smoke.bound(*smoke.ic_case_work(kind, args, kw, *runs["this"][1:]))
+            note = (f"rule {smoke.ic_layout(kind, H, W)}, bound {b[0]:.5f} ms ({b[1]}), max|diff| {diff:.3e}, the "
+                    f"rule's outputs the same bits {rule_bits}; C = 1 streamed the other tree's bits {bits}")
+        else:
+            n_it = int((runs["other"][2][:, 0] != runs["this"][2][:, 0]).sum())
+            note = f"max|state diff| {diff:.3e}, {n_it} pairs with other iteration counts"
         print(f"{group}, {label}: other tree {times['other'][0]:.4f}, {times['other'][1]:.4f} ms; this tree "
-              f"{times['this'][0]:.4f}, {times['this'][1]:.4f} ms; this / other {t / o:.4f}; max|state diff| "
-              f"{diff:.3e}, {n_it} pairs with other iteration counts [{card}]")
+              f"{times['this'][0]:.4f}, {times['this'][1]:.4f} ms; this / other {t / o:.4f}; {note} [{card}]")
     print_totals(rows, ("other tree", "this tree"), card)
 
 
 def sweep(smoke, cases, card: str) -> None:
     from phovo_tpu_torch.ops import _build
+    from phovo_tpu_torch.ops import ic as IC
+    from phovo_tpu_torch.ops import ic_batch as ICB
     from phovo_tpu_torch.ops.fused_batch import cluster_size
 
     lib = _build.library()
-    rows = []
+    totals = {}
     for group, label, kind, args, kw in cases:
         fn, names = getattr(lib, smoke.LEVEL_ENTRIES[kind][1]), smoke.entry_names(kind)
+        H, W = (kw["H"], kw["W"]) if "H" in kw else args[0].shape[1:]
+        # (blocks a pair, K-IC's resident flag or None) and the rule's layout
+        layouts = [(c, r) for c in SWEEP
+                   for r in ((False, True) if ICB.ic_pack_fits(H, W, c) else (False,)) if kind == "ic"]
+        layouts = layouts or [(c, None) for c in SWEEP]
+        rule = {"ic": (ICB.ic_cluster_size(H, W), ICB.ic_resident(H, W, ICB.ic_cluster_size(H, W))),
+                "icpre": (IC.ic_precompute_cluster_size(H, W), None)}.get(kind, (cluster_size(H, W), None))
         runs = {}
-        for c in SWEEP:
-            run = smoke.entry_launcher(fn, names, kind, args, kw, c)
+        for c, r in layouts:
+            run = smoke.entry_launcher(fn, names, kind, args, kw, c, **({} if r is None else {"resident": r}))
             try:
                 run[0]()
             except RuntimeError as err:
-                print(f"{group}, {label}: {c} blocks a pair refused ({err})")
+                print(f"{group}, {label}: {c} blocks a pair{', resident' if r else ''} refused ({err})")
                 continue
-            runs[c] = run
-        times = {c: [] for c in runs}
-        for c in [*runs, *reversed(runs)]:
-            times[c].append(smoke.cuda_ms(runs[c][0], REPEATS))
+            runs[c, r] = run
+        times = {key: [] for key in runs}
+        for key in [*runs, *reversed(runs)]:
+            times[key].append(smoke.cuda_ms(runs[key][0], REPEATS))
+        base = runs[layouts[0]]
         parts = []
-        for c, (_, states, diag) in runs.items():
-            diff = float((states - runs[1][1]).abs().max())
-            n_it = int((diag[:, 0] != runs[1][2][:, 0]).sum())
-            mark = " (rule)" if c == cluster_size(kw["H"], kw["W"]) else ""
-            parts.append(f"C = {c}{mark} {sum(times[c]) / 2:.4f} ms (max|diff| {diff:.1e}, {n_it} its differ)")
-        rows.append((group, *(sum(times.get(c, (0.0,))) / 2 for c in SWEEP)))
+        for (c, r), (_, out, diag) in runs.items():
+            diff = float((out - base[1]).abs().max())
+            if kind == "icpre":
+                extra = f"J8 the C = 1 bits {torch.equal(diag, base[2])}"
+            else:
+                extra = f"{int((diag[:, 0] != base[2][:, 0]).sum())} its differ"
+                if r:
+                    extra += f", streamed bits {all(torch.equal(a, b) for a, b in zip(runs[c, False][1:], (out, diag)))}"
+            mark = " (rule)" if (c, r) == rule else ""
+            name = f"C = {c}" + ("" if r is None else (" resident" if r else " streamed"))
+            parts.append(f"{name}{mark} {sum(times[c, r]) / 2:.4f} ms (max|diff| {diff:.1e}, {extra})")
+        for key in runs:
+            name = f"C = {key[0]}" + ("" if key[1] is None else (" resident" if key[1] else " streamed"))
+            acc = totals.setdefault(group, {}).setdefault(name, [0.0, 0])
+            acc[0] += sum(times[key]) / 2
+            acc[1] += 1
         print(f"{group}, {label}: " + "; ".join(parts) + f" [{card}]")
-    print_totals(rows, [f"C = {c}" for c in SWEEP], card)
+    for group, sums in totals.items():
+        print(f"total {group}: " + ", ".join(f"{name} {t:.4f} ({n} levels)" for name, (t, n) in sums.items())
+              + f" ms [{card}]")
+
+
+def serial_tail(smoke, prep, card: str) -> None:
+    """K-IC's time an iteration at 30x40 against a level of 256 pixels (one
+    a thread: the block_sum and the solve on one thread, with one pixel
+    each), at B = 1 and 256, one block a pair, streamed and resident."""
+    from phovo_tpu_torch.ops import _build
+    from phovo_tpu_torch.ops.camera import TUM_FR1
+
+    fn, names = _build.library().phovo_ic_gn_level_batch, smoke.entry_names("ic")
+    for B in (1, 256):
+        args, kw = smoke.ic_pair_args({4: tuple(x[:B + 1] for x in prep[4])}, 4, TUM_FR1)
+        Ts, geom, J8, L, t_i, intr = args
+        tiny = (Ts, geom[:, :, :256].contiguous(), J8[:, :, :256].contiguous(), L,
+                t_i.reshape(B, -1)[:, :256].reshape(B, 1, 256).contiguous(), intr)
+        for resident in (False, True):
+            ms = {}
+            for what, a, shape in (("30x40", args, kw), ("1x256", tiny, dict(H=1, W=256))):
+                for n in (5, 50):
+                    run = smoke.entry_launcher(fn, names, "ic", (*a, n, 0.0, 1.0), dict(shape, sampling="nearest"),
+                                               1, resident=resident)
+                    ms[what, n] = smoke.cuda_ms(run[0], REPEATS)
+            per = {what: (ms[what, 50] - ms[what, 5]) / 45 for what in ("30x40", "1x256")}
+            print(f"K-IC serial tail, B = {B}, one block a pair, {'resident' if resident else 'streamed'}: an "
+                  f"iteration at 30x40 {1e3 * per['30x40']:.2f} us, at 1x256 (one pixel a thread) "
+                  f"{1e3 * per['1x256']:.2f} us, {per['1x256'] / per['30x40']:.2f} of it; 50 iterations at 30x40 "
+                  f"{ms['30x40', 50]:.4f} ms [{card}]")
 
 
 def main() -> int:
-    if len(sys.argv) != 2 or not torch.cuda.is_available():
+    argv = sys.argv[1:]
+    kinds = KINDS
+    if len(argv) == 3 and argv[1] == "--kernels":
+        kinds = tuple(argv[2].split(","))
+        argv = argv[:1]
+    if len(argv) != 1 or not set(kinds) <= set(KINDS) or not torch.cuda.is_available():
         print(__doc__, file=sys.stderr)
         return 1
     card = subprocess.run(["nvidia-smi", "-i", "0", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -247,12 +340,25 @@ def main() -> int:
 
     smoke = chip_smoke()
     _build.library()
-    frames, _ = smoke.keyframe_frames(se3)
-    cases = smoke.cluster_workloads(torch.device("cuda", 0), frames[:smoke.KF_CHUNK + 1])
-    if sys.argv[1] == "--sweep":
+    dev = torch.device("cuda", 0)
+    cases = []
+    if {"tr", "gn"} & set(kinds):
+        frames, _ = smoke.keyframe_frames(se3)
+        cases += [c for c in smoke.cluster_workloads(dev, frames[:smoke.KF_CHUNK + 1]) if c[2] in kinds]
+    prep = None
+    if {"ic", "icpre"} & set(kinds):
+        Is, Ds = smoke.timing_frames(dev)
+        prep, pre = smoke.ic_timing_prep(Is, Ds)
+        del Is, Ds
+        n_pairs = smoke.N_FRAMES - 1
+        batches = (1, 16, n_pairs // 2, n_pairs) if argv[0] == "--sweep" else (n_pairs, 1)
+        cases += [c for c in smoke.ic_workloads(prep, pre, batches) if c[2] in kinds]
+    if argv[0] == "--sweep":
         sweep(smoke, cases, card)
+        if "ic" in kinds:
+            serial_tail(smoke, prep, card)
     else:
-        ab(smoke, cases, Path(sys.argv[1]).resolve(), card)
+        ab(smoke, cases, Path(argv[0]).resolve(), card)
     return 0
 
 
