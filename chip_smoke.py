@@ -45,11 +45,14 @@ Phases, each of which raises on failure (exit code 1, no result line):
      occluder scaled to VGA): each loss cuts the error of 'none'
  6d. per-linearization API: one VGA pair solved by gauss_newton_level over
      make_fused_linearizer (one launch of the one-linearization kernel per
-     iteration), against align_analytic on the GN kernel
+     iteration), against align_analytic on the GN kernel; each level's
+     Gram at its end state, at the rule's split (lin_split), against the
+     plain version
  7b. timing: the per-pair analytic route, the 256-pair analytic chain with
-     huber, tdist and ESM beside 'none', the ceres chain with huber, and
-     the GN kernel at B = 1 and the one-linearization kernel vs their
-     plain versions at 480x640
+     huber, tdist and ESM beside 'none', the ceres chain with huber, the
+     GN kernel at B = 1 at 480x640 and the one-linearization kernel at
+     B = 1 and 16 at every VGA level (through its C entry, and through
+     the wrapper), each against its plain version
  3c. the inverse-compositional kernels vs plain: K-ICpre on 8 VGA frames
      at all five levels (rows within 1e-6, the factor within 1e-4 of its
      largest entry); K-IC on 8 VGA pairs at every active level of the
@@ -106,6 +109,16 @@ Phases, each of which raises on failure (exit code 1, no result line):
  4e. serving: the 257 frames as 8 streams of 33 through align_sequences,
      serve_sequences_chunk (two chunks) and align_sequences_multi: counts,
      kernel vs plain, the flatten against each stream's own chain
+ 4f. the CLIs, in process (main(argv)): 33 synthetic VGA frames written in
+     the raw layout (datasets/raw.py) with their ground truth, the 12
+     shipped presets read by the port's own reader (no pyyaml);
+     phovo-vo --chunk 16 for analytic, ceres, ic and biobjective (each
+     trajectory the in-process align_sequence_chunk* chain's lines, bit
+     for bit), frame mode over 7 pairs, --mode keyframe (analytic),
+     phovo-serve with 2 streams (each its own phovo-vo --chunk lines) and
+     phovo-eval --json; each ATE below standing still, each run's kernel
+     launches counted from 0, pairs/s per CLI, and whether the libpng
+     loader loads (information)
  7e. timing: the keyframe path's frames/s with its dispatches, closures
      and finalize apart, align_sequences beside align_sequence on the same
      256 pairs, align_sequences_multi a time step, and per level K-GN
@@ -116,15 +129,18 @@ Phases, each of which raises on failure (exit code 1, no result line):
      through their C entries: K-TR at B = 1, 16 shared targets and 256
      pairs, K-GN at B = 1, 16 shared targets and 256 pairs, K-GN-bi at
      B = 1 and 256 pairs
-Each of the paths of phases 4, 4b, 4c, 4d, 4e, 5, 6, 6b, 6d, 6e and 6f
-runs with the launch counts set to 0 just before it and read just after. A line
+Each of the paths of phases 4, 4b, 4c, 4d, 4e, 4f (each CLI run), 5, 6,
+6b, 6d, 6e and 6f runs with the launch counts set to 0 just before it and
+read just after. A line
 "[t s] phase" marks each phase's start. The line before the last is the
 kernels' JSON record (for fused_lin, max_abs_err is the largest Gram
 difference over the Gram's largest entry; bound_ms is the least time the
 card could take for the timed work, from the bytes it must move and the
 float32 operations it does; cluster is the blocks a pair by level of the
-timed work, 1 for a kernel of one block a pair; K-IC's resident says by
-level whether its pack stays in shared memory); the last line is
+timed work; K-LIN's split is its blocks a pair by level, and by_level its
+times at B = 1 and 16; K-IC's resident says by level whether its pack
+stays in shared memory; cli_launches counts each kernel's launches under
+each CLI run of phase 4f); the last line is
 {"ok": true, "device": {...}}.
 """
 
@@ -315,6 +331,7 @@ def reset_counts(fb) -> None:
     fb.LIN_LAUNCHES = 0
     fb.SHARED_LAUNCHES = 0
     fb.TR_SHARED_LAUNCHES = 0
+    fb.BI_LAUNCHES = 0
     fused.MULTI_LAUNCHES = 0
 
 
@@ -979,25 +996,47 @@ def phase_linearizer(fb, I8, D16, card):
     gx0, gy0 = pyr.build_gradient_pyramid(i0, scales)
     gx1, gy1 = pyr.build_gradient_pyramid(i1, scales)
     reset_counts(fb)
-    state, its = torch.zeros(6, device=dev), []
+    state, its, ends = torch.zeros(6, device=dev), [], []
+    t0 = time.perf_counter()
     for level in range(L - 1, -1, -1):
         if cfg.max_iterations[level] <= 0:
             continue
+        tgt = fused_ops.pack_target(i1[level], gx1[level], gy1[level])
         linearize = fused_ops.make_fused_linearizer(
-            i0[level], d0[level], fused_ops.pack_target(i1[level], gx1[level], gy1[level]),
-            TUM_FR1.at_level(level), cfg.min_depth, cfg.max_depth, cfg.sampling,
+            i0[level], d0[level], tgt, TUM_FR1.at_level(level), cfg.min_depth, cfg.max_depth, cfg.sampling,
             cfg.robust_loss, cfg.robust_delta, (gx0[level], gy0[level]),
         )
         res = gauss_newton_level(linearize, state, cfg.max_iterations[level], cfg.min_gradient_norms[level],
                                  cfg.lambda_steps[level])
         state = res.state
         its.append(res.iterations)
+        ends.append((level, tgt, state))
     torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
     launches, other = fb.LIN_LAUNCHES, fb.LAUNCHES + fb.TR_LAUNCHES
+    # each level's Gram at the state it ended at, at the rule's split,
+    # against the plain version (these launches come after the count)
+    for level, tgt, end in ends:
+        H, W = i0[level].shape
+        intr = TUM_FR1.at_level(level)
+        args = (i0[level].reshape(1, -1).contiguous(),
+                fused_ops.pack_geometry(d0[level], intr, cfg.min_depth, cfg.max_depth,
+                                        (gx0[level], gy0[level]))[None].contiguous(),
+                tgt[None].contiguous(), intr, end.reshape(1, 6).contiguous())
+        kw = dict(H=H, W=W, sampling=cfg.sampling, **gn_variant_kw(cfg))
+        k, p = fb.fused_lin_batch(*args, **kw), fb.fused_lin_batch_reference(*args, **kw)
+        torch.cuda.synchronize()
+        rel = float(((k - p).abs() / p.abs().amax(dim=(1, 2), keepdim=True)).max())
+        same_nv = torch.equal(k[:, 7, 7], p[:, 7, 7])
+        print(f"per-linearization API: level {level} {H}x{W}, G = {fb.lin_split(H, W)} blocks: Gram at the end state "
+              f"max|diff| / largest entry {rel:.3e}, nvalid equal {same_nv} [{card}]")
+        check(rel <= GRAM_RTOL and same_nv, f"per-linearization Gram at level {level}: rel diff {rel}, nvalid {same_nv}")
     ref = analytic.align_analytic(I[0], D[0], I[1], D[1], TUM_FR1, torch.zeros(6, device=dev), cfg)
     err = float((state - ref.state).abs().max())
     print(f"per-linearization API (huber, ESM): one VGA pair, one-linearization launches {launches} "
-          f"(iterations {its}), other launches {other}, max|state diff| vs align_analytic {err:.3e} [{card}]")
+          f"(iterations {its}), other launches {other}, {1e3 * wall:.3f} ms of wall time (host-paced: each "
+          f"iteration waits for its 6x6 solve; the packs built in it), max|state diff| vs align_analytic "
+          f"{err:.3e} [{card}]")
     check(launches == sum(its) and launches > 0 and other == 0, "the linearizer path did not launch once per iteration")
     check(err <= STATE_ATOL, f"linearizer path vs align_analytic state diff {err}")
     ref_its = [int(ref.iterations[lv]) for lv in range(L - 1, -1, -1) if cfg.max_iterations[lv] > 0]
@@ -1722,7 +1761,8 @@ def phase_bi_api(fb, I8, D16, card):
     print(f"bi-objective warm start: {N_API_PAIRS} pairs, K-GN-bi launches {warm_launches}, max|state diff| kernel vs "
           f"plain {err:.3e}, max|state - zero-init state| {float((warm.state - lm.state).abs().max()):.3e} [{card}]")
     check(warm_launches == active * N_API_PAIRS, "the bi-objective warm chain did not launch once per level per pair")
-    check(fb.LAUNCHES == warm_launches, "the plain bi-objective warm run launched the kernel")
+    check(fb.LAUNCHES == fb.BI_LAUNCHES == warm_launches,
+          "the plain bi-objective warm run launched the kernel, or the chain another variant")
     check(err <= STATE_ATOL and torch.equal(warm.iterations, warm_plain.iterations),
           "bi-objective warm chain differs from plain")
     worst = max(worst, err)
@@ -1735,7 +1775,7 @@ def phase_bi_api(fb, I8, D16, card):
     its = int(one.iterations[0, 0])
     print(f"bi-objective config_only_level_0_analytic: one {SHAPE[0]}x{SHAPE[1]} pair, K-GN-bi launches {fb.LAUNCHES}, "
           f"iterations {its}, {wall:.3f} s, final ||J^T r|| {float(one.gradient_norm[0, 0]):.3f} [{card}]")
-    check(fb.LAUNCHES == 1 and bool(torch.isfinite(one.state).all()),
+    check(fb.LAUNCHES == fb.BI_LAUNCHES == 1 and bool(torch.isfinite(one.state).all()),
           "the level-0 preset did not run once through K-GN-bi")
     if its <= NEAREST_ITERATIONS:
         ref0 = plain(lambda: per_pair(cfg0, [0]))
@@ -2397,13 +2437,14 @@ def phase_keyframe_serving_timing(fb, fused_ops, frames, I8, D16, card):
 # and K-ICpre. The C entry of each, and the source that declares it.
 LEVEL_ENTRIES = {"tr": ("fused_tr_batch.cu", "phovo_fused_tr_level_batch"),
                  "gn": ("fused_gn_batch.cu", "phovo_fused_gn_level_batch"),
+                 "lin": ("fused_lin.cu", "phovo_fused_lin"),
                  "ic": ("ic_gn_batch.cu", "phovo_ic_gn_level_batch"),
                  "icpre": ("ic_precompute.cu", "phovo_ic_precompute")}
 
 
 def entry_names(kind: str) -> list:
-    """The parameter names of this tree's C entry of a level kernel ('tr',
-    'gn', 'ic' or 'icpre'), from its `extern "C"` signature."""
+    """The parameter names of this tree's C entry of a kernel ('tr', 'gn',
+    'lin', 'ic' or 'icpre'), from its `extern "C"` signature."""
     from phovo_tpu_torch.ops import _build
 
     source, name = LEVEL_ENTRIES[kind]
@@ -2411,16 +2452,17 @@ def entry_names(kind: str) -> list:
 
 
 def entry_launcher(fn, names, kind, args, kw, cluster=None, **force):
-    """(run, out, diag): run() launches a level kernel's C entry fn, whose
+    """(run, out, diag): run() launches a kernel's C entry fn, whose
     parameters are `names` (another tree's entry may lack some of this
     tree's, such as `cluster`), once on a wrapper call's inputs (args and
     kw of fused_tr_level_batch for 'tr', fused_gn_level_batch for 'gn',
-    ic_gn_level_batch for 'ic', ic_precompute_batch for 'icpre') with
-    `cluster` blocks a pair (default: the rule's) and `force` (K-IC's
-    `resident`). out and diag are the buffers it writes: the states (K-IC:
+    fused_lin_batch for 'lin', ic_gn_level_batch for 'ic',
+    ic_precompute_batch for 'icpre') with `cluster` blocks a pair (default:
+    the rule's; K-LIN's split G) and `force` (K-IC's `resident`). out and diag are the buffers it writes: the states (K-IC:
     the pose rows) and the diagnostics, whose column 0 is the iteration
-    count; for 'icpre' the factors L and the rows J8. Such launches are not
-    counted; a refused one raises."""
+    count; for 'icpre' the factors L and the rows J8; for 'lin' the Grams
+    and the scratch of the partial sums. Such launches are not counted; a
+    refused one raises."""
     from phovo_tpu_torch.ops import fused_batch as fb
     from phovo_tpu_torch.ops import ic as IC
     from phovo_tpu_torch.ops import ic_batch as ICB
@@ -2433,6 +2475,9 @@ def entry_launcher(fn, names, kind, args, kw, cluster=None, **force):
     elif kind == "icpre":
         values, buffers = IC._ic_precompute_launch_args(*args, **kw, stream=stream, cluster=cluster)
         outs = buffers[::-1]
+    elif kind == "lin":
+        values, buffers = fb._lin_launch_args(*args, **kw, stream=stream, split=cluster, **force)
+        outs = buffers
     else:
         make = fb._tr_launch_args if kind == "tr" else fb._gn_launch_args
         values, buffers = make(*args, **kw, stream=stream, cluster=cluster)
@@ -2523,6 +2568,45 @@ def cluster_workloads(dev, frames):
     return cases
 
 
+LIN_BATCHES = (1, 16, 256)
+
+
+def lin_workloads(dev, batches=LIN_BATCHES, samplings=("nearest", "bilinear")):
+    """[(group, label, 'lin', fused_lin_batch args, kw)]: one linearization
+    (K-LIN) of the first B pairs of the timing workloads' frames at every
+    VGA level, at seeded small states (compare_lin's), per sampling."""
+    from phovo_tpu_torch.models.analytic import prep_frame_analytic
+    from phovo_tpu_torch.ops.camera import TUM_FR1
+    from phovo_tpu_torch.ops.pyramid import level_shape
+    from phovo_tpu_torch.utils.config import config_from_dict
+
+    cfg = config_from_dict(dict(ANALYTIC_PRESET, max_iterations=[3] * 5))
+    Is, Ds = timing_frames(dev)
+    n = max(batches) + 1
+    packs = pair_packs(prep_frame_analytic(Is[:n], Ds[:n], TUM_FR1, cfg))
+    del Is, Ds
+    cases = []
+    for B in batches:
+        for level in range(5):
+            H, W = level_shape(SHAPE, level)
+            i0, geom, t_all = (x[:B].contiguous() for x in packs[level])
+            g = torch.Generator().manual_seed(level)
+            states = (torch.randn((B, 6), generator=g) * 1e-3).to(dev)
+            for sampling in samplings:
+                cases.append((f"K-LIN B = {B} {sampling}", f"level {level} {H}x{W}", "lin",
+                              (i0, geom, t_all, TUM_FR1.at_level(level), states), dict(H=H, W=W, sampling=sampling)))
+    return cases
+
+
+def lin_case_work(args, kw, gram) -> tuple[int, float]:
+    """(bytes, float32 operations) of one K-LIN launch on fused_lin_batch's
+    args and kw with its Grams: each input read once, the Grams written
+    once; a pass over every pixel of every pair."""
+    i0, geom, t_all, _, states = args[:5]
+    ops = i0.shape[0] * kw["H"] * kw["W"] * (GN_FLOPS[kw.get("sampling", "nearest")] + LIN_EXTRA_FLOPS)
+    return nbytes(i0, geom, t_all, states, gram) + 4 * i0.shape[0], float(ops)
+
+
 def level_clusters(levels, rule=None) -> dict:
     """{'HxW': the rule's blocks a pair} of pyramid levels of SHAPE; rule
     defaults to K-GN's and K-TR's, fused_batch.cluster_size."""
@@ -2531,6 +2615,278 @@ def level_clusters(levels, rule=None) -> dict:
 
     rule = rule or cluster_size
     return {"x".join(map(str, level_shape(SHAPE, lv))): rule(*level_shape(SHAPE, lv)) for lv in levels}
+
+
+# Phase 4f: the CLIs on a synthetic VGA sequence in the raw layout
+CLI_FRAMES = 33
+CLI_CHUNK = 16
+CLI_FRAME_MODE_PAIRS = 7
+CLI_SERVE_FRAMES = (CLI_FRAMES, 17)  # the two served streams' lengths
+CLI_PRESETS = {"analytic": "config_5_level_optimization_analytic", "ceres": "config_5_level_optimization_ceres",
+               "ic": "config_5_level_optimization_analytic", "biobjective": "config_5_level_optimization_analytic"}
+
+
+def write_raw_sequence(out, I8, D16, ts, depth_scale):
+    """A sequence in datasets/raw.py's layout (version 2), as phovo-convert
+    writes it: uint8 intensity, uint16 depth counts, timestamps."""
+    import pathlib
+
+    from phovo_tpu_torch.datasets import raw
+
+    out = pathlib.Path(out)
+    out.mkdir(parents=True)
+    np.save(out / "intensity.u8.npy", I8)
+    np.save(out / "depth.u16.npy", D16)
+    np.save(out / "timestamps.f64.npy", np.asarray(ts, np.float64))
+    np.save(out / "depth_timestamps.f64.npy", np.asarray(ts, np.float64))
+    meta = {"format_version": raw.FORMAT_VERSION, "n": len(I8), "height": int(I8.shape[1]),
+            "width": int(I8.shape[2]), "depth_scale": float(depth_scale), "pairing": "associate",
+            "source": "chip_smoke synthetic"}
+    (out / raw.META_NAME).write_text(json.dumps(meta))
+    return out
+
+
+def chunk_entries() -> dict:
+    """{backend: (its align_sequence_chunk* entry, the entry's
+    backend-specific argument)}, named here rather than taken from the
+    CLI, so that the in-process chain checks the CLI's dispatch."""
+    from phovo_tpu_torch.models.analytic import align_sequence_chunk
+    from phovo_tpu_torch.models.autodiff import align_sequence_chunk_autodiff
+    from phovo_tpu_torch.models.biobjective import align_sequence_chunk_biobjective
+    from phovo_tpu_torch.models.ic import align_sequence_chunk_ic
+
+    return {"analytic": (align_sequence_chunk, True), "ceres": (align_sequence_chunk_autodiff, "linearizer"),
+            "autodiff": (align_sequence_chunk_autodiff, "linearizer"), "ic": (align_sequence_chunk_ic, True),
+            "biobjective": (align_sequence_chunk_biobjective, True)}
+
+
+def chunk_chain_lines(backend, I8, D16, ts, cfg, intr, dev, chunk):
+    """The trajectory lines phovo-vo --chunk writes, computed in process:
+    the backend's align_sequence_chunk* entry (chunk_entries) over the same
+    chunks of the same frames (uint8 and uint16 on the device, the carry
+    frame kept there), the poses integrated on the host. Returns the
+    lines."""
+    from phovo_tpu_torch.ops import se3
+    from phovo_tpu_torch.utils.trajectory import format_pose_line
+
+    fn, arg = chunk_entries()[backend]
+    carry_i = torch.from_numpy(I8[0]).to(dev)
+    carry_d = torch.from_numpy(D16[0]).to(dev).to(torch.float32) * float(np.float32(DEPTH_SCALE))
+    pose, lines = np.eye(4), []
+    for lo in range(1, len(I8), chunk):
+        hi = min(lo + chunk, len(I8))
+        res, carry_i, carry_d = fn(carry_i, carry_d, torch.from_numpy(I8[lo:hi]).to(dev),
+                                   torch.from_numpy(D16[lo:hi]).to(dev), intr, cfg, arg, False, DEPTH_SCALE)
+        for k, state in enumerate(res.state.cpu().numpy()):
+            pose = pose @ np.linalg.inv(se3.pose_matrix_np(state))
+            lines.append(format_pose_line(ts[lo + k], pose))
+    return lines
+
+
+def pose_lines(path) -> list:
+    """A trajectory file's pose lines (its header dropped)."""
+    return [ln for ln in open(path).read().splitlines() if ln.strip() and not ln.startswith("#")]
+
+
+def phase_cli(fb, dev, card, shape=SHAPE):
+    """Phase 4f: the port's CLIs in process (main(argv)) on CLI_FRAMES
+    synthetic frames written in the raw layout with their ground truth,
+    every preset read by the port's reader: phovo-vo --chunk CLI_CHUNK for
+    analytic, ceres, ic and biobjective (each trajectory the in-process
+    chunked chain's lines, bit for bit), frame mode over
+    CLI_FRAME_MODE_PAIRS pairs, --mode keyframe (analytic), phovo-serve
+    with two streams (each the lines of its own phovo-vo --chunk run) and
+    phovo-eval --json (each ATE below standing still). Each run's launches
+    are counted from 0 and checked. Returns {CLI run: launches}."""
+    import contextlib
+    import io
+    import pathlib
+    import tempfile
+
+    from phovo_tpu_torch.apps import phovo_eval, phovo_serve, phovo_vo
+    from phovo_tpu_torch.datasets import native_loader
+    from phovo_tpu_torch.ops import _build
+    from phovo_tpu_torch.ops import ic as IC
+    from phovo_tpu_torch.ops import ic_batch as ICB
+    from phovo_tpu_torch.ops.camera import TUM_FR1
+    from phovo_tpu_torch.utils import config as C
+    from phovo_tpu_torch.utils.synthetic import make_sequence
+    from phovo_tpu_torch.utils.trajectory import (Trajectory, TrajectoryWriter, absolute_trajectory_error,
+                                                   read_trajectory)
+
+    presets = sorted(C.builtin_config_dir().glob("*.yml"))
+    cfgs = {p.stem: C.load_config(p) for p in presets}
+    print(f"CLI: {len(cfgs)} presets read by the port's reader (no pyyaml): "
+          + ", ".join(f"{k} {c.num_levels} levels" for k, c in cfgs.items()))
+    check(len(cfgs) == 12, f"{len(cfgs)} presets, expected 12")
+    print(f"CLI: native_loader.available() = {native_loader.available()} (information; the phase reads the raw "
+          f"layout)")
+    device = "cpu" if dev.type == "cpu" else "cuda"
+    intr = TUM_FR1 if shape == SHAPE else TUM_FR1.at_level(int(np.log2(SHAPE[0] // shape[0])))
+    spec = ",".join(repr(float(v)) for v in intr)
+    I, D, gts, ts = make_sequence(intr, shape, CLI_FRAMES)
+    I8 = np.round(np.stack(I) * 255.0).astype(np.uint8)
+    D16 = np.round(np.stack(D) / DEPTH_SCALE).astype(np.uint16)
+    launches = {}
+
+    def counted(name, run):
+        reset_counts(fb)
+        IC.IC_PRE_LAUNCHES = ICB.IC_LAUNCHES = 0
+        t0 = time.perf_counter()
+        rc = run()
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        check(rc == 0, f"{name} exited with {rc}")
+        launches[name] = {"K-GN": fb.LAUNCHES, "K-GN shared": fb.SHARED_LAUNCHES, "K-GN-bi": fb.BI_LAUNCHES,
+                          "K-TR": fb.TR_LAUNCHES,
+                          "K-TR shared": fb.TR_SHARED_LAUNCHES, "K-ICpre": IC.IC_PRE_LAUNCHES,
+                          "K-IC": ICB.IC_LAUNCHES, "K-LIN": fb.LIN_LAUNCHES}
+        return wall
+
+    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR) as tmp:
+        tmp = pathlib.Path(tmp)
+        seq = write_raw_sequence(tmp / "seq", I8, D16, ts, DEPTH_SCALE)
+        gt_path = tmp / "groundtruth.txt"
+        with TrajectoryWriter(gt_path) as w:
+            for t, g in zip(ts, gts):
+                w.write(t, g)
+        gt = read_trajectory(gt_path)
+        common = ["--dataset", str(seq), "--intrinsics", spec, "--device", device, "-q"]
+
+        def ate_of(path):
+            est = read_trajectory(path)
+            still = Trajectory(est.timestamps, np.zeros_like(est.positions),
+                               np.tile([0.0, 0.0, 0.0, 1.0], (len(est), 1)))
+            return absolute_trajectory_error(est, gt)["rmse"], absolute_trajectory_error(still, gt)["rmse"]
+
+        n_pairs = CLI_FRAMES - 1
+        for backend, preset in CLI_PRESETS.items():
+            out = tmp / f"vo_{backend}.txt"
+            cfg_path = C.builtin_config_dir() / f"{preset}.yml"
+            wall = counted(f"phovo-vo --chunk {CLI_CHUNK} {backend}", lambda: phovo_vo.main(
+                ["--config", str(cfg_path), "--output", str(out), "--backend", backend, "--chunk", str(CLI_CHUNK),
+                 "--loader", "raw", *common]))
+            ref = chunk_chain_lines(backend, I8, D16, ts, cfgs[preset], intr, dev, CLI_CHUNK)
+            same = pose_lines(out) == ref
+            ate, still = ate_of(out)
+            print(f"CLI phovo-vo --chunk {CLI_CHUNK} --backend {backend} ({preset}): {n_pairs} pairs in {wall:.3f} s, "
+                  f"{n_pairs / wall:.1f} pairs/s; the in-process chunked chain's lines {same}; ATE {ate:.6f} m "
+                  f"(standing still {still:.6f}); launches {launches[f'phovo-vo --chunk {CLI_CHUNK} {backend}']} "
+                  f"[{card}]")
+            check(same, f"phovo-vo --chunk {backend} differs from the in-process chain")
+            check(np.isfinite(ate) and ate < still, f"phovo-vo --chunk {backend} ATE {ate} not below {still}")
+        n_chunks = -(-n_pairs // CLI_CHUNK)
+        active = sum(1 for n in cfgs[CLI_PRESETS["analytic"]].max_iterations if n > 0)
+        tr_active = sum(1 for n in cfgs[CLI_PRESETS["ceres"]].max_iterations if n > 0)
+        got = launches[f"phovo-vo --chunk {CLI_CHUNK} analytic"]
+        check(got["K-GN"] == active * n_chunks and got["K-GN-bi"] == 0 and got["K-TR"] == 0,
+              f"analytic CLI launches {got}")
+        got = launches[f"phovo-vo --chunk {CLI_CHUNK} ceres"]
+        check(got["K-TR"] == tr_active * n_chunks and got["K-GN"] == 0, f"ceres CLI launches {got}")
+        got = launches[f"phovo-vo --chunk {CLI_CHUNK} ic"]
+        check(got["K-IC"] == active * n_chunks and got["K-ICpre"] > 0 and got["K-GN"] == 0, f"ic CLI launches {got}")
+        got = launches[f"phovo-vo --chunk {CLI_CHUNK} biobjective"]
+        check(got["K-GN"] == got["K-GN-bi"] == active * n_chunks and got["K-TR"] == 0,
+              f"biobjective CLI launches {got}")
+        # the same preset: the depth term must move the trajectory
+        check(pose_lines(tmp / "vo_biobjective.txt") != pose_lines(tmp / "vo_analytic.txt"),
+              "phovo-vo --chunk biobjective wrote the analytic trajectory")
+
+        cfg_path = str(C.builtin_config_dir() / f"{CLI_PRESETS['analytic']}.yml")
+        out = tmp / "vo_frame.txt"
+        wall = counted("phovo-vo frame mode", lambda: phovo_vo.main(
+            ["--config", cfg_path, "--output", str(out), "--max-frames", str(CLI_FRAME_MODE_PAIRS), "--loader", "raw",
+             *common]))
+        got = launches["phovo-vo frame mode"]
+        frame_lines = pose_lines(out)
+        err = float(np.abs(read_trajectory(out).positions - np.asarray(
+            [[float(v) for v in ln.split()[1:4]] for ln in pose_lines(tmp / "vo_analytic.txt")[:len(frame_lines)]]
+        )).max())
+        print(f"CLI phovo-vo frame mode: {CLI_FRAME_MODE_PAIRS} pairs in {wall:.3f} s, "
+              f"{CLI_FRAME_MODE_PAIRS / wall:.1f} pairs/s; max|position - the chunked run's| {err:.3e} m; launches "
+              f"{got} [{card}]")
+        check(len(frame_lines) == CLI_FRAME_MODE_PAIRS and got["K-GN"] == active * CLI_FRAME_MODE_PAIRS,
+              f"frame mode wrote {len(frame_lines)} poses with launches {got}")
+        check(err <= 1e-4, f"frame mode vs chunked positions {err}")
+
+        out = tmp / "vo_keyframe.txt"
+        wall = counted("phovo-vo --mode keyframe", lambda: phovo_vo.main(
+            ["--config", cfg_path, "--output", str(out), "--mode", "keyframe", "--chunk", str(CLI_CHUNK),
+             "--loader", "raw", *common]))
+        got = launches["phovo-vo --mode keyframe"]
+        ate, still = ate_of(out)
+        print(f"CLI phovo-vo --mode keyframe --chunk {CLI_CHUNK}: {CLI_FRAMES} frames in {wall:.3f} s, "
+              f"{CLI_FRAMES / wall:.1f} frames/s; ATE {ate:.6f} m (standing still {still:.6f}); launches {got} [{card}]")
+        check(len(pose_lines(out)) == CLI_FRAMES - 1 and got["K-GN shared"] > 0, f"keyframe CLI launches {got}")
+        check(np.isfinite(ate) and ate < still, f"keyframe CLI ATE {ate} not below {still}")
+
+        streams = []
+        for k, n in enumerate(CLI_SERVE_FRAMES):
+            d = write_raw_sequence(tmp / f"stream{k}", I8[:n], D16[:n], ts[:n], DEPTH_SCALE)
+            single = tmp / f"single{k}.txt"
+            check(phovo_vo.main(["--config", cfg_path, "--output", str(single), "--chunk", str(CLI_CHUNK),
+                                 "--dataset", str(d), "--intrinsics", spec, "--device", device, "-q"]) == 0,
+                  "single-stream phovo-vo failed")
+            streams.append((d, single))
+        served = tmp / "served"
+        wall = counted("phovo-serve", lambda: phovo_serve.main(
+            ["--config", cfg_path, *[a for d, _ in streams for a in ("--dataset", str(d))], "--out-dir", str(served),
+             "--chunk", str(CLI_CHUNK), "--intrinsics", spec, "--device", device, "-q"]))
+        got = launches["phovo-serve"]
+        same = [pose_lines(served / f"{d.name}.txt") == pose_lines(single) for d, single in streams]
+        served_pairs = sum(n - 1 for n in CLI_SERVE_FRAMES)
+        print(f"CLI phovo-serve, {len(streams)} streams ({served_pairs} pairs) in {wall:.3f} s, "
+              f"{served_pairs / wall:.1f} pairs/s; each stream its own phovo-vo --chunk lines {same}; launches {got} "
+              f"[{card}]")
+        check(all(same), "a served stream differs from its single-stream phovo-vo trajectory")
+        check(got["K-GN"] == active * n_chunks, f"phovo-serve launches {got}")
+
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rc = phovo_eval.main([str(gt_path), str(tmp / "vo_analytic.txt"), "--json"])
+        wall = time.perf_counter() - t0
+        result = json.loads(buf.getvalue())
+        ate, still = ate_of(tmp / "vo_analytic.txt")
+        print(f"CLI phovo-eval --json: {wall:.3f} s; ATE rmse {result['ate']['rmse']:.6f} m over "
+              f"{result['ate']['num_pairs']} poses, RPE {result['rpe']['trans_rmse']:.6f} m / "
+              f"{result['rpe']['rot_rmse_deg']:.4f} deg [{card}]")
+        check(rc == 0 and result["ate"]["rmse"] == ate and ate < still, f"phovo-eval gave {result}")
+    return launches
+
+
+def phase_lin_timing(fb, dev, card):
+    """Phase 7b's K-LIN rows: one bilinear linearization of B = 1 and 16
+    pairs at every VGA level at the rule's split (lin_split(H, W) blocks a
+    pair), through its C entry (the kernel: the two launches of the split
+    layout, nothing else) and through the wrapper (its Python, checks and
+    allocations too: host-paced where the kernel is short), against the
+    plain version, in turns (plain, kernel, wrapper, wrapper, kernel,
+    plain), beside the bound. Returns {(B, level): (kernel ms, plain ms,
+    bound, wrapper ms)}."""
+    from phovo_tpu_torch.ops import _build
+
+    fn, names = _build.library().phovo_fused_lin, entry_names("lin")
+    rows = {}
+    for group, label, _, args, kw in lin_workloads(dev, (1, 16), ("bilinear",)):
+        B, level = args[0].shape[0], int(label.split()[1])
+        run = entry_launcher(fn, names, "lin", args, kw)
+        p1 = cuda_ms(lambda: fb.fused_lin_batch_reference(*args, **kw), 3)
+        k1 = cuda_ms(run[0], REPEATS)
+        w1 = cuda_ms(lambda: fb.fused_lin_batch(*args, **kw), REPEATS)
+        w2 = cuda_ms(lambda: fb.fused_lin_batch(*args, **kw), REPEATS)
+        k2 = cuda_ms(run[0], REPEATS)
+        p2 = cuda_ms(lambda: fb.fused_lin_batch_reference(*args, **kw), 3)
+        k, p, w = (k1 + k2) / 2, (p1 + p2) / 2, (w1 + w2) / 2
+        b = bound(*lin_case_work(args, kw, run[1]))
+        rows[B, level] = (k, p, b, w)
+        print(f"layer one-linearization kernel: {label}, B = {B}, G = {fb.lin_split(kw['H'], kw['W'])} blocks a "
+              f"pair: kernel {k:.4f} ms ({k1:.4f}, {k2:.4f}), through the wrapper {w:.4f} ms ({w1:.4f}, {w2:.4f}), "
+              f"plain {p:.4f} ms ({p1:.4f}, {p2:.4f}), bound {b[0]:.5f} ms ({b[1]}), the kernel at {b[0] / k:.1%} "
+              f"of it [{card}]")
+    return rows
 
 
 def phase_cluster_timing(frames, dev, card):
@@ -2717,6 +3073,10 @@ def main() -> int:
     # 4e. serving: the 257 frames as 8 streams
     stamp("4e. serving")
     multi_launches, serve_err = phase_serving(fb, fused_ops, I8, D16, card)
+
+    # 4f. the CLIs: the main paths as a user runs them
+    stamp("4f. CLIs")
+    cli = phase_cli(fb, dev, card)
 
     # 5. the ceres main path: the same frames, the shipped ceres preset
     stamp("5. ceres main path")
@@ -2907,18 +3267,8 @@ def main() -> int:
     print(f"layer GN level kernel at B = 1 (the per-pair level): {SHAPE[0]}x{SHAPE[1]}, {NEAREST_ITERATIONS} nearest "
           f"iterations, {fb.cluster_size(*SHAPE)} blocks: kernel {(k1 + k2) / 2:.3f} ms ({k1:.3f}, {k2:.3f}), plain "
           f"{(p1 + p2) / 2:.3f} ms ({p1:.3f}, {p2:.3f}), bound {gn1_bound[0]:.4f} ms ({gn1_bound[1]}) [{card}]")
-    lin = (*one, TUM_FR1, torch.full((1, 6), 1e-3, device=dev))
-    lin_kw = dict(H=SHAPE[0], W=SHAPE[1], sampling="bilinear")
-    p1 = cuda_ms(lambda: fb.fused_lin_batch_reference(*lin, **lin_kw), REPEATS)
-    k1 = cuda_ms(lambda: fb.fused_lin_batch(*lin, **lin_kw), REPEATS)
-    k2 = cuda_ms(lambda: fb.fused_lin_batch(*lin, **lin_kw), REPEATS)
-    p2 = cuda_ms(lambda: fb.fused_lin_batch_reference(*lin, **lin_kw), REPEATS)
-    lin_ms, lin_plain_ms = (k1 + k2) / 2, (p1 + p2) / 2
-    lin_bound = bound(nbytes(*lin, fb.fused_lin_batch(*lin, **lin_kw)),
-                      SHAPE[0] * SHAPE[1] * (GN_FLOPS["bilinear"] + LIN_EXTRA_FLOPS))
-    print(f"layer one-linearization kernel: {SHAPE[0]}x{SHAPE[1]}, B = 1 (one SM): kernel {lin_ms:.3f} ms "
-          f"({k1:.3f}, {k2:.3f}), plain {lin_plain_ms:.3f} ms ({p1:.3f}, {p2:.3f}), bound {lin_bound[0]:.4f} ms "
-          f"({lin_bound[1]}) [{card}]")
+    lin_rows = phase_lin_timing(fb, dev, card)
+    lin_ms, lin_plain_ms, lin_bound, _ = lin_rows[1, 0]
 
     # 7c. the IC chain, its prep and its kernels
     stamp("7c. IC timing")
@@ -2985,7 +3335,10 @@ def main() -> int:
             "bound_by": lin_bound[1],
             "library_ms": None,
             "variants": variants["fused_lin"][1],
-            "cluster": 1,
+            "split": level_clusters(range(5), fb.lin_split),
+            "by_level": {f"B = {B}, level {lv}": {"ms": r[0], "plain_ms": r[1], "bound_ms": r[2][0],
+                                                   "wrapper_ms": r[3]}
+                         for (B, lv), r in lin_rows.items()},
         },
         {
             "name": "ic_precompute",
@@ -3060,6 +3413,16 @@ def main() -> int:
             "cluster": level_clusters(an_levels),
         },
     ]}
+    # each kernel's launches under each CLI run that launched it
+    counters = {"fused_gn_level_batch": "K-GN", "fused_tr_level_batch": "K-TR", "fused_lin": "K-LIN",
+                "ic_precompute": "K-ICpre", "ic_gn_level_batch": "K-IC", "fused_gn_level_batch_bi": "K-GN",
+                "fused_gn_level_batch_shared": "K-GN shared", "fused_tr_level_batch_shared": "K-TR shared",
+                "fused_gn_level_multi": None}
+    for entry in record["kernels"]:
+        key = counters[entry["name"]]
+        bi = entry["name"].endswith("_bi")
+        entry["cli_launches"] = {run: c[key] for run, c in cli.items()
+                                 if key and c[key] and ("biobjective" in run) == bi}
     print(json.dumps(record))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

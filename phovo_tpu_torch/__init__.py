@@ -27,9 +27,14 @@ Layout mirrors phovo_tpu:
             (models/keyframe.py, KeyframeVisualOdometry)
   parallel/ single-device batched alignment and multi-stream serving
             (parallel/batch.py) and the pose graph (parallel/pose_graph.py)
-  datasets/ the RGB-D frame record the keyframe tracker reads
-  utils/    config schedule and YAML presets, synthetic frames,
-            trajectories and ATE
+  datasets/ TUM sequences (index files, pairing, the cv2 reader), the raw
+            memmap replay format and the libpng loader's bindings
+  apps/     the CLIs, run as python -m phovo_tpu_torch.apps.<name>:
+            phovo_vo, phovo_align, phovo_eval, phovo_convert and
+            single-card phovo_serve (the card unless --device names
+            another)
+  utils/    config schedule and its YAML reader (no pyyaml), synthetic
+            frames, trajectories with ATE and RPE, JSONL metrics
 """
 
 __version__ = "0.1.0"

@@ -47,7 +47,7 @@ _ENTRIES = {
         _I,
     ),
     "phovo_fused_lin": (
-        [_P] * 6 + [_I] * 6 + [_F] * 4 + [_P],
+        [_P] * 6 + [_I, _P] + [_I] * 7 + [_F] * 4 + [_P],
         _I,
     ),
     "phovo_ic_precompute": (

@@ -47,6 +47,12 @@ def _f32(v: float) -> float:
 TUM_FR1 = Intrinsics(_f32(517.3), _f32(516.5), _f32(318.6), _f32(255.3))
 # default/kinect (PhotoconsistencyFrameAlignment.cpp)
 TUM_DEFAULT = Intrinsics(_f32(525.0), _f32(525.0), _f32(319.5), _f32(239.5))
+# fr2 and fr3 (the TUM benchmark's calibrations, as phovo_tpu has them)
+TUM_FR2 = Intrinsics(_f32(520.9), _f32(521.0), _f32(325.1), _f32(249.7))
+TUM_FR3 = Intrinsics(_f32(535.4), _f32(539.2), _f32(320.1), _f32(247.6))
+
+# the CLIs' --intrinsics presets
+NAMED_INTRINSICS = {"fr1": TUM_FR1, "fr2": TUM_FR2, "fr3": TUM_FR3, "default": TUM_DEFAULT}
 
 
 def backproject(depth: torch.Tensor, intr: Intrinsics) -> torch.Tensor:

@@ -8,10 +8,11 @@ pairs (phovo_tpu/ops/fused.py::_fused_kernel).
 On a CUDA tensor each wrapper launches its hand-written kernel,
 csrc/fused_gn_batch.cu, csrc/fused_tr_batch.cu (one thread-block cluster
 per pair, of cluster_size(H, W) blocks, the level's whole iteration loop
-inside the cluster) or csrc/fused_lin.cu (one block per pair, one
-linearization). The two level kernels also take one source pack shared by
-every pair (keyframe tracking: phovo_tpu's shared_source mode), which
-gives the bits of the same pack repeated B times. On a CPU tensor
+inside the cluster) or csrc/fused_lin.cu (one linearization, each pair
+split over lin_split(H, W) blocks whose sums meet in a fixed order). The
+two level kernels also take one source pack shared by every pair
+(keyframe tracking: phovo_tpu's shared_source mode), which gives the bits
+of the same pack repeated B times. On a CPU tensor
 it runs the plain batched torch version of the same function
 (fused_gn_level_batch_reference, fused_tr_level_batch_reference,
 fused_lin_batch_reference): every pair advances in lockstep and freezes on
@@ -47,8 +48,14 @@ LIN_LAUNCHES = 0
 # keyframe's pack read by every pair), with the same contract.
 SHARED_LAUNCHES = 0
 TR_SHARED_LAUNCHES = 0
+# Of LAUNCHES, the bi-objective variant's (K-GN-bi: depth_gains given),
+# with the same contract.
+BI_LAUNCHES = 0
 
 _SAMPLINGS = ("nearest", "bilinear")
+# the one-linearization kernel's sums a block (csrc/phovo_linearize.cuh
+# kGramSums): JtJ's upper triangle, J^T r, cost, count, J^T valid
+_GRAM_SUMS = 35
 # the kernels' loss codes (csrc/phovo_linearize.cuh enum Loss)
 _LOSS_CODES = {name: code for code, name in enumerate(LOSSES)}
 
@@ -208,7 +215,7 @@ def fused_gn_level_batch(
     pair (i0 (1, N), geom (1, GR, N), B taken from t_all: the keyframe of
     a tracked chunk) gives the bits of the same pack repeated B times, in
     the kernel and in the plain version; photometric, every loss and ESM."""
-    global LAUNCHES, SHARED_LAUNCHES
+    global LAUNCHES, SHARED_LAUNCHES, BI_LAUNCHES
     if i0.device.type == "cpu":
         return fused_gn_level_batch_reference(
             i0, geom, t_all, intr, init_states, max_iterations,
@@ -237,6 +244,7 @@ def fused_gn_level_batch(
             _raise_on_launch_error("fused_gn_batch", lib.phovo_fused_gn_level_batch(*args), t_all.shape[0], H, W)
             LAUNCHES += 1
             SHARED_LAUNCHES += shared
+            BI_LAUNCHES += depth_gains is not None
     # one contiguous (B,) row per diagnostic: the sigma out goes back in
     # as the next level's robust_scale
     cols = diag.t().contiguous()
@@ -777,6 +785,49 @@ def _check_lin_inputs(*args):
         raise ValueError("the one-linearization kernel takes one source pack per pair, not a shared one")
 
 
+def lin_split(H: int, W: int) -> int:
+    """Blocks K-LIN spreads one pair's H x W linearization over: about
+    2,400 pixels a block, a power of two (30x40: 1, 60x80: 2, 120x160: 8,
+    240x320: 32, 480x640: 128), so a lone 480x640 pair fills the card. The
+    order of the Gram's pixel sums depends on it, so it is a function of
+    the level's shape alone, never of B: a pair gives the same bits alone
+    and in a batch."""
+    # Chosen from timing G = 1 to 512 at every VGA level, B = 1, 16 and
+    # 256, both samplings (tools/ktr_ab.py --sweep --kernels lin; PERF.md
+    # has the sweeps): far below ~2,400 pixels a block the second launch
+    # and the partials cost more than the extra SMs give at large B; far
+    # above it a lone pair leaves SMs idle.
+    split = 1
+    while split * 2_400 < H * W:
+        split *= 2
+    return split
+
+
+def _lin_launch_args(i0, geom, t_all, intr, states, *, H, W, sampling="nearest", robust_loss="none",
+                     robust_delta=0.1, esm=False, robust_scale=None, stream=0, split=None, partials=None):
+    """phovo_fused_lin's arguments in its order (csrc/fused_lin.cu), from
+    fused_lin_batch's arguments, with the tensors they point at: (args,
+    (gram_out, partials, scale_in)). split defaults to lin_split(H, W);
+    another value forces a layout through the C entry (the card tests and
+    the sweep). partials is the (B, G, 35) float32 scratch of the split
+    layout, allocated here unless given; the C entry refuses one that is
+    too small."""
+    B = i0.shape[0]
+    G = lin_split(H, W) if split is None else int(split)
+    scale_in = _scales(robust_delta, robust_scale, B, i0.device)
+    gram = torch.empty((B, 8, 8), dtype=torch.float32, device=i0.device)
+    if partials is None:
+        n = B * G * _GRAM_SUMS if G > 1 else 0
+        partials = torch.empty((n,), dtype=torch.float32, device=i0.device)
+    args = (
+        i0.data_ptr(), geom.data_ptr(), t_all.data_ptr(), states.data_ptr(),
+        scale_in.data_ptr(), partials.data_ptr() if partials.numel() else None, partials.numel(),
+        gram.data_ptr(), B, H, W, int(sampling == "bilinear"), _LOSS_CODES[robust_loss], int(esm), G,
+        intr.fx, intr.fy, intr.cx, intr.cy, stream,
+    )
+    return args, (gram, partials, scale_in)
+
+
 def fused_lin_batch(
     i0: torch.Tensor,  # (B, H*W) source intensities
     geom: torch.Tensor,  # (B, 4 | 6, H*W) pack_geometry rows (6 with ESM)
@@ -795,10 +846,11 @@ def fused_lin_batch(
     """ONE linearization of B pairs at their states: (B, 8, 8) Gram of the
     per-pixel rows [J0..J5, r_w, valid] (phovo_tpu/ops/fused.py::
     _fused_kernel), with slot (6, 7) and (7, 6) holding the band-masked
-    pixel count, always 0 here. The CUDA kernel for CUDA tensors, the plain
-    torch version for CPU tensors; any other device, a failed build or
-    launch raises. The loss's scale is robust_scale per pair when given
-    (the carried Student-t sigma), else robust_delta."""
+    pixel count, always 0 here. The CUDA kernel for CUDA tensors (each pair
+    over lin_split(H, W) blocks), the plain torch version for CPU tensors;
+    any other device, a failed build or launch raises. The loss's scale is
+    robust_scale per pair when given (the carried Student-t sigma), else
+    robust_delta."""
     global LIN_LAUNCHES
     if i0.device.type == "cpu":
         return fused_lin_batch_reference(
@@ -813,21 +865,20 @@ def fused_lin_batch(
     from phovo_tpu_torch.ops import _build
 
     lib = _build.library()
-    B = i0.shape[0]
-    scale_in = _scales(robust_delta, robust_scale, B, i0.device)
-    gram = torch.empty((B, 8, 8), dtype=torch.float32, device=i0.device)
-    if B:
-        with torch.cuda.device(i0.device):
-            stream = torch.cuda.current_stream(i0.device).cuda_stream
-            err = lib.phovo_fused_lin(
-                i0.data_ptr(), geom.data_ptr(), t_all.data_ptr(),
-                states.data_ptr(), scale_in.data_ptr(), gram.data_ptr(),
-                B, H, W, int(sampling == "bilinear"), _LOSS_CODES[robust_loss],
-                int(esm), intr.fx, intr.fy, intr.cx, intr.cy, stream,
-            )
-        if err:
-            raise RuntimeError(f"fused_lin kernel launch failed: CUDA error {err}")
-        LIN_LAUNCHES += 1
+    with torch.cuda.device(i0.device):
+        args, (gram, _, _) = _lin_launch_args(
+            i0, geom, t_all, intr, states, H=H, W=W, sampling=sampling, robust_loss=robust_loss,
+            robust_delta=robust_delta, esm=esm, robust_scale=robust_scale,
+            stream=torch.cuda.current_stream(i0.device).cuda_stream,
+        )
+        if i0.shape[0]:
+            err = lib.phovo_fused_lin(*args)
+            if err:
+                raise RuntimeError(
+                    f"fused_lin kernel launch failed: CUDA error {err} (B = {i0.shape[0]} pairs, {H}x{W}, "
+                    f"{lin_split(H, W)} blocks a pair by the rule)"
+                )
+            LIN_LAUNCHES += 1
     return gram
 
 

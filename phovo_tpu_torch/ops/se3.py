@@ -149,3 +149,16 @@ def rotation_to_quaternion_np(R) -> np.ndarray:
     q = np.where(cond_tr, q0, np.where(cond_1, q1, np.where(cond_2, q2, q3)))
     q = q / np.linalg.norm(q, axis=-1, keepdims=True)
     return np.where(q[..., 3:4] < 0, -q, q)
+
+
+def quaternion_to_rotation_np(q) -> np.ndarray:
+    """Host-side float64 (..., 4) quaternion [qx, qy, qz, qw] -> (..., 3, 3)
+    rotation (phovo_tpu/ops/se3.py::quaternion_to_rotation_np)."""
+    q = np.asarray(q, np.float64)
+    qx, qy, qz, qw = np.moveaxis(q, -1, 0)
+    rows = [
+        [1 - 2 * (qy**2 + qz**2), 2 * (qx * qy - qz * qw), 2 * (qx * qz + qy * qw)],
+        [2 * (qx * qy + qz * qw), 1 - 2 * (qx**2 + qz**2), 2 * (qy * qz - qx * qw)],
+        [2 * (qx * qz - qy * qw), 2 * (qy * qz + qx * qw), 1 - 2 * (qx**2 + qy**2)],
+    ]
+    return np.stack([np.stack(r, axis=-1) for r in rows], axis=-2)

@@ -7,8 +7,9 @@ carries a phovo_tpu config across, and load_config reads the same files
 (the shipped presets under phovo_tpu/configs/, native schema, and the
 reference's OpenCV FileStorage schema with its `%YAML:1.0` header and
 "... (at each level)" keys). Lists are indexed by pyramid level; levels
-with max_iterations 0 are skipped (state passes through). pyyaml is
-imported only inside load_config: config_from_dict needs no YAML parser.
+with max_iterations 0 are skipped (state passes through). The files are
+read by this module's own reader (parse_config_text), not pyyaml: the
+port's machines need not have it.
 """
 
 from __future__ import annotations
@@ -129,19 +130,181 @@ class PhovoConfig:
         return cls(**kwargs).validate()
 
 
-def _sanitize_opencv_yaml(text: str) -> str:
-    """Strip the OpenCV FileStorage header lines PyYAML rejects."""
-    text = re.sub(r"^%YAML:1\.0\s*\n", "", text)
-    text = re.sub(r"^---\s*\n", "", text)
+# YAML 1.1's implicit scalar types as pyyaml resolves them (its
+# resolver.py), for the plain scalars of the config subset: bools, nulls,
+# decimal ints and floats. A float needs a dot, and an exponent a sign, so
+# '1e-4' stays a string (and _FIELD_TYPES coerces it). Other YAML 1.1 int
+# forms (binary, octal, hex, sexagesimal) are outside the subset.
+_YAML_BOOL = {
+    **dict.fromkeys(("yes", "Yes", "YES", "true", "True", "TRUE", "on", "On", "ON"), True),
+    **dict.fromkeys(("no", "No", "NO", "false", "False", "FALSE", "off", "Off", "OFF"), False),
+}
+_YAML_NULL = ("", "~", "null", "Null", "NULL")
+_YAML_INT = re.compile(r"[-+]?(?:0|[1-9][0-9_]*)")
+_YAML_OTHER_INT = re.compile(r"[-+]?(?:0b[0-1_]+|0[0-7_]+|0x[0-9a-fA-F_]+|[1-9][0-9_]*(?::[0-5]?[0-9])+)")
+_YAML_FLOAT = re.compile(
+    r"[-+]?(?:[0-9][0-9_]*)\.[0-9_]*(?:[eE][-+][0-9]+)?|\.[0-9][0-9_]*(?:[eE][-+][0-9]+)?"
+)
+_YAML_SPECIAL_FLOAT = {
+    **dict.fromkeys((".inf", ".Inf", ".INF", "+.inf", "+.Inf", "+.INF"), float("inf")),
+    **dict.fromkeys(("-.inf", "-.Inf", "-.INF"), float("-inf")),
+    **dict.fromkeys((".nan", ".NaN", ".NAN"), float("nan")),
+}
+# a plain scalar of the subset: no YAML indicator first, no flow or quote
+# characters inside
+_PLAIN = re.compile(r"[^-?:,\[\]{}#&*!|>'\"%@`\s][^,\[\]{}'\"]*|-[^\s,\[\]{}'\"][^,\[\]{}'\"]*")
+
+
+class _Line:
+    """A cursor over one line of a config file, for error messages."""
+
+    def __init__(self, number: int, text: str):
+        self.number, self.text, self.pos = number, text, 0
+
+    def fail(self, why: str) -> ValueError:
+        return ValueError(f"config line {self.number}: {why}: {self.text.strip()!r}")
+
+    def skip_space(self) -> None:
+        while self.pos < len(self.text) and self.text[self.pos] in " \t":
+            self.pos += 1
+
+    def at_end(self) -> bool:
+        """Past the last token: the end of the line, or a comment (a '#'
+        after whitespace or at the start)."""
+        self.skip_space()
+        return self.pos >= len(self.text) or (
+            self.text[self.pos] == "#" and (self.pos == 0 or self.text[self.pos - 1] in " \t"))
+
+
+def _plain_scalar(text: str, line: _Line):
+    """A plain (unquoted) scalar's value as pyyaml's safe_load types it."""
+    if text in _YAML_BOOL:
+        return _YAML_BOOL[text]
+    if text in _YAML_NULL:
+        return None
+    if text in _YAML_SPECIAL_FLOAT:
+        return _YAML_SPECIAL_FLOAT[text]
+    if _YAML_INT.fullmatch(text):
+        return int(text.replace("_", ""))
+    if _YAML_FLOAT.fullmatch(text):
+        return float(text.replace("_", ""))
+    if _YAML_OTHER_INT.fullmatch(text):
+        raise line.fail("a binary, octal, hex or sexagesimal number is outside the config subset")
+    if not _PLAIN.fullmatch(text) or ": " in text or " #" in text:
+        raise line.fail(f"{text!r} is not a scalar of the config subset")
     return text
 
 
-def load_config(path: str | Path) -> PhovoConfig:
-    """Load a reference-schema or native-schema YAML config file."""
-    import yaml
+def _scalar(line: _Line, stops: str):
+    """The scalar at the cursor: quoted ('...' with '' for a quote, or
+    "..." without backslashes), or plain up to one of `stops`, a comment or
+    the end of the line; the cursor moves past it."""
+    line.skip_space()
+    text = line.text
+    if line.pos < len(text) and text[line.pos] in "'\"":
+        quote = text[line.pos]
+        out, k = [], line.pos + 1
+        while True:
+            end = text.find(quote, k)
+            if end < 0:
+                raise line.fail("unterminated quoted scalar")
+            out.append(text[k:end])
+            if quote == "'" and text.startswith("''", end):
+                out.append("'")
+                k = end + 2
+                continue
+            break
+        value = "".join(out)
+        if quote == '"' and "\\" in value:
+            raise line.fail("a backslash escape is outside the config subset")
+        line.pos = end + 1
+        return value
+    start = line.pos
+    while line.pos < len(text) and text[line.pos] not in stops:
+        if text[line.pos] == "#" and text[line.pos - 1] in " \t":
+            break
+        line.pos += 1
+    return _plain_scalar(text[start:line.pos].rstrip(), line)
 
-    data = yaml.safe_load(_sanitize_opencv_yaml(Path(path).read_text()))
-    if not isinstance(data, dict):
+
+def _value(line: _Line):
+    """A mapping value: a scalar, or a flow sequence of scalars."""
+    line.skip_space()
+    if not line.text.startswith("[", line.pos):
+        value = _scalar(line, "")
+    else:
+        line.pos += 1
+        value = []
+        line.skip_space()
+        if line.text.startswith("]", line.pos):
+            line.pos += 1
+        else:
+            while True:
+                line.skip_space()
+                if line.pos < len(line.text) and line.text[line.pos] in "[{":
+                    raise line.fail("a nested collection is outside the config subset")
+                if line.at_end() or line.text[line.pos] in ",]":
+                    raise line.fail("an empty item of a flow sequence")
+                value.append(_scalar(line, ",]"))
+                line.skip_space()
+                if line.text.startswith(",", line.pos):
+                    line.pos += 1
+                elif line.text.startswith("]", line.pos):
+                    line.pos += 1
+                    break
+                else:
+                    raise line.fail("a flow sequence must close on its line")
+    if not line.at_end():
+        raise line.fail("unexpected text after the value")
+    return value
+
+
+def parse_config_text(text: str) -> dict:
+    """The mapping of a config file, typed as pyyaml's safe_load types it,
+    for the flat subset the shipped presets (phovo_tpu/configs/*.yml) and
+    the reference's OpenCV FileStorage files use: `%YAML:1.0` and `---`
+    header lines, `#` comments, one `key: value` a line at the left margin
+    (keys may hold spaces and parentheses), values plain or quoted
+    scalars or one-line flow sequences `[a, b, c]` of them. Anything else
+    (indented or continued lines, block sequences, nested or flow
+    mappings, anchors, tags, escapes) raises ValueError naming the line; a
+    repeated key keeps its last value, as pyyaml does."""
+    data: dict = {}
+    in_header = True
+    for number, raw in enumerate(text.splitlines(), start=1):
+        line = _Line(number, raw)
+        if line.at_end():
+            continue
+        if in_header and raw.startswith("%"):
+            if not re.fullmatch(r"%YAML:?\s*1\.[01]\s*", raw):
+                raise line.fail("only the %YAML 1.x directive is in the config subset")
+            continue
+        if re.fullmatch(r"---\s*(#.*)?", raw):
+            if not in_header:
+                raise line.fail("a second document is outside the config subset")
+            in_header = False
+            continue
+        in_header = False
+        if raw[0] in " \t":
+            raise line.fail("an indented line is outside the config subset")
+        if raw[0] == ":":
+            raise line.fail("expected 'key: value'")
+        key = _scalar(line, ":")
+        if not line.text.startswith(":", line.pos) or not (
+                line.pos + 1 == len(raw) or raw[line.pos + 1] in " \t"):
+            raise line.fail("expected 'key: value'")
+        line.pos += 1
+        if not isinstance(key, str):
+            key = raw[:line.pos - 1].strip()
+        data[key] = _value(line)
+    return data
+
+
+def load_config(path: str | Path) -> PhovoConfig:
+    """Load a reference-schema or native-schema YAML config file (the
+    flat subset parse_config_text reads)."""
+    data = parse_config_text(Path(path).read_text())
+    if not data:
         raise ValueError(f"config {path} did not parse to a mapping")
     return config_from_dict(data)
 

@@ -30,7 +30,12 @@ the Gauss-Newton kernel's bounds, nearest over 2 iterations. The
 bi-objective level (K-GN-bi) is held to the Gauss-Newton kernel's bounds
 at B = 8 and B = 1 (its kernel adds each pixel's depth products into the
 intensity's sums, the plain version sums the channels apart: another
-order of the same float32 sums).
+order of the same float32 sums). The one-linearization kernel (K-LIN) is
+held to its plain Gram within 1e-4 of each pair's largest entry, with
+valid counts equal, at 96x128 and, split over lin_split(H, W) blocks a
+pair, at 480x640 and 120x160; a pair alone gives its row of a batch bit
+for bit, and every forced layout stays within the same bounds of one block
+a pair.
 """
 
 import functools
@@ -1084,3 +1089,108 @@ def test_ic_resident_pack_too_large_raises(monkeypatch):
     with pytest.raises(RuntimeError, match="launch failed: CUDA error"):
         ICB.ic_gn_level_batch(*args, **kw)
     assert ICB.IC_LAUNCHES == before
+
+
+# -- the one-linearization kernel split over lin_split(H, W) blocks a pair ----
+
+LIN_SPLITS = (1, 2, 4, 8, 16, 32, 64, 128, 256)
+
+
+def _lin_call(level, B, sampling="bilinear", loss="none"):
+    """(args, kw) of fused_lin_batch for the first B pairs (frame k to k +
+    1) of _vga_packs' frames at a VGA level, at small seeded states."""
+    from phovo_tpu_torch.ops.camera import TUM_FR1
+
+    i0, geom, t_all = _vga_packs(False)[level]
+    H, W = VGA_LEVELS[level]
+    states = torch.from_numpy((np.random.default_rng(level).standard_normal((B, 6)) * 1e-3).astype(np.float32))
+    args = (i0[:B].contiguous(), geom[:B].contiguous(), t_all[1:B + 1].contiguous(), TUM_FR1.at_level(level),
+            states.cuda())
+    return args, dict(H=H, W=W, sampling=sampling, robust_loss=loss, robust_delta=DELTAS[loss])
+
+
+def _assert_gram_close(k, p):
+    """K-LIN's bounds: the Gram within 1e-4 of each pair's largest entry
+    (the pixel sums in another order), valid counts equal, the band slot
+    0, symmetric."""
+    scale = p.abs().amax(dim=(1, 2), keepdim=True)
+    assert bool(((k - p).abs() <= 1e-4 * scale).all()), float(((k - p).abs() / scale).max())
+    assert torch.equal(k[:, 7, 7], p[:, 7, 7])
+    assert float(k[:, 6, 7].abs().sum()) == 0.0
+    assert torch.equal(k, k.transpose(1, 2))
+
+
+def _lin_entry(args, kw, split, partials=None):
+    """One K-LIN launch through the C entry at a forced layout: (the CUDA
+    error, the Grams)."""
+    from phovo_tpu_torch.ops import _build
+
+    values, (gram, *_) = FB._lin_launch_args(*args, **kw, stream=torch.cuda.current_stream().cuda_stream,
+                                             split=split, partials=partials)
+    err = _build.library().phovo_fused_lin(*values)
+    torch.cuda.synchronize()
+    return err, gram
+
+
+@pytest.mark.parametrize("loss", ["none", "huber", "tdist"])
+@pytest.mark.parametrize("sampling", ["nearest", "bilinear"])
+@pytest.mark.parametrize("B", [1, 16])
+@pytest.mark.parametrize("level", sorted(VGA_LEVELS))
+def test_lin_kernel_matches_plain_at_vga(level, B, sampling, loss):
+    """K-LIN at 480x640 and 120x160 at the rule's split (lin_split: 128 and
+    8 blocks a pair) against its plain version, one launch counted."""
+    args, kw = _lin_call(level, B, sampling, loss)
+    before = FB.LIN_LAUNCHES
+    k = FB.fused_lin_batch(*args, **kw)
+    assert FB.LIN_LAUNCHES == before + 1
+    p = FB.fused_lin_batch_reference(*args, **kw)
+    torch.cuda.synchronize()
+    _assert_gram_close(k, p)
+
+
+@pytest.mark.parametrize("level", sorted(VGA_LEVELS))
+def test_lin_pair_alone_gives_its_row_of_a_batch(level):
+    """A pair alone gives the bits of its row in a 256-pair launch: the
+    split is the level's, whatever B."""
+    args, kw = _lin_call(level, 256)
+    batch = FB.fused_lin_batch(*args, **kw)
+    for j in (0, 1, 128, 255):
+        one = FB.fused_lin_batch(*(x[j:j + 1] for x in args[:3]), args[3], args[4][j:j + 1], **kw)
+        assert torch.equal(one[0], batch[j]), j
+
+
+@pytest.mark.parametrize("level", sorted(VGA_LEVELS))
+def test_lin_every_layout_matches_one_block(level):
+    """Every split G forced through the C entry against G = 1 on 16 pairs
+    within the Gram's bounds; G = 1 forced is the wrapper's one-block
+    layout, bit for bit."""
+    args, kw = _lin_call(level, 16)
+    err, base = _lin_entry(args, kw, 1)
+    assert err == 0
+    H, W = VGA_LEVELS[level]
+    with mock.patch.object(FB, "lin_split", lambda H, W: 1):
+        assert torch.equal(FB.fused_lin_batch(*args, **kw), base)
+    for split in LIN_SPLITS[1:]:
+        err, gram = _lin_entry(args, kw, split)
+        assert err == 0, (split, err)
+        _assert_gram_close(gram, base)
+
+
+def test_lin_refuses_a_small_scratch_and_a_split_below_one(monkeypatch):
+    """A scratch smaller than B * G * 35 floats and a split of 0 are
+    refused before anything runs (cudaErrorInvalidValue, 1); the wrapper
+    raises and counts no launch, and the next launch is unaffected."""
+    args, kw = _lin_call(2, 4)
+    ok = FB.fused_lin_batch(*args, **kw)
+    G = FB.lin_split(*VGA_LEVELS[2])
+    err, _ = _lin_entry(args, kw, G, partials=torch.empty(4 * G * 35 - 1, device="cuda"))
+    assert err == 1
+    err, _ = _lin_entry(args, kw, 0)
+    assert err == 1
+    before = FB.LIN_LAUNCHES
+    monkeypatch.setattr(FB, "lin_split", lambda H, W: 0)
+    with pytest.raises(RuntimeError, match="launch failed: CUDA error"):
+        FB.fused_lin_batch(*args, **kw)
+    assert FB.LIN_LAUNCHES == before
+    monkeypatch.undo()
+    assert torch.equal(FB.fused_lin_batch(*args, **kw), ok)

@@ -1,12 +1,13 @@
 #!/usr/bin/env python3
 """A/B timing of phovo_tpu_torch's level kernels K-TR (fused_tr_batch.cu),
 K-GN (fused_gn_batch.cu, with K-GN-bi), K-IC (ic_gn_batch.cu) and K-ICpre
-(ic_precompute.cu) on one NVIDIA GPU: two source trees against each
-other, or this tree's cluster sizes (and K-IC's resident packs) against
-each other.
+(ic_precompute.cu), and of the one-linearization kernel K-LIN
+(fused_lin.cu), on one NVIDIA GPU: two source trees against each other,
+or this tree's layouts (cluster sizes, K-IC's resident packs, K-LIN's
+split) against each other.
 
-    python3 tools/ktr_ab.py OTHER_TREE [--kernels tr,gn,ic,icpre]   # the A/B
-    python3 tools/ktr_ab.py --sweep [--kernels ...]                 # this tree
+    python3 tools/ktr_ab.py OTHER_TREE [--kernels tr,gn,lin,ic,icpre]   # the A/B
+    python3 tools/ktr_ab.py --sweep [--kernels ...]                     # this tree
 
 OTHER_TREE is another checkout of the repository (an unpacked `git
 archive` of another commit). The A/B compiles fused_tr_batch.cu,
@@ -16,8 +17,8 @@ tree's nvcc flags, prints ptxas's register, stack and spill summary of
 each (this tree's one-block and cluster instantiations apart; K-IC's and
 K-ICpre's kernels one by one, with their shared memory), holds the
 machine code (cuobjdump -sass) of each of OTHER_TREE's K-TR, K-GN and
-K-LIN kernels against this tree's one-block instantiation of the same
-variant, instruction by instruction, binds each tree's C entry from the
+K-LIN kernels against this tree's kernel of the same variant (K-TR's
+and K-GN's one-block instantiation), instruction by instruction, binds each tree's C entry from the
 `extern "C"` signature in its own source (a parameter the other tree
 lacks, such as `cluster`, is left out of its call), and times each launch
 of chip_smoke.cluster_workloads (K-TR, K-GN and K-GN-bi at B = 1 on a
@@ -26,17 +27,23 @@ ceres chain's five levels and the bench chain's three at 256 pairs) and
 of chip_smoke.ic_workloads (K-ICpre and K-IC per level on 257 frames and
 256 pairs, and at B = 1, at all five VGA levels) on the
 same inputs in turns (other, this, this, other), by CUDA events over
-repeated launches after a warm-up. For K-IC and K-ICpre it also holds
-this tree's one-block streamed launch (C = 1 forced) to OTHER_TREE's
-outputs, bit for bit. The sweep launches this tree's kernels through
+repeated launches after a warm-up; K-LIN on chip_smoke.lin_workloads (one
+linearization of 1, 16 and 256 pairs at every VGA level, both
+samplings). For K-IC, K-ICpre and K-LIN it also holds this tree's
+one-block launch (C = 1 forced, K-IC streamed; K-LIN G = 1) to
+OTHER_TREE's outputs, bit for bit. The sweep launches this tree's kernels through
 their C entries at 1, 2, 4, 8 and 16 blocks a pair (K-IC streamed and,
 where the pack fits, resident; K-IC and K-ICpre at B = 1, 16, 128 (the
 chunked chain's launches) and 256 at every VGA level), in turns (forward, then backward; the rule's layout
 marked), with each layout's largest difference from one block a pair,
 and times K-IC's serial tail (a 30x40 level's iteration against one of
-256 pixels, one a thread): this is how fused_batch.cluster_size's,
-ic_batch.ic_cluster_size's, ic_batch.ic_resident's and
-ic.ic_precompute_cluster_size's rules were chosen. Prints every time with
+256 pixels, one a thread); K-LIN at every split G from 1 to 512 blocks a
+pair (while the last block still has pixels), at B = 1, 16 and 256 on
+every VGA level, both samplings, each layout's
+Gram against G = 1 (relative to its largest entry) and its valid counts:
+this is how fused_batch.cluster_size's, ic_batch.ic_cluster_size's,
+ic_batch.ic_resident's, ic.ic_precompute_cluster_size's and
+fused_batch.lin_split's rules were chosen. Prints every time with
 the card's name and power limit.
 """
 
@@ -58,10 +65,9 @@ sys.path.insert(0, str(ROOT))
 
 REPEATS = 20
 SWEEP = (1, 2, 4, 8, 16)
-KINDS = ("tr", "gn", "ic", "icpre")
-# the sources the A/B builds: the level kernels, and K-LIN for its SASS
-SOURCES = ("tr", "gn", "lin", "ic", "icpre")
-LIN_ENTRY = ("fused_lin.cu", "phovo_fused_lin")
+KINDS = ("tr", "gn", "lin", "ic", "icpre")
+# K-LIN's split layouts the sweep times
+LIN_SPLITS = (1, 2, 4, 8, 16, 32, 64, 128, 256, 512)
 
 
 def chip_smoke():
@@ -122,6 +128,15 @@ def ptxas_each(kernels: dict) -> str:
                      for n, (r, st, sp, sm) in sorted(kernels.items()))
 
 
+def ptxas_lin(kernels: dict) -> str:
+    """K-LIN's registers, stack and spills: the linearization kernels (one
+    a variant) and the gather pass."""
+    groups = {}
+    for name, value in kernels.items():
+        groups.setdefault("linearization" if template_args(name) else "gather", {})[name] = value
+    return "; ".join(f"{label}: {ptxas_summary(group, False)}" for label, group in sorted(groups.items()))
+
+
 def sass(lib: Path) -> dict:
     """{mangled kernel name: its SASS instructions, addresses and
     encodings dropped} of a library, by cuobjdump."""
@@ -174,7 +189,7 @@ def build(smoke, tree: Path, kind: str, out: Path):
     from phovo_tpu_torch.ops import _build
 
     csrc = tree / "phovo_tpu_torch" / "csrc"
-    source, name = LIN_ENTRY if kind == "lin" else smoke.LEVEL_ENTRIES[kind]
+    source, name = smoke.LEVEL_ENTRIES[kind]
     cmd = [_build.nvcc(), *_build.NVCC_FLAGS, "-Xptxas", "-v", "-shared", "-I", str(csrc), "-o", str(out),
            str(csrc / source)]
     start = time.perf_counter()
@@ -202,20 +217,22 @@ def print_totals(rows, columns, card) -> None:
 
 
 def ab(smoke, cases, other: Path, card: str) -> None:
+    from phovo_tpu_torch.ops.fused_batch import lin_split
+
     out = ROOT / "build" / "phovo_tpu_torch"
     out.mkdir(parents=True, exist_ok=True)
     trees = {"other": other, "this": ROOT}
-    with ThreadPoolExecutor(2 * len(SOURCES)) as pool:
+    with ThreadPoolExecutor(2 * len(KINDS)) as pool:
         futures = {(key, kind): pool.submit(build, smoke, tree, kind, out / f"ktr_ab_{key}_{kind}.so")
-                   for key, tree in trees.items() for kind in SOURCES}
+                   for key, tree in trees.items() for kind in KINDS}
     entries = {k: f.result() for k, f in futures.items()}
     for (key, kind), (_, names, (kernels, _, clustered, seconds)) in entries.items():
-        source = LIN_ENTRY[0] if kind == "lin" else smoke.LEVEL_ENTRIES[kind][0]
-        summary = ptxas_each(kernels) if kind in ("ic", "icpre") else ptxas_summary(kernels, clustered)
-        print(f"ptxas {key} tree {source}: {summary}; C entry parameters {len(names)}; nvcc {seconds:.1f} s")
-    for kind in ("tr", "gn", "lin"):
-        compare_sass(entries["other", kind][2][:3], entries["this", kind][2][:3],
-                     LIN_ENTRY[0] if kind == "lin" else smoke.LEVEL_ENTRIES[kind][0])
+        summary = (ptxas_each(kernels) if kind in ("ic", "icpre") else ptxas_lin(kernels) if kind == "lin"
+                   else ptxas_summary(kernels, clustered))
+        print(f"ptxas {key} tree {smoke.LEVEL_ENTRIES[kind][0]}: {summary}; C entry parameters {len(names)}; "
+              f"nvcc {seconds:.1f} s")
+    for kind in ("tr", "gn", "lin", "ic", "icpre"):
+        compare_sass(entries["other", kind][2][:3], entries["this", kind][2][:3], smoke.LEVEL_ENTRIES[kind][0])
     rows = []
     for group, label, kind, args, kw in cases:
         runs = {key: smoke.entry_launcher(*entries[key, kind][:2], kind, args, kw) for key in trees}
@@ -225,7 +242,18 @@ def ab(smoke, cases, other: Path, card: str) -> None:
         diff = float((runs["other"][1] - runs["this"][1]).abs().max())
         o, t = (sum(times[k]) / 2 for k in ("other", "this"))
         rows.append((group, o, t))
-        if kind in ("ic", "icpre"):
+        if kind == "lin":
+            one = smoke.entry_launcher(*entries["this", kind][:2], kind, args, kw, 1)
+            one[0]()
+            torch.cuda.synchronize()
+            bits = torch.equal(one[1], runs["other"][1])
+            scale = runs["other"][1].abs().amax(dim=(1, 2), keepdim=True)
+            rel = float(((runs["this"][1] - runs["other"][1]).abs() / scale).max())
+            same_nv = torch.equal(runs["this"][1][:, 7, 7], runs["other"][1][:, 7, 7])
+            b = smoke.bound(*smoke.lin_case_work(args, kw, runs["this"][1]))
+            note = (f"G = {lin_split(kw['H'], kw['W'])}, bound {b[0]:.5f} ms ({b[1]}), Gram max|diff| / "
+                    f"largest entry {rel:.3e}, valid counts equal {same_nv}; G = 1 the other tree's bits {bits}")
+        elif kind in ("ic", "icpre"):
             force = {"resident": False} if kind == "ic" else {}
             one = smoke.entry_launcher(*entries["this", kind][:2], kind, args, kw, 1, **force)
             one[0]()
@@ -297,6 +325,53 @@ def sweep(smoke, cases, card: str) -> None:
               + f" ms [{card}]")
 
 
+def sweep_lin(smoke, cases, card: str) -> None:
+    """K-LIN's layouts through its C entry on each case, in turns (forward,
+    then backward): every split G of LIN_SPLITS while G / 2 blocks of
+    kThreads do not already cover the level; each layout's Gram against
+    G = 1's (relative to the largest entry), its valid counts and whether
+    its bits are G = 1's."""
+    from phovo_tpu_torch.ops import _build
+    from phovo_tpu_torch.ops.fused_batch import lin_split
+
+    fn, names = _build.library().phovo_fused_lin, smoke.entry_names("lin")
+    totals = {}
+    for group, label, kind, args, kw in cases:
+        H, W = kw["H"], kw["W"]
+        runs = {}
+        for g in (g for g in LIN_SPLITS if g == 1 or (g // 2) * 256 < H * W):
+            run = smoke.entry_launcher(fn, names, kind, args, kw, g)
+            try:
+                run[0]()
+            except RuntimeError as err:
+                print(f"{group}, {label}: split {g} refused ({err})")
+                continue
+            runs[g] = run
+        times = {key: [] for key in runs}
+        for key in [*runs, *reversed(runs)]:
+            times[key].append(smoke.cuda_ms(runs[key][0], REPEATS))
+        torch.cuda.synchronize()
+        base = runs[1][1]
+        scale = base.abs().amax(dim=(1, 2), keepdim=True)
+        b = smoke.bound(*smoke.lin_case_work(args, kw, base))
+        parts = []
+        for g, (_, gram, _) in runs.items():
+            rel = float(((gram - base).abs() / scale).max())
+            nv = torch.equal(gram[:, 7, 7], base[:, 7, 7])
+            name = f"G = {g}"
+            mark = " (rule)" if g == lin_split(H, W) else ""
+            ms = sum(times[g]) / 2
+            parts.append(f"{name}{mark} {ms:.4f} ms (rel diff {rel:.1e}, nvalid equal {nv}"
+                         f"{', G = 1 bits ' + str(torch.equal(gram, base)) if g > 1 else ''})")
+            acc = totals.setdefault(group, {}).setdefault(name, [0.0, 0])
+            acc[0] += ms
+            acc[1] += 1
+        print(f"{group}, {label}: " + "; ".join(parts) + f"; bound {b[0]:.5f} ms ({b[1]}) [{card}]")
+    for group, sums in totals.items():
+        print(f"total {group}: " + ", ".join(f"{name} {t:.4f} ({n} levels)" for name, (t, n) in sums.items())
+              + f" ms [{card}]")
+
+
 def serial_tail(smoke, prep, card: str) -> None:
     """K-IC's time an iteration at 30x40 against a level of 256 pixels (one
     a thread: the block_sum and the solve on one thread, with one pixel
@@ -342,6 +417,8 @@ def main() -> int:
     _build.library()
     dev = torch.device("cuda", 0)
     cases = []
+    if "lin" in kinds:
+        cases += smoke.lin_workloads(dev)
     if {"tr", "gn"} & set(kinds):
         frames, _ = smoke.keyframe_frames(se3)
         cases += [c for c in smoke.cluster_workloads(dev, frames[:smoke.KF_CHUNK + 1]) if c[2] in kinds]
@@ -354,7 +431,8 @@ def main() -> int:
         batches = (1, 16, n_pairs // 2, n_pairs) if argv[0] == "--sweep" else (n_pairs, 1)
         cases += [c for c in smoke.ic_workloads(prep, pre, batches) if c[2] in kinds]
     if argv[0] == "--sweep":
-        sweep(smoke, cases, card)
+        sweep_lin(smoke, [c for c in cases if c[2] == "lin"], card)
+        sweep(smoke, [c for c in cases if c[2] != "lin"], card)
         if "ic" in kinds:
             serial_tail(smoke, prep, card)
     else:
