@@ -129,9 +129,25 @@ Phases, each of which raises on failure (exit code 1, no result line):
      through their C entries: K-TR at B = 1, 16 shared targets and 256
      pairs, K-GN at B = 1, 16 shared targets and 256 pairs, K-GN-bi at
      B = 1 and 256 pairs
-Each of the paths of phases 4, 4b, 4c, 4d, 4e, 4f (each CLI run), 5, 6,
-6b, 6d, 6e and 6f runs with the launch counts set to 0 just before it and
-read just after. A line
+ 4g. the keyframe back-end: 48 VGA frames of the room (render_room along
+     make_room_sequence's forward sweep) in the raw layout through
+     phovo-vo --mode keyframe --chunk 16 (the analytic preset) without
+     bundle adjustment, with --ba-iterations 3, and with --ba-iterations 3
+     --ba-scope global --export-map: each trajectory the in-process
+     run_chunked + finalize lines bit for bit, BA(3)'s ATE below the pose
+     graph's alone, the PLY's vertex count the map's, the back-end
+     launching no kernel, the same refinement twice the same bits, and the
+     windowed, global and sequential refinements on the card against the
+     CPU's from the same keyframes at damping 1.0
+ 7g. the back-end's times: finalize's pg_solve and photometric_ba, window
+     and global, on phase 4g's keyframes; optimize_photometric_bundle
+     dense and sparse on one global problem of 64 VGA room keyframes (P =
+     4,096, K = 24,576), and the two held together at damping 1.0;
+     optimize_bundle sparse and dense at map scale
+     (128 poses, 50,000 landmarks, 102,400 observations)
+Each of the paths of phases 4, 4b, 4c, 4d, 4e, 4f (each CLI run), 4g (each
+CLI run), 5, 6, 6b, 6d, 6e and 6f runs with the launch counts set to 0 just
+before it and read just after. A line
 "[t s] phase" marks each phase's start. The line before the last is the
 kernels' JSON record (for fused_lin, max_abs_err is the largest Gram
 difference over the Gram's largest entry; bound_ms is the least time the
@@ -324,7 +340,10 @@ def pair_packs(prep: dict) -> dict:
 
 
 def reset_counts(fb) -> None:
+    """Every kernel wrapper's launch count to 0."""
     from phovo_tpu_torch.ops import fused
+    from phovo_tpu_torch.ops import ic as IC
+    from phovo_tpu_torch.ops import ic_batch as ICB
 
     fb.LAUNCHES = 0
     fb.TR_LAUNCHES = 0
@@ -333,6 +352,18 @@ def reset_counts(fb) -> None:
     fb.TR_SHARED_LAUNCHES = 0
     fb.BI_LAUNCHES = 0
     fused.MULTI_LAUNCHES = 0
+    reset_ic_counts(IC, ICB)
+
+
+def launch_counts(fb) -> dict:
+    """Every kernel wrapper's launch count, by kernel."""
+    from phovo_tpu_torch.ops import fused
+    from phovo_tpu_torch.ops import ic as IC
+    from phovo_tpu_torch.ops import ic_batch as ICB
+
+    return {"K-GN": fb.LAUNCHES, "K-GN shared": fb.SHARED_LAUNCHES, "K-GN-bi": fb.BI_LAUNCHES,
+            "K-GN multi": fused.MULTI_LAUNCHES, "K-TR": fb.TR_LAUNCHES, "K-TR shared": fb.TR_SHARED_LAUNCHES,
+            "K-ICpre": IC.IC_PRE_LAUNCHES, "K-IC": ICB.IC_LAUNCHES, "K-LIN": fb.LIN_LAUNCHES}
 
 
 def shared_note(i0, t_all) -> str:
@@ -1312,7 +1343,6 @@ def phase_ic_main(run_chain, fb, se3, traj, gts, ts, card):
     out = None
     for name, cfg in (("early exit at 300", bench_config(300.0)), ("fixed-75", bench_config(0.0))):
         active = sum(1 for n in cfg.max_iterations if n > 0)
-        reset_ic_counts(IC, ICB)
         reset_counts(fb)
         kern = run_chain(ic.align_sequence_chunk_ic, cfg)
         launches = (IC.IC_PRE_LAUNCHES, ICB.IC_LAUNCHES)
@@ -2706,8 +2736,6 @@ def phase_cli(fb, dev, card, shape=SHAPE):
     from phovo_tpu_torch.apps import phovo_eval, phovo_serve, phovo_vo
     from phovo_tpu_torch.datasets import native_loader
     from phovo_tpu_torch.ops import _build
-    from phovo_tpu_torch.ops import ic as IC
-    from phovo_tpu_torch.ops import ic_batch as ICB
     from phovo_tpu_torch.ops.camera import TUM_FR1
     from phovo_tpu_torch.utils import config as C
     from phovo_tpu_torch.utils.synthetic import make_sequence
@@ -2731,17 +2759,13 @@ def phase_cli(fb, dev, card, shape=SHAPE):
 
     def counted(name, run):
         reset_counts(fb)
-        IC.IC_PRE_LAUNCHES = ICB.IC_LAUNCHES = 0
         t0 = time.perf_counter()
         rc = run()
         if dev.type == "cuda":
             torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         check(rc == 0, f"{name} exited with {rc}")
-        launches[name] = {"K-GN": fb.LAUNCHES, "K-GN shared": fb.SHARED_LAUNCHES, "K-GN-bi": fb.BI_LAUNCHES,
-                          "K-TR": fb.TR_LAUNCHES,
-                          "K-TR shared": fb.TR_SHARED_LAUNCHES, "K-ICpre": IC.IC_PRE_LAUNCHES,
-                          "K-IC": ICB.IC_LAUNCHES, "K-LIN": fb.LIN_LAUNCHES}
+        launches[name] = launch_counts(fb)
         return wall
 
     _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -2855,6 +2879,305 @@ def phase_cli(fb, dev, card, shape=SHAPE):
               f"{result['rpe']['rot_rmse_deg']:.4f} deg [{card}]")
         check(rc == 0 and result["ate"]["rmse"] == ate and ate < still, f"phovo-eval gave {result}")
     return launches
+
+
+# the keyframe back-end (phases 4g and 7g): 48 VGA frames of the room
+# along its forward sweep through phovo-vo --mode keyframe --chunk 16 and
+# the analytic preset, without bundle adjustment, with BA_ITERATIONS
+# windowed and with BA_ITERATIONS global (and the map)
+BA_FRAMES = 48
+BA_ITERATIONS = 3
+BA_PRESET = "config_5_level_optimization_analytic"
+BA_RUNS = {"pose graph only": [], "BA window": ["--ba-iterations", str(BA_ITERATIONS)],
+           "BA global": ["--ba-iterations", str(BA_ITERATIONS), "--ba-scope", "global", "--export-map", "map.ply"]}
+# the back-end on the card against the same back-end on the CPU, from the
+# same keyframes, at damping 1.0 (at the production 1e-4 one LM step
+# amplifies last-ulp differences about 1e4-fold, ARCHITECTURE.md): keyframe
+# poses within this. Even at 1.0 the refinement of these VGA keyframes
+# answers float32 noise in its start: on the CPU, starting states moved by
+# 2e-7 relative move the refined poses by up to 5.0e-6 (window) and 1.2e-5
+# (global); the card against the CPU, 3.3e-6 and 1.8e-5 (an H100 80GB HBM3, 700 W)
+BA_CPU_ATOL = 5e-5
+# phase 7g: one global problem over 64 room keyframes (grid 8, covis 6:
+# P = 4,096 landmarks, K = 24,576 observations), and the map-scale
+# reprojection problem of tools/ba_scale_bench.py (128 poses, 50,000
+# landmarks, 800 observations a pose, 5 LM iterations)
+BA_GLOBAL_KF = 64
+# that problem at damping 1.0, dense against sparse on the card (the same
+# blocks; only the Schur complement's sums differ): states within this.
+# tests/test_torch_global_ba_scale.py's CPU readings on the same counts at
+# 120x160 and 240x320: 6.0e-8 after one iteration, 1.2e-7 after three
+BA_SCHUR_ATOL = 1e-5
+BA_MAP_SCALE = dict(n_poses=128, n_points=50_000, obs_per_pose=800, state_noise=0.01, point_noise=0.01, seed=0)
+BA_MAP_ITERATIONS = 5
+
+
+def render_room_frames(intr, shape, poses_cw):
+    """render_room at each camera pose, on the host's cores (numpy releases
+    the GIL in its array loops): (intensities, depths), the frames of
+    make_room_sequence along the same poses."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from phovo_tpu_torch.utils.synthetic import render_room
+
+    with ThreadPoolExecutor(max_workers=8) as pool:
+        frames = list(pool.map(lambda T: render_room(intr, shape, T), poses_cw))
+    return [f[0] for f in frames], [f[1] for f in frames]
+
+
+def backend_tracker(cfg, intr, dev):
+    """phovo-vo's keyframe tracker with its defaults, on dev."""
+    from phovo_tpu_torch.models.analytic import PhotoconsistencyOdometryAnalytic
+    from phovo_tpu_torch.models.keyframe import KeyframeVisualOdometry
+
+    vo = PhotoconsistencyOdometryAnalytic(cfg, device=dev)
+    vo.set_intrinsic_matrix([[intr.fx, 0, intr.cx], [0, intr.fy, intr.cy], [0, 0, 1]])
+    return KeyframeVisualOdometry(vo)
+
+
+def keyframe_copy(kvo, cfg, intr, dev):
+    """A tracker on dev holding kvo's keyframes (images and current
+    poses), no tracked frame."""
+    from phovo_tpu_torch.models.keyframe import Keyframe
+
+    other = backend_tracker(cfg, intr, dev)
+    for k in kvo.keyframes:
+        other.keyframes.append(Keyframe(index=k.index, frame_index=k.frame_index, timestamp=k.timestamp,
+                                        intensity=k.intensity, depth=k.depth, pose=k.pose.copy(), device=dev))
+    return other
+
+
+def finalize_kwargs(argv) -> dict:
+    """finalize's keyword arguments for phovo-vo's flags argv."""
+    from phovo_tpu_torch.apps import phovo_vo
+
+    a = phovo_vo.build_parser().parse_args(["-c", "c", "-d", "d", "-o", "o", *argv])
+    return dict(ba_iterations=a.ba_iterations, ba_window=a.ba_window, ba_grid=a.ba_grid,
+                ba_robust_delta=a.ba_robust_delta, ba_scope=a.ba_scope, ba_covis=a.ba_covis,
+                ba_occ_gate=a.ba_occlusion_gate, ba_z_robust_delta=a.ba_z_robust_delta)
+
+
+def phase_backend(fb, traj, dev, card):
+    """Phase 4g: the keyframe back-end. BA_FRAMES VGA frames of the room
+    (make_room_sequence's forward sweep) in the raw layout through
+    phovo-vo --mode keyframe --chunk 16 (the analytic preset) for each of
+    BA_RUNS, each run's kernel launches counted from 0. Checks: each
+    trajectory the lines of the in-process run_chunked and finalize with
+    the same keyword arguments, bit for bit; BA's ATE below the pose graph's
+    alone; the PLY's vertex count the map's; the back-end launches no
+    kernel (each BA run's counts are the pose-graph run's); the same
+    refinement twice gives the same bits; and the refinement on the card
+    against the CPU's from the same keyframes at damping 1.0 within
+    BA_CPU_ATOL (window, global and the host-built sequential windows).
+    Returns (the in-process trackers by run, their keyframe poses before
+    finalize)."""
+    import pathlib
+    import tempfile
+
+    from phovo_tpu_torch.apps import phovo_vo
+    from phovo_tpu_torch.datasets.tum import RGBDFrame
+    from phovo_tpu_torch.ops import _build
+    from phovo_tpu_torch.ops.camera import TUM_FR1
+    from phovo_tpu_torch.utils import config as C
+    from phovo_tpu_torch.utils.synthetic import forward_trajectory
+    from phovo_tpu_torch.utils.trajectory import format_pose_line
+
+    t0 = time.perf_counter()
+    poses_cw = forward_trajectory(BA_FRAMES)
+    I, D = render_room_frames(TUM_FR1, SHAPE, poses_cw)
+    gts = [np.linalg.inv(T) for T in poses_cw]
+    ts = np.arange(BA_FRAMES, dtype=np.float64) / 30.0
+    I8 = np.round(np.stack(I) * 255.0).astype(np.uint8)
+    D16 = np.round(np.stack(D) / DEPTH_SCALE).astype(np.uint16)
+    print(f"back-end: rendered {BA_FRAMES} {SHAPE[0]}x{SHAPE[1]} room frames in {time.perf_counter() - t0:.1f} s")
+    cfg_path = C.builtin_config_dir() / f"{BA_PRESET}.yml"
+    cfg = C.load_config(cfg_path)
+    device = "cpu" if dev.type == "cpu" else "cuda"
+    spec = ",".join(repr(float(v)) for v in TUM_FR1)
+    still = pose_ate(traj, [np.eye(4)] * BA_FRAMES, gts)
+    trackers, snaps, launches, ates = {}, {}, {}, {}
+    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR) as tmp:
+        tmp = pathlib.Path(tmp)
+        seq = write_raw_sequence(tmp / "room", I8, D16, ts, DEPTH_SCALE)
+        for name, flags in BA_RUNS.items():
+            flags = [str(tmp / f) if f == "map.ply" else f for f in flags]
+            out = tmp / "t.txt"
+            reset_counts(fb)
+            t0 = time.perf_counter()
+            rc = phovo_vo.main(["--config", str(cfg_path), "--dataset", str(seq), "--output", str(out), "--intrinsics",
+                                spec, "--device", device, "-q", "--mode", "keyframe", "--chunk", str(KF_CHUNK),
+                                "--loader", "raw", *flags])
+            if dev.type == "cuda":
+                torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            check(rc == 0, f"phovo-vo {name} exited with {rc}")
+            launches[name] = launch_counts(fb)
+            lines = pose_lines(out)
+            # the same run in process
+            kvo = backend_tracker(cfg, TUM_FR1, dev)
+            frames = (RGBDFrame(float(ts[k]), float(ts[k]), I8[k], D16[k]) for k in range(BA_FRAMES))
+            list(kvo.run_chunked(frames, chunk=KF_CHUNK, depth_scale=DEPTH_SCALE))
+            snaps[name] = [k.pose.copy() for k in kvo.keyframes]
+            kw = finalize_kwargs(flags)
+            tracked = kvo.finalize(**kw)
+            same = lines == [format_pose_line(tf.timestamp, tf.pose) for tf in tracked]
+            ates[name] = pose_ate(traj, [np.eye(4)] + [tf.pose for tf in tracked], gts)
+            trackers[name] = kvo
+            ms = {k: f"{1e3 * v:.3f}" for k, v in kvo.finalize_timings.items()}
+            print(f"back-end phovo-vo --mode keyframe {' '.join(flags[:4])}: {BA_FRAMES} frames in {wall:.3f} s; "
+                  f"{len(kvo.keyframes)} keyframes, {len(kvo.loop_closures)} loop closures; the in-process "
+                  f"run_chunked + finalize lines {same}; ATE {ates[name]:.6f} m (standing still {still:.6f}); "
+                  f"finalize ms {ms}; launches {launches[name]} [{card}]")
+            check(same, f"phovo-vo {name}: not the in-process finalize's lines")
+            check(len(lines) == BA_FRAMES - 1 and np.isfinite(ates[name]) and ates[name] < still,
+                  f"phovo-vo {name}: {len(lines)} poses, ATE {ates[name]}")
+            others = {k: v for k, v in launches[name].items() if k not in ("K-GN", "K-GN shared")}
+            check(launches[name]["K-GN shared"] > 0 and not any(others.values()),
+                  f"phovo-vo {name} launches {launches[name]}")
+            check(launches[name] == launches["pose graph only"], f"the back-end launched a kernel: {launches}")
+            if "--export-map" in flags:
+                ply = pathlib.Path(flags[flags.index("--export-map") + 1]).read_text().splitlines()
+                n_ply = int([ln for ln in ply if ln.startswith("element vertex")][0].split()[-1])
+                print(f"back-end map: {n_ply} PLY vertices, {len(kvo.map_points)} map points")
+                check(n_ply == len(kvo.map_points) == len(ply) - ply.index("end_header") - 1 > 0,
+                      f"the PLY holds {n_ply} vertices for {len(kvo.map_points)} map points")
+    print(f"back-end ATE: pose graph only {ates['pose graph only']:.6f} m, BA({BA_ITERATIONS}) window "
+          f"{ates['BA window']:.6f} m, BA({BA_ITERATIONS}) global {ates['BA global']:.6f} m [{card}]")
+    check(ates["BA window"] < ates["pose graph only"], "BA did not lower the ATE below the pose graph's")
+
+    # the same refinement twice: the same bits (index_put_ adds in a fixed
+    # order); then the card against the CPU from the same keyframes
+    for name in ("BA window", "BA global"):
+        kvo, kw = trackers[name], finalize_kwargs(BA_RUNS[name][:4])
+        first = ([k.pose.copy() for k in kvo.keyframes], kvo.map_points.copy())
+        for k, p in zip(kvo.keyframes, snaps[name]):
+            k.pose = p.copy()
+        kvo.finalize(**kw)
+        again = all(np.array_equal(k.pose, p) for k, p in zip(kvo.keyframes, first[0])) and np.array_equal(
+            kvo.map_points, first[1])
+        print(f"back-end {name}: the same refinement twice gives the same bits {again} [{card}]")
+        check(again, f"{name}: two runs of the refinement differ")
+    kvo = trackers["BA window"]
+    for k, p in zip(kvo.keyframes, snaps["BA window"]):
+        k.pose = p.copy()
+    kvo.finalize()  # the pose graph alone: the keyframes the refinement starts from
+    for path, args in (("_refine_photometric", (None, BA_ITERATIONS, 8, 8, 1.0, 0.1, 0.3, 0.02)),
+                       ("_refine_photometric_global", (None, BA_ITERATIONS, 8, 1.0, 0.1, 6, 0.3, 0.02)),
+                       ("_refine_photometric_sequential", (None, BA_ITERATIONS, 8, 8, 1.0, 0.1, 0.3, 0.02))):
+        on_card, on_cpu = keyframe_copy(kvo, cfg, TUM_FR1, dev), keyframe_copy(kvo, cfg, TUM_FR1, torch.device("cpu"))
+        getattr(on_card, path)(*args)
+        getattr(on_cpu, path)(*args)
+        err = max(float(np.abs(a.pose - b.pose).max()) for a, b in zip(on_card.keyframes, on_cpu.keyframes))
+        moved = max(float(np.abs(a.pose - b.pose).max()) for a, b in zip(on_card.keyframes, kvo.keyframes))
+        print(f"back-end {path} at damping 1.0: card vs CPU max|pose diff| {err:.3e} (the refinement moved the "
+              f"poses by up to {moved:.3e}), map sizes {len(on_card.map_points)}, {len(on_cpu.map_points)} [{card}]")
+        check(err <= BA_CPU_ATOL and moved > 10 * BA_CPU_ATOL and len(on_card.map_points) == len(on_cpu.map_points),
+              f"{path}: the card's refinement is not the CPU's")
+    return trackers, snaps
+
+
+def phase_backend_timing(dev, trackers, snaps, card):
+    """Phase 7g: the back-end's times, the card synchronized before each
+    clock reading: finalize's pg_solve and photometric_ba for the window
+    and global scopes on phase 4g's keyframes (three runs each, after the
+    phase's own); optimize_photometric_bundle, dense and sparse in turns
+    (dense, sparse, sparse, dense), on one global problem of BA_GLOBAL_KF
+    room keyframes, then at damping 1.0 dense against sparse within
+    BA_SCHUR_ATOL; optimize_bundle on BA_MAP_SCALE, sparse and dense in
+    turns (the dense W and W V^-1 take 922 MB, over the 256 MB budget that
+    schur='auto' keeps). Returns {row: ms}."""
+    from phovo_tpu_torch.ops import se3
+    from phovo_tpu_torch.ops.camera import TUM_FR1
+    from phovo_tpu_torch.parallel import bundle_adjustment as ba
+    from phovo_tpu_torch.parallel import photometric_ba as pba
+    from phovo_tpu_torch.utils.synthetic import forward_trajectory
+
+    rows = {}
+    for name in ("BA window", "BA global"):
+        kvo, kw = trackers[name], finalize_kwargs(BA_RUNS[name][:4])
+        runs = []
+        for _ in range(3):
+            for k, p in zip(kvo.keyframes, snaps[name]):
+                k.pose = p.copy()
+            kvo.finalize(**kw)
+            runs.append((1e3 * kvo.finalize_timings["pg_solve"], 1e3 * kvo.finalize_timings["photometric_ba"]))
+        pg, pb = (float(np.median(x)) for x in zip(*runs))
+        rows[f"finalize {name} pg_solve"], rows[f"finalize {name} photometric_ba"] = pg, pb
+        print(f"layer back-end, finalize {name} over {len(kvo.keyframes)} VGA keyframes: pg_solve {pg:.3f} ms, "
+              f"photometric_ba {pb:.3f} ms (median of {[tuple(round(v, 3) for v in r) for r in runs]}) [{card}]")
+
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(0)
+    poses_cw = forward_trajectory(BA_GLOBAL_KF)
+    I, D = render_room_frames(TUM_FR1, SHAPE, poses_cw)
+    gt = se3.matrix_to_state_np(np.linalg.inv(np.stack(poses_cw))).astype(np.float32)
+    states = gt.copy()  # 5 mm and 2.5 mrad of noise (tests/test_photometric_ba.py's room keyframes)
+    states[1:, :3] += rng.normal(0.0, 0.005, (BA_GLOBAL_KF - 1, 3)).astype(np.float32)
+    states[1:, 3:] += rng.normal(0.0, 0.0025, (BA_GLOBAL_KF - 1, 3)).astype(np.float32)
+    problem = pba.build_photometric_global(np.stack(I), np.stack(D), states, TUM_FR1, grid=8, max_covis=6,
+                                           occ_gate=0.3, device=dev)
+    P, K = problem.points.shape[0], problem.obs_pose.shape[0]
+    print(f"back-end global problem: {BA_GLOBAL_KF} room keyframes rendered and built in "
+          f"{time.perf_counter() - t0:.1f} s: P = {P} landmarks, K = {K} observations")
+    kw = dict(iterations=BA_ITERATIONS, damping=1e-4, robust_delta=0.1, robust_z_delta=0.02)
+    d1 = cuda_ms(lambda: pba.optimize_photometric_bundle(problem, TUM_FR1, schur="dense", **kw), 3)
+    s1 = cuda_ms(lambda: pba.optimize_photometric_bundle(problem, TUM_FR1, schur="sparse", **kw), 3)
+    s2 = cuda_ms(lambda: pba.optimize_photometric_bundle(problem, TUM_FR1, schur="sparse", **kw), 3)
+    d2 = cuda_ms(lambda: pba.optimize_photometric_bundle(problem, TUM_FR1, schur="dense", **kw), 3)
+    dense = pba.optimize_photometric_bundle(problem, TUM_FR1, schur="dense", **kw)
+    sparse = pba.optimize_photometric_bundle(problem, TUM_FR1, schur="sparse", **kw)
+    diff = float((dense[0] - sparse[0]).abs().max())
+    start_cost = float(pba.optimize_photometric_bundle(problem, TUM_FR1, iterations=0)[2])
+    errs = [float(np.abs(x.cpu().numpy() - gt).max()) for x in (problem.pose_states, dense[0], sparse[0])]
+    rows["photometric global dense"], rows["photometric global sparse"] = (d1 + d2) / 2, (s1 + s2) / 2
+    print(f"layer back-end, optimize_photometric_bundle, {BA_GLOBAL_KF} VGA keyframes (P = {P}, K = {K}), "
+          f"{BA_ITERATIONS} iterations: dense {(d1 + d2) / 2:.3f} ms ({d1:.3f}, {d2:.3f}), sparse "
+          f"{(s1 + s2) / 2:.3f} ms ({s1:.3f}, {s2:.3f}); cost {start_cost:.3f} -> dense {float(dense[2]):.3f}, "
+          f"sparse {float(sparse[2]):.3f}; max|state - truth| {errs[0]:.3e} -> dense {errs[1]:.3e}, sparse "
+          f"{errs[2]:.3e}; max|state dense - sparse| {diff:.3e} [{card}]")
+    check(bool(torch.isfinite(dense[0]).all() and torch.isfinite(sparse[0]).all()), "non-finite global BA states")
+    kw["damping"] = 1.0
+    dense = pba.optimize_photometric_bundle(problem, TUM_FR1, schur="dense", **kw)
+    sparse = pba.optimize_photometric_bundle(problem, TUM_FR1, schur="sparse", **kw)
+    diff = float((dense[0] - sparse[0]).abs().max())
+    moved = float((dense[0] - problem.pose_states).abs().max())
+    errs = [float(np.abs(x.cpu().numpy() - gt).max()) for x in (dense[0], sparse[0])]
+    print(f"back-end global problem at damping 1.0, {BA_ITERATIONS} iterations: cost {start_cost:.3f} -> dense "
+          f"{float(dense[2]):.3f}, sparse {float(sparse[2]):.3f}; max|state - truth| dense {errs[0]:.3e}, sparse "
+          f"{errs[1]:.3e}; the poses moved up to {moved:.3e}; max|state dense - sparse| {diff:.3e} (limit "
+          f"{BA_SCHUR_ATOL:g}) [{card}]")
+    check(diff <= BA_SCHUR_ATOL and moved > 10 * BA_SCHUR_ATOL and float(dense[2]) < start_cost,
+          "the global BA's dense and sparse Schur steps disagree at damping 1.0")
+    del problem, dense, sparse
+
+    t0 = time.perf_counter()
+    host, _, _ = ba.make_synthetic_ba(**BA_MAP_SCALE)
+    problem = ba.BAProblem(*(ba.to_tensor(x, dev, torch.int64 if k in (2, 3) else torch.float32)
+                             for k, x in enumerate(host)))
+    M, P, K = BA_MAP_SCALE["n_poses"], BA_MAP_SCALE["n_points"], len(host.obs_pose)
+    pairs = len(ba.build_schur_pairs(host.obs_pose, host.obs_point)[0])
+    print(f"back-end map-scale problem: {M} poses, {P} landmarks, {K} observations, {pairs} Schur pairs, dense "
+          f"W + W V^-1 {2 * M * P * 18 * 4 / 1e6:.0f} MB (auto routes to "
+          f"{ba.schur_route('auto', M, P)}), made in {time.perf_counter() - t0:.1f} s")
+    torch.cuda.reset_peak_memory_stats()
+    s1 = cuda_ms(lambda: ba.optimize_bundle(problem, TUM_FR1, iterations=BA_MAP_ITERATIONS, schur="sparse"), 2)
+    sparse_peak = torch.cuda.max_memory_allocated()
+    d1 = cuda_ms(lambda: ba.optimize_bundle(problem, TUM_FR1, iterations=BA_MAP_ITERATIONS, schur="dense"), 2)
+    dense_peak = torch.cuda.max_memory_allocated()
+    d2 = cuda_ms(lambda: ba.optimize_bundle(problem, TUM_FR1, iterations=BA_MAP_ITERATIONS, schur="dense"), 2)
+    s2 = cuda_ms(lambda: ba.optimize_bundle(problem, TUM_FR1, iterations=BA_MAP_ITERATIONS, schur="sparse"), 2)
+    dense = ba.optimize_bundle(problem, TUM_FR1, iterations=BA_MAP_ITERATIONS, schur="dense")
+    sparse = ba.optimize_bundle(problem, TUM_FR1, iterations=BA_MAP_ITERATIONS, schur="sparse")
+    diff = float((dense[0] - sparse[0]).abs().max())
+    rows["map-scale sparse"], rows["map-scale dense"] = (s1 + s2) / 2, (d1 + d2) / 2
+    print(f"layer back-end, optimize_bundle map scale, {BA_MAP_ITERATIONS} iterations: sparse {(s1 + s2) / 2:.3f} ms "
+          f"({s1:.3f}, {s2:.3f}), peak {sparse_peak / 2**20:.0f} MiB; dense {(d1 + d2) / 2:.3f} ms ({d1:.3f}, "
+          f"{d2:.3f}), peak {dense_peak / 2**20:.0f} MiB; max|state dense - sparse| {diff:.3e}; costs "
+          f"{float(dense[2]):.6f}, {float(sparse[2]):.6f} [{card}]")
+    check(bool(torch.isfinite(sparse[0]).all()) and float(sparse[2]) < float(
+        ba.optimize_bundle(problem, TUM_FR1, iterations=0)[2]), "the map-scale BA did not lower its cost")
+    return rows
 
 
 def phase_lin_timing(fb, dev, card):
@@ -3078,6 +3401,10 @@ def main() -> int:
     stamp("4f. CLIs")
     cli = phase_cli(fb, dev, card)
 
+    # 4g. the keyframe back-end: the bundle adjustment through phovo-vo
+    stamp("4g. keyframe back-end")
+    ba_trackers, ba_snaps = phase_backend(fb, traj, dev, card)
+
     # 5. the ceres main path: the same frames, the shipped ceres preset
     stamp("5. ceres main path")
     t0 = time.perf_counter()
@@ -3283,6 +3610,9 @@ def main() -> int:
     # 7f. the cluster layout of K-TR and K-GN against one block a pair
     stamp("7f. cluster layout timing")
     phase_cluster_timing(kf_frames[:KF_CHUNK + 1], dev, card)
+    # 7g. the keyframe back-end's times
+    stamp("7g. back-end timing")
+    phase_backend_timing(dev, ba_trackers, ba_snaps, card)
     stamp("done")
 
     gn_bound, tr_bound = bound(gn_bytes, gn_flops), bound(tr_bytes, tr_flops)

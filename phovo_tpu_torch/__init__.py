@@ -26,7 +26,9 @@ Layout mirrors phovo_tpu:
             and keyframe tracking with loop closures
             (models/keyframe.py, KeyframeVisualOdometry)
   parallel/ single-device batched alignment and multi-stream serving
-            (parallel/batch.py) and the pose graph (parallel/pose_graph.py)
+            (parallel/batch.py), the pose graph (parallel/pose_graph.py)
+            and the bundle adjustment, reprojection and photometric
+            (parallel/bundle_adjustment.py, parallel/photometric_ba.py)
   datasets/ TUM sequences (index files, pairing, the cv2 reader), the raw
             memmap replay format and the libpng loader's bindings
   apps/     the CLIs, run as python -m phovo_tpu_torch.apps.<name>:
@@ -34,7 +36,8 @@ Layout mirrors phovo_tpu:
             single-card phovo_serve (the card unless --device names
             another)
   utils/    config schedule and its YAML reader (no pyyaml), synthetic
-            frames, trajectories with ATE and RPE, JSONL metrics
+            frames (the plane and the room), trajectories with ATE and
+            RPE, JSONL metrics, the landmark map as PLY (utils/viz.py)
 """
 
 __version__ = "0.1.0"

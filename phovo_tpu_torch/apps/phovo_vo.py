@@ -7,7 +7,7 @@ PhotoconsistencyVisualOdometry).
         [--intrinsics fr1] [--pairing associate|lockstep] [--loader auto|raw|native|python] \
         [--chunk N] [--mode frame|keyframe] [--warm-start] [--max-frames N] \
         [--checkpoint ckpt.json] [--resume] [--metrics m.jsonl] [--eval-gt gt.txt] \
-        [--device cuda]
+        [--ba-iterations N] [--ba-scope window|global] [--export-map map.ply] [--device cuda]
 
 Writes a TUM-format trajectory ('timestamp tx ty tz qx qy qz qw'). Three
 modes, as phovo_tpu's:
@@ -20,18 +20,18 @@ modes, as phovo_tpu's:
     counts from the raw format, scaled on the device); the host integrates
     a chunk's poses while the next chunk is dispatched;
   * --mode keyframe: models/keyframe.py::KeyframeVisualOdometry (run, or
-    run_chunked with --chunk N for the analytic and ceres backends) and
-    its pose graph, with --kf-*, --pg-solver and --pg-incremental.
+    run_chunked with --chunk N for the analytic and ceres backends), its
+    pose graph and, with --ba-iterations N, its photometric bundle
+    adjustment (--ba-*; --export-map writes the landmark map as PLY), with
+    --kf-*, --pg-solver and --pg-incremental.
 Defaults mirror the reference: fr1 intrinsics, depth scale 1/5000, every
 pair from zero. Everything runs on --device, the CUDA card unless the
 caller names another (an error where torch finds none). The card's
 machine has no cv2: give it a sequence converted by phovo-convert (the
 raw format, --loader raw or auto) or the libpng loader (--loader native).
 
-Not ported, and raising NotImplementedError: --ba-iterations > 0,
---export-map and any other --ba-* option (the bundle adjustment,
-ROADMAP.md queue A, item 10) and --save-diff-dir (the difference images,
-item 12).
+Not ported, and raising NotImplementedError: --save-diff-dir (the
+difference images, ROADMAP.md queue A, item 12).
 """
 
 from __future__ import annotations
@@ -48,11 +48,6 @@ from phovo_tpu_torch.apps._common import add_device_argument, intrinsic_matrix, 
 from phovo_tpu_torch.apps.phovo_align import BACKEND_NAMES, parse_intrinsics
 
 NO_EFFECT = "accepted and without effect in the port"
-BA_TODO = "not ported yet (ROADMAP.md queue A, item 10): raises"
-# phovo_tpu's bundle-adjustment options besides --ba-iterations: each one
-# given raises, since nothing in the port would read it
-BA_OPTIONS = ("ba_window", "ba_scope", "ba_covis", "ba_grid", "ba_occlusion_gate", "ba_z_robust_delta",
-              "ba_robust_delta")
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -77,15 +72,30 @@ def build_parser() -> argparse.ArgumentParser:
                    help="align N frames a dispatch (every backend; in keyframe mode chunked tracking, "
                         "analytic and ceres)")
     p.add_argument("--ba-iterations", type=int, default=0,
-                   help=f"keyframe mode: photometric bundle adjustment iterations; above 0 {BA_TODO}")
-    p.add_argument("--ba-window", type=int, default=None, help=f"BA window: {BA_TODO}")
-    p.add_argument("--ba-scope", default=None, choices=["window", "global"], help=f"BA scope: {BA_TODO}")
-    p.add_argument("--ba-covis", type=int, default=None, help=f"global BA observations a landmark: {BA_TODO}")
-    p.add_argument("--export-map", default=None, help=f"write the BA landmark map as PLY: {BA_TODO}")
-    p.add_argument("--ba-grid", type=int, default=None, help=f"BA landmarks a keyframe, grid^2: {BA_TODO}")
-    p.add_argument("--ba-occlusion-gate", type=float, default=None, help=f"BA occlusion gate, m: {BA_TODO}")
-    p.add_argument("--ba-z-robust-delta", type=float, default=None, help=f"BA depth Huber delta: {BA_TODO}")
-    p.add_argument("--ba-robust-delta", type=float, default=None, help=f"BA Huber delta: {BA_TODO}")
+                   help="keyframe mode: after the pose graph, refine the keyframes with photometric bundle adjustment "
+                        "for N Levenberg-Marquardt iterations (0 = off)")
+    p.add_argument("--ba-window", type=int, default=8, help="keyframe window size for photometric BA")
+    p.add_argument("--ba-scope", default="window", choices=["window", "global"],
+                   help="photometric BA scope: sliding windows (dense-Schur scale) or ONE joint problem over all "
+                        "keyframes with covisibility-limited observations (map scale; the Schur path turns sparse "
+                        "where a dense W would not fit)")
+    p.add_argument("--ba-covis", type=int, default=6,
+                   help="global BA: observations per landmark (nearest keyframes by camera centre)")
+    p.add_argument("--export-map", default=None,
+                   help="keyframe mode with --ba-iterations > 0: write the BA-refined sparse landmark map as an ASCII "
+                        "PLY point cloud (grey vertex colours from the landmarks' host intensities)")
+    p.add_argument("--ba-grid", type=int, default=8,
+                   help="landmarks per keyframe = grid*grid (one per cell at the cell's highest-gradient valid-depth "
+                        "pixel)")
+    p.add_argument("--ba-occlusion-gate", type=float, default=0.3,
+                   help="keyframe mode: drop BA observations whose predicted and measured depths differ by more than "
+                        "this many metres (the landmark is occluded in that frame); 0 disables")
+    p.add_argument("--ba-z-robust-delta", type=float, default=0.02,
+                   help="keyframe mode: Huber delta (metres) for the BA depth rows (caps depth-interpolation error "
+                        "near edges that passes the occlusion gate); 0 disables")
+    p.add_argument("--ba-robust-delta", type=float, default=0.1,
+                   help="keyframe mode: Huber delta for the BA photometric rows (intensity units; caps occluded or "
+                        "edge-contaminated observations); 0 disables")
     p.add_argument("--pg-solver", default="auto", choices=["auto", "dense", "cg"],
                    help="keyframe mode: pose-graph solver, dense block Hessian, matrix-free block-Jacobi PCG, or "
                         "auto (dense up to 192 keyframes)")
@@ -124,19 +134,6 @@ def main(argv=None) -> int:
 
 
 def _check_ported(args) -> None:
-    if args.ba_iterations > 0:
-        raise NotImplementedError(
-            "--ba-iterations > 0: the photometric bundle adjustment is not ported yet (ROADMAP.md queue A, item 10)"
-        )
-    if args.export_map:
-        raise NotImplementedError(
-            "--export-map: the bundle-adjusted map is not ported yet (ROADMAP.md queue A, item 10)"
-        )
-    given = [f"--{name.replace('_', '-')}" for name in BA_OPTIONS if getattr(args, name) is not None]
-    if given:
-        raise NotImplementedError(
-            f"{', '.join(given)}: the bundle adjustment is not ported yet (ROADMAP.md queue A, item 10)"
-        )
     if args.save_diff_dir:
         raise NotImplementedError(
             "--save-diff-dir: the difference images are not ported yet (ROADMAP.md queue A, item 12)"
@@ -469,7 +466,9 @@ def _run_keyframe_mode(args, vo, seq) -> int:
         if args.max_frames is not None and n >= args.max_frames:
             break
     t_track = time.perf_counter() - t0
-    tracked = kvo.finalize()
+    tracked = kvo.finalize(ba_iterations=args.ba_iterations, ba_window=args.ba_window, ba_grid=args.ba_grid,
+                           ba_robust_delta=args.ba_robust_delta, ba_scope=args.ba_scope, ba_covis=args.ba_covis,
+                           ba_occ_gate=args.ba_occlusion_gate, ba_z_robust_delta=args.ba_z_robust_delta)
     t_finalize = time.perf_counter() - t0 - t_track
     items = "".join(f", {k} {v:.1f} s" for k, v in kvo.finalize_timings.items())
     print(f"keyframe wall: track {t_track:.1f} s ({n / max(t_track, 1e-9):.1f} frames/s), "
@@ -481,6 +480,15 @@ def _run_keyframe_mode(args, vo, seq) -> int:
     with TrajectoryWriter(args.output) as out:
         for tf in tracked:
             out.write(tf.timestamp, tf.pose)
+    if args.export_map:
+        if kvo.map_points is None:
+            print("note: --export-map needs --ba-iterations > 0 (the map landmarks come from the photometric BA); "
+                  "no map written", file=sys.stderr)
+        else:
+            from phovo_tpu_torch.utils.viz import save_ply
+
+            save_ply(args.export_map, kvo.map_points, kvo.map_intensity)
+            print(f"wrote {len(kvo.map_points)} map landmarks to {args.export_map}")
     # one-line run summary, printed even under -q
     print(f"wrote {len(tracked)} poses ({len(kvo.keyframes)} keyframes, {len(kvo.loop_closures)} loop closures) "
           f"to {args.output}")

@@ -11,25 +11,26 @@ The reference integrates poses frame to frame with no drift correction
   - a new keyframe near an old, non-adjacent one is aligned to it
     photometrically from the predicted relative pose; a well-supported,
     geometrically consistent alignment adds a loop edge;
-  - finalize() optimizes the pose graph (parallel/pose_graph.py) and
+  - finalize() optimizes the pose graph (parallel/pose_graph.py),
+    optionally refines the keyframe poses and a sparse landmark map by
+    photometric bundle adjustment (parallel/photometric_ba.py), and
     recomposes every frame pose from its optimized keyframe.
 
 Everything on the device lives on the odometry object's device (the card
 by default): the keyframes' frames (Keyframe.dev_*), the tracked chunks,
-the closure batches and the pose-graph solve. run_chunked tracks a chunk of
-frames against the keyframe in one dispatch: level-major through the
-shared-source level kernels (analytic: models/analytic.py::
-track_chunk_levelmajor; ceres: models/autodiff.py::
+the closure batches, the pose-graph solve and the bundle adjustment.
+run_chunked tracks a chunk of frames against the keyframe in one
+dispatch: level-major through the shared-source level kernels (analytic:
+models/analytic.py::track_chunk_levelmajor; ceres: models/autodiff.py::
 track_chunk_levelmajor_tr), or the serial warm-started scan
 (track_sequence_chunk). Loop-closure candidates of the analytic backend
 align in one batch (parallel/batch.py::align_batch); the other backends
 align them one by one through the object API.
 
-Not ported: finalize(ba_iterations > 0), the photometric bundle
-adjustment refinement (ROADMAP.md queue A, item 10), and finalize(mesh=...)
-(item 11). phovo_tpu's band fallback has nothing to catch here: the GPU
-kernels sample the whole target, so band_masked is always 0;
-band_fallback is accepted and stored, and band_fallbacks stays 0.
+Not ported: finalize(mesh=...) (ROADMAP.md queue A, item 11).
+phovo_tpu's band fallback has nothing to catch here: the GPU kernels
+sample the whole target, so band_masked is always 0; band_fallback is
+accepted and stored, and band_fallbacks stays 0.
 """
 
 from __future__ import annotations
@@ -54,9 +55,18 @@ from phovo_tpu_torch.models.autodiff import (
     _check_supported,
     track_chunk_levelmajor_tr,
 )
-from phovo_tpu_torch.models.base import AlignmentResult, PhotoconsistencyOdometryBase
+from phovo_tpu_torch.models.base import AlignmentResult, PhotoconsistencyOdometryBase, device_unit_intensity
 from phovo_tpu_torch.ops import se3
 from phovo_tpu_torch.parallel.batch import align_batch
+from phovo_tpu_torch.parallel.bundle_adjustment import dense_w_fits
+from phovo_tpu_torch.parallel.photometric_ba import (
+    build_photometric_global,
+    build_photometric_window,
+    optimize_photometric_bundle,
+    refine_photometric_windows,
+    select_landmark_pixels,
+    window_starts,
+)
 from phovo_tpu_torch.parallel.pose_graph import PoseGraph, optimize_pose_graph
 
 # phovo_tpu's default fraction of band-masked pixels that re-runs a pair
@@ -175,6 +185,10 @@ class KeyframeVisualOdometry:
         # [(old index, rel_pred)], device result, full-resolution pixels);
         # gated at the next flush (build_pose_graph, the end of a run)
         self._pending_closures: list[tuple] = []
+        # the bundle-adjusted landmarks (world) and their host intensities,
+        # set by finalize(ba_iterations > 0)
+        self.map_points: np.ndarray | None = None
+        self.map_intensity: np.ndarray | None = None
 
     # -- alignment helpers ---------------------------------------------------
 
@@ -519,24 +533,50 @@ class KeyframeVisualOdometry:
             weights=np.asarray(ws, np.float32),
         )
 
-    def finalize(self, mesh=None, iterations: int = 10, ba_iterations: int = 0) -> list[TrackedFrame]:
+    def finalize(
+        self,
+        mesh=None,
+        iterations: int = 10,
+        ba_iterations: int = 0,
+        ba_window: int = 8,
+        ba_grid: int = 8,
+        ba_damping: float = 1e-4,
+        ba_robust_delta: float | None = 0.1,
+        ba_scope: str = "window",
+        ba_covis: int = 6,
+        ba_occ_gate: float | None = 0.3,
+        ba_z_robust_delta: float | None = 0.02,
+    ) -> list[TrackedFrame]:
         """Optimize the keyframe poses over the pose graph (on the
-        odometry's device) and recompose every tracked frame's pose from
-        its keyframe's; returns the tracked frames with `pose` updated in
-        place. finalize_timings holds the seconds of the graph build and
-        the solve. mesh (the sharded solve, ROADMAP.md queue A, item 11)
-        and ba_iterations > 0 (the photometric bundle adjustment, item 10)
-        are not ported and raise NotImplementedError."""
+        odometry's device), optionally refine them with photometric bundle
+        adjustment, and recompose every tracked frame's pose from its
+        keyframe's; returns the tracked frames with `pose` updated in
+        place. finalize_timings holds the seconds of the graph build, the
+        solve and the refinement (the card synchronized before each
+        reading).
+
+        ba_iterations > 0 refines poses AND sparse landmarks against the
+        keyframes' stored images (parallel/photometric_ba.py) and fills
+        map_points and map_intensity. ba_scope 'window': sliding windows of
+        ba_window keyframes, each anchored on its first pose's refined
+        estimate; 'global': one problem over all keyframes, each landmark
+        observed by its ba_covis nearest keyframes, the Schur path routed
+        by size. ba_occ_gate drops observations whose predicted and
+        measured depths differ by more than that many metres (an occluded
+        landmark sees another surface); ba_robust_delta is a Huber delta on
+        the photometric row (intensity units) and ba_z_robust_delta on the
+        depth row (metres). 0 or None disables either. mesh (the sharded
+        solve, ROADMAP.md queue A, item 11) raises NotImplementedError."""
         if mesh is not None:
             raise NotImplementedError(
                 "finalize(mesh=...): the sharded pose graph is not ported yet "
                 "(ROADMAP.md queue A, item 11)"
             )
-        if ba_iterations > 0:
-            raise NotImplementedError(
-                "finalize(ba_iterations > 0): the photometric bundle adjustment "
-                "is not ported yet (ROADMAP.md queue A, item 10)"
-            )
+        if ba_scope not in ("window", "global"):
+            raise ValueError(f"ba_scope={ba_scope!r}")
+        ba_robust_delta = ba_robust_delta or None
+        ba_occ_gate = ba_occ_gate or float("inf")
+        ba_z_robust_delta = ba_z_robust_delta or None
         self.finalize_timings: dict[str, float] = {}
         t0 = time.perf_counter()
         if len(self.keyframes) >= 2:
@@ -551,6 +591,141 @@ class KeyframeVisualOdometry:
             for k, kf in enumerate(self.keyframes):
                 kf.pose = se3.pose_matrix_np(states[k])
         self.finalize_timings["pose_graph"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        if ba_iterations > 0 and len(self.keyframes) >= 2:
+            if ba_scope == "global":
+                self._refine_photometric_global(None, ba_iterations, ba_grid, ba_damping, ba_robust_delta, ba_covis,
+                                                ba_occ_gate, ba_z_robust_delta)
+            else:
+                self._refine_photometric(None, ba_iterations, ba_window, ba_grid, ba_damping, ba_robust_delta,
+                                         ba_occ_gate, ba_z_robust_delta)
+        _synchronize(self.odometry.device)
+        self.finalize_timings["photometric_ba"] = time.perf_counter() - t0
         for tf in self.tracked:
             tf.pose = self.keyframes[tf.keyframe_index].pose @ tf.rel_to_keyframe
         return self.tracked
+
+    # -- photometric bundle adjustment ----------------------------------------
+
+    def _ba_intrinsics(self, mesh):
+        if mesh is not None:
+            raise NotImplementedError(
+                "the photometric bundle adjustment over a mesh is not ported yet (ROADMAP.md queue A, item 11)"
+            )
+        if self.odometry.intrinsics is None:
+            raise RuntimeError("photometric BA needs intrinsics on the odometry backend")
+        return self.odometry.intrinsics
+
+    def _keyframe_stacks(self):
+        """The keyframes' device images as (M, H, W) float32 stacks
+        (intensity in 0..1, converted on the device) and their host
+        states (M, 6)."""
+        kfs = self.keyframes
+        dev_I = device_unit_intensity(torch.stack([k.dev_intensity for k in kfs])).to(torch.float32)
+        dev_D = torch.stack([k.dev_depth for k in kfs])
+        states = se3.matrix_to_state_np(np.stack([k.pose for k in kfs])).astype(np.float32)
+        return dev_I, dev_D, states
+
+    def _set_poses(self, kfs, states: torch.Tensor) -> None:
+        refined = states.cpu().numpy().astype(np.float64)
+        for k, kf in enumerate(kfs):
+            kf.pose = se3.pose_matrix_np(refined[k])
+
+    def _refine_photometric(
+        self, mesh, iterations: int, window: int, grid: int, damping: float,
+        robust_delta: float | None = None, occ_gate: float = 0.3, robust_z_delta: float | None = 0.02,
+    ) -> None:
+        """Windowed photometric BA over all keyframes: every sliding window
+        built and solved on the device from the keyframe stacks
+        (refine_photometric_windows), or window by window from host-built
+        problems (_refine_photometric_sequential) where a window's dense W
+        would not fit the budget. phovo_tpu pads the keyframes and the
+        windows to reuse one compiled program; the port runs unpadded."""
+        intr = self._ba_intrinsics(mesh)
+        M = len(self.keyframes)
+        window = max(2, min(window, M))
+        if not dense_w_fits(window, window * grid * grid):
+            self._refine_photometric_sequential(mesh, iterations, window, grid, damping, robust_delta, occ_gate,
+                                                robust_z_delta)
+            return
+        kfs = self.keyframes
+        starts = window_starts(M, window)
+        sel = np.stack([select_landmark_pixels(k.intensity, k.depth, grid=grid) for k in kfs])
+        dev_I, dev_D, states = self._keyframe_stacks()
+        dev = dev_I.device
+        refined, points, refs, lm_valid = refine_photometric_windows(
+            dev_I, dev_D, torch.from_numpy(states).to(dev), torch.from_numpy(sel).to(dev), starts,
+            [True] * len(starts), intr, damping, window=window, grid=grid, iterations=iterations,
+            robust_delta=robust_delta, occ_gate=float(occ_gate), robust_z_delta=robust_z_delta,
+        )
+        self._set_poses(kfs, refined)
+        pts = points.cpu().numpy().astype(np.float64).reshape(-1, 3)
+        ref_i = refs.cpu().numpy().reshape(-1)
+        keep = lm_valid.cpu().numpy().reshape(-1) & (np.linalg.norm(pts, axis=1) > 1e-9)
+        self.map_points = pts[keep]
+        self.map_intensity = ref_i[keep]
+
+    def _refine_photometric_sequential(
+        self, mesh, iterations: int, window: int, grid: int, damping: float,
+        robust_delta: float | None = None, occ_gate: float = 0.3, robust_z_delta: float | None = 0.02,
+    ) -> None:
+        """Windowed photometric BA from host-built windows
+        (build_photometric_window, float64), one after the other, each
+        solved with schur='auto' on the odometry's device."""
+        intr = self._ba_intrinsics(mesh)
+        M = len(self.keyframes)
+        window = max(2, min(window, M))
+        map_pts, map_int = [], []
+        for start in window_starts(M, window):
+            kfs = self.keyframes[start:start + window]
+            I = np.stack([k.intensity for k in kfs])
+            if I.dtype == np.uint8:  # the aligners' convention: intensity in 0..1
+                I = I.astype(np.float32) / 255.0
+            D = np.stack([k.depth for k in kfs])
+            states = se3.matrix_to_state_np(np.stack([k.pose for k in kfs])).astype(np.float32)
+            problem = build_photometric_window(I, D, states, intr, grid=grid, occ_gate=occ_gate,
+                                               device=self.odometry.device)
+            refined, points, _ = optimize_photometric_bundle(
+                problem, intr, iterations=iterations, damping=damping, fixed_first=True, robust_delta=robust_delta,
+                schur="auto", robust_z_delta=robust_z_delta,
+            )
+            self._set_poses(kfs, refined)
+            pts = points.cpu().numpy().astype(np.float64)
+            keep = np.linalg.norm(pts, axis=1) > 1e-9  # zero rows: invalid landmark slots
+            map_pts.append(pts[keep])
+            map_int.append(problem.ref_intensity.cpu().numpy()[keep])
+        self.map_points = np.concatenate(map_pts) if map_pts else None
+        self.map_intensity = np.concatenate(map_int) if map_int else None
+
+    def _refine_photometric_global(
+        self, mesh, iterations: int, grid: int, damping: float, robust_delta: float | None, covis: int,
+        occ_gate: float = 0.3, robust_z_delta: float | None = 0.02,
+    ) -> None:
+        """ba_scope='global': one photometric BA over ALL keyframes
+        (build_photometric_global) on the keyframes' device stacks,
+        schur='auto' (the sparse path past the dense budget). phovo_tpu
+        pads the keyframe count to a multiple of 16 with inert keyframes to
+        reuse compiled programs; the port runs unpadded."""
+        intr = self._ba_intrinsics(mesh)
+        kfs = self.keyframes
+        dev_I, dev_D, states = self._keyframe_stacks()
+        problem = build_photometric_global(
+            np.stack([k.intensity for k in kfs]), np.stack([k.depth for k in kfs]).astype(np.float32), states, intr,
+            grid=grid, max_covis=covis, occ_gate=occ_gate, device_intensities=dev_I, device_depths=dev_D,
+        )
+        refined, points, _ = optimize_photometric_bundle(
+            problem, intr, iterations=iterations, damping=damping, fixed_first=True, robust_delta=robust_delta,
+            schur="auto", robust_z_delta=robust_z_delta,
+        )
+        self._set_poses(kfs, refined)
+        pts = points.cpu().numpy().astype(np.float64)
+        keep = np.linalg.norm(pts, axis=1) > 1e-9  # zero rows: invalid landmark slots
+        self.map_points = pts[keep]
+        self.map_intensity = problem.ref_intensity.cpu().numpy()[keep]
+
+
+def _synchronize(device) -> None:
+    """Wait for the card's queued work (a no-op off the card), so that a
+    host clock reading covers it."""
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize(device)

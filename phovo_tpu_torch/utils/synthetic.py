@@ -1,11 +1,14 @@
 """Synthetic RGB-D frames with exact ground-truth pose (numpy; a jax-free
 copy of the generators of phovo_tpu/utils/synthetic.py that the frame
-chain needs).
+chain and the keyframe back-end need).
 
-An analytically textured slanted plane is rendered from known camera
-poses, so alignment must recover a KNOWN state. Poses here are computed in
-float64 (phovo_tpu rounds them through float32), so frames from the two
-packages agree to about 1e-7; tests feed both packages the same arrays.
+An analytically textured slanted plane (render_plane) or a room interior
+(render_room: five non-parallel walls and two slabs) is rendered from
+known camera poses, so alignment must recover a KNOWN state. The renderers
+are phovo_tpu's numpy code: the same pose gives the same bits. Poses here
+are computed in float64 (phovo_tpu rounds them through float32), so
+trajectories from the two packages agree to about 1e-7; tests feed both
+packages the same arrays.
 """
 
 from __future__ import annotations
@@ -52,6 +55,144 @@ def render_plane(
     pc = np.stack([vx * z, vy * z, z], axis=-1)
     pw = (pc - t) @ R  # R^T (p - t), row-wise
     return _texture(pw[..., 0], pw[..., 1]).astype(np.float32), z.astype(np.float32)
+
+
+def render_room(
+    intr: Intrinsics,
+    shape: tuple[int, int],
+    T_cam_from_world: np.ndarray,
+) -> tuple[np.ndarray, np.ndarray]:
+    """Render float32 (intensity, depth) of a room interior from a camera
+    with pose T (world -> camera): five mutually non-parallel textured
+    planes (back wall, side walls, floor, ceiling) and two bounded slabs at
+    intermediate depths, composited by nearest hit. Surfaces at many depths
+    and orientations keep a photometric bundle adjustment well conditioned
+    (a single plane constrains one translation direction strongly). The
+    camera starts at the origin looking +z; surface depths 0.8-4.5 m; a
+    ray that hits nothing has depth 0."""
+    H, W = shape
+    fx, fy, cx, cy = (float(v) for v in intr)
+    R = np.asarray(T_cam_from_world, dtype=np.float64)[:3, :3]
+    t = np.asarray(T_cam_from_world, dtype=np.float64)[:3, 3]
+    cc, rr = np.meshgrid(np.arange(W, dtype=np.float64), np.arange(H, dtype=np.float64))
+    vx = (cc - cx) / fx
+    vy = (rr - cy) / fy
+
+    def hit(normal, d):
+        """Depth along the ray (vx, vy, 1) to the plane n.p = d (inf where
+        it misses or lies behind) and the world-frame hit point; both signs
+        of the denominator count (a left-wall ray has n_c.v < 0)."""
+        n_c = R @ np.asarray(normal, dtype=np.float64)
+        d_c = d + n_c @ t
+        denom = n_c[0] * vx + n_c[1] * vy + n_c[2]
+        with np.errstate(divide="ignore", invalid="ignore"):
+            z = d_c / denom
+        z = np.where((np.abs(denom) > 1e-9) & (z > 0.05), z, np.inf)
+        z_s = np.where(np.isfinite(z), z, 0.0)  # keeps inf out of the texture
+        pc = np.stack([vx * z_s, vy * z_s, z_s], axis=-1)
+        return z, (pc - t) @ R  # R^T (p - t), row-wise
+
+    # (normal, d, texture axes, frequency, phase): normals tilted off-axis
+    # so no two surfaces are parallel
+    surfaces = [
+        ((0.02, -0.03, 1.0), 3.2, (0, 1), 1.0, 0.0),  # back wall
+        ((1.0, 0.04, 0.05), -2.0, (2, 1), 1.35, 1.3),  # left wall
+        ((1.0, -0.03, 0.06), 2.0, (2, 1), 0.8, 2.1),  # right wall
+        ((0.03, 1.0, 0.04), 1.4, (0, 2), 1.15, 0.7),  # floor
+        ((-0.02, 1.0, 0.03), -1.4, (0, 2), 0.9, 2.8),  # ceiling
+    ]
+    z_best = np.full((H, W), np.inf)
+    intensity = np.zeros((H, W))
+    for normal, d, (ua, va), freq, phase in surfaces:
+        z, pw = hit(normal, d)
+        closer = z < z_best
+        tex = _texture(pw[..., ua] * freq + phase, pw[..., va] * freq - phase)
+        intensity = np.where(closer, tex, intensity)
+        z_best = np.where(closer, z, z_best)
+    # bounded slabs: parallax at intermediate depths, and occlusion
+    slabs = [
+        dict(normal=(0.15, -0.1, 1.0), d=2.1, axes=(0, 1), center=(-0.7, 0.55), half=(0.45, 0.35), freq=1.9,
+             phase=0.9),
+        dict(normal=(0.9, 0.12, 0.45), d=1.15, axes=(2, 1), center=(1.45, 0.2), half=(0.5, 0.4), freq=1.6,
+             phase=2.4),
+    ]
+    for s in slabs:
+        z, pw = hit(s["normal"], s["d"])
+        ua, va = s["axes"]
+        inb = (np.abs(pw[..., ua] - s["center"][0]) < s["half"][0]) & (
+            np.abs(pw[..., va] - s["center"][1]) < s["half"][1])
+        z = np.where(inb, z, np.inf)
+        closer = z < z_best
+        tex = _texture(pw[..., ua] * s["freq"] + s["phase"], pw[..., va] * s["freq"] - s["phase"])
+        intensity = np.where(closer, tex, intensity)
+        z_best = np.where(closer, z, z_best)
+    z_best = np.where(np.isfinite(z_best), z_best, 0.0)
+    return intensity.astype(np.float32), z_best.astype(np.float32)
+
+
+def forward_trajectory(n_frames: int, motion_scale: float = 1.0, seed: int = 0) -> list[np.ndarray]:
+    """A one-way sweep (list of T_cam_from_world): steady translation and a
+    slow turn, no revisits, so a keyframe back-end has odometry edges only.
+    seed is unused (the signature of the other trajectories)."""
+    per = motion_scale / max(n_frames, 1)
+    return [
+        pose_matrix_np(np.array([1.1 * per * k, -0.5 * per * k, 0.55 * per * k, 0.45 * per * k, -0.18 * per * k,
+                                 0.3 * per * k]))
+        for k in range(n_frames)
+    ]
+
+
+def loop_trajectory(n_frames: int, motion_scale: float = 1.0, seed: int = 0) -> list[np.ndarray]:
+    """An out-and-back path (list of T_cam_from_world) that returns to the
+    start, so the last keyframes close loops with the first. seed is
+    unused."""
+    half = n_frames // 2
+    reach = 0.9 * motion_scale
+    poses = []
+    for k in range(n_frames):
+        x = reach * (k / half if k <= half else (n_frames - k) / (n_frames - half))
+        poses.append(pose_matrix_np(np.array([x, 0.05 * motion_scale * np.sin(0.1 * k), 0.0, 0.12 * x, 0.0, 0.0])))
+    return poses
+
+
+def rotation_trajectory(n_frames: int, motion_scale: float = 1.0, seed: int = 0) -> list[np.ndarray]:
+    """A rotation-dominant path (list of T_cam_from_world): peaks of about 2
+    degrees a frame of yaw, pitch and roll with millimetres of translation,
+    a fixed 60-frame period, phases drawn from `seed`."""
+    rng = np.random.default_rng(seed)
+    phase = rng.uniform(0, 2 * np.pi, 6)
+    amp_t = np.array([0.015, 0.010, 0.012]) * motion_scale
+    amp_r = np.array([0.30, 0.24, 0.36]) * motion_scale
+    poses = []
+    for k in range(n_frames):
+        u = 2 * np.pi * k / 60.0
+        poses.append(pose_matrix_np(np.concatenate([
+            amp_t * np.sin(u + phase[:3]) - amp_t * np.sin(phase[:3]),
+            amp_r * np.sin(u + phase[3:]) - amp_r * np.sin(phase[3:]),
+        ])))
+    return poses
+
+
+def make_room_sequence(
+    intr: Intrinsics,
+    shape: tuple[int, int] = (480, 640),
+    n_frames: int = 30,
+    motion_scale: float = 1.0,
+    seed: int = 0,
+    trajectory: str = "forward",
+):
+    """The room (render_room) along a trajectory: 'forward', 'loop',
+    'smooth' or 'rotation'. Returns (intensities, depths, gt world_from_cam
+    poses, timestamps at 30 Hz), as make_sequence."""
+    traj_fn = {"forward": forward_trajectory, "loop": loop_trajectory, "smooth": smooth_trajectory,
+               "rotation": rotation_trajectory}[trajectory]
+    intensities, depths, gts = [], [], []
+    for T in traj_fn(n_frames, motion_scale, seed):
+        I, D = render_room(intr, shape, T)
+        intensities.append(I)
+        depths.append(D)
+        gts.append(np.linalg.inv(T))
+    return intensities, depths, gts, np.arange(n_frames, dtype=np.float64) / 30.0
 
 
 def smooth_trajectory(

@@ -12,6 +12,10 @@ run in process through main(argv) with --device cpu:
   * phovo-eval --json equal to phovo_tpu's; phovo-align within 1e-4 of
     phovo_tpu's; phovo-serve with two streams equal to each stream's own
     phovo-vo --chunk run;
+  * phovo-vo --mode keyframe with each bundle-adjustment flag set
+    (--ba-*, --export-map): the in-process finalize's lines, bit for bit;
+    the default BA run and --ba-scope global --export-map within 1e-4 of
+    phovo_tpu's;
   * the flags not ported yet raise NotImplementedError naming their
     ROADMAP item, and the default device raises without a card.
 """
@@ -354,16 +358,94 @@ def test_serve_two_streams_are_their_own_vo_runs(data, tmp_path):
         assert _pose_lines(out / f"{d.name}.txt") == _pose_lines(single)
 
 
+# phovo-vo's bundle-adjustment flags, one set a case, each run with
+# --ba-iterations 2 so that the refinement runs
+BA_FLAG_SETS = {
+    "iterations": [],
+    "export-map": ["--export-map", "map.ply"],
+    "window": ["--ba-window", "3"],
+    "scope": ["--ba-scope", "global"],
+    "covis": ["--ba-scope", "global", "--ba-covis", "1"],
+    "grid": ["--ba-grid", "4"],
+    "occlusion-gate": ["--ba-occlusion-gate", "0"],
+    "z-robust-delta": ["--ba-z-robust-delta", "0.05"],
+    "robust-delta": ["--ba-robust-delta", "0"],
+}
+# keyframe mode with a keyframe every few frames of the fixture
+KF_FLAGS = ["--mode", "keyframe", "--kf-translation", "0.02"]
+
+
+@pytest.fixture(scope="module")
+def kf_tracked(data):
+    """The port's keyframe tracker run in process over the raw fixture as
+    phovo-vo --mode keyframe runs it (the per-frame run()), before
+    finalize: (the tracker, its keyframe poses)."""
+    from phovo_tpu_torch.apps._common import intrinsic_matrix
+    from phovo_tpu_torch.datasets.raw import RawSequence
+    from phovo_tpu_torch.models import BACKENDS
+    from phovo_tpu_torch.models.keyframe import KeyframeVisualOdometry
+
+    vo = BACKENDS["analytic"](load_config(data["tight"]), device="cpu")
+    vo.set_intrinsic_matrix(intrinsic_matrix(INTR))
+    kvo = KeyframeVisualOdometry(vo, kf_translation=0.02)
+    list(kvo.run(iter(RawSequence(data["raw"]))))
+    assert len(kvo.keyframes) >= 3
+    return kvo, [k.pose.copy() for k in kvo.keyframes]
+
+
+@pytest.mark.parametrize("case", list(BA_FLAG_SETS))
+def test_ba_flags_give_the_in_process_finalize(data, tmp_path, kf_tracked, case):
+    """Each bundle-adjustment flag set through phovo-vo --mode keyframe:
+    the trajectory is the in-process tracker's finalize with the kwargs the
+    flags name, line for line; --export-map writes its map."""
+    flags = [str(tmp_path / f) if f == "map.ply" else f for f in BA_FLAG_SETS[case]]
+    argv = [*KF_FLAGS, "--loader", "raw", "--ba-iterations", "2", *flags]
+    out = tmp_path / "t.txt"
+    _vo(argv, out, data["tight"], data["raw"])
+    args = phovo_vo.build_parser().parse_args(["-c", "c", "-d", "d", "-o", "o", *argv])
+    kvo, snap = kf_tracked
+    for kf, pose in zip(kvo.keyframes, snap):
+        kf.pose = pose.copy()
+    tracked = kvo.finalize(ba_iterations=args.ba_iterations, ba_window=args.ba_window, ba_grid=args.ba_grid,
+                           ba_robust_delta=args.ba_robust_delta, ba_scope=args.ba_scope, ba_covis=args.ba_covis,
+                           ba_occ_gate=args.ba_occlusion_gate, ba_z_robust_delta=args.ba_z_robust_delta)
+    assert _pose_lines(out) == [format_pose_line(tf.timestamp, tf.pose) for tf in tracked]
+    assert kvo.map_points is not None and len(kvo.map_points) > 0
+    if args.export_map:
+        head = Path(args.export_map).read_text().splitlines()
+        assert f"element vertex {len(kvo.map_points)}" in head
+
+
+@pytest.mark.parametrize("flags", [[], ["--ba-scope", "global", "--export-map", "map.ply"]], ids=["window", "global"])
+def test_ba_cli_matches_phovo_tpu(data, tmp_path, flags):
+    """phovo-vo --mode keyframe --ba-iterations 2 against phovo_tpu's on the
+    same TUM directory: poses within 1e-4 (measured 6.2e-6 windowed and
+    2.8e-5 global, from tracked poses 1.3e-7 apart: two LM iterations at
+    the production damping amplify float32 differences) and the same map
+    size."""
+    from phovo_tpu.apps import phovo_vo as jax_vo
+
+    flags = [str(tmp_path / "port.ply") if f == "map.ply" else f for f in flags]
+    argv = [*KF_FLAGS, "--loader", "python", "--ba-iterations", "2", *flags]
+    port = _vo(argv, tmp_path / "port.txt", data["tight"], data["tum"])
+    ref_flags = [str(tmp_path / "ref.ply") if f.endswith("port.ply") else f for f in argv]
+    assert jax_vo.main(["--config", str(data["tight"]), "--dataset", str(data["tum"]), "--output",
+                        str(tmp_path / "ref.txt"), "--intrinsics", SPEC, "-q", *ref_flags]) == 0
+    ref = read_trajectory(tmp_path / "ref.txt")
+    assert len(port) == len(ref) == N_FRAMES - 1
+    _assert_poses_close(port, ref)
+    if "--export-map" in flags:  # the header (its vertex count) is phovo_tpu's
+        heads = [(tmp_path / f).read_text().splitlines()[:3] for f in ("port.ply", "ref.ply")]
+        assert heads[0] == heads[1]
+
+
+def test_export_map_without_ba_writes_no_map(data, tmp_path, capsys):
+    _vo([*KF_FLAGS, "--loader", "raw", "--export-map", str(tmp_path / "m.ply")], tmp_path / "t.txt", data["tight"],
+        data["raw"])
+    assert "no map written" in capsys.readouterr().err and not (tmp_path / "m.ply").exists()
+
+
 @pytest.mark.parametrize("cli,argv,item", [
-    (phovo_vo, ["--ba-iterations", "2"], "item 10"),
-    (phovo_vo, ["--export-map", "map.ply"], "item 10"),
-    (phovo_vo, ["--ba-window", "4"], "item 10"),
-    (phovo_vo, ["--ba-scope", "global"], "item 10"),
-    (phovo_vo, ["--ba-covis", "3"], "item 10"),
-    (phovo_vo, ["--ba-grid", "4"], "item 10"),
-    (phovo_vo, ["--ba-occlusion-gate", "0.2"], "item 10"),
-    (phovo_vo, ["--ba-z-robust-delta", "0.05"], "item 10"),
-    (phovo_vo, ["--ba-robust-delta", "0.2"], "item 10"),
     (phovo_vo, ["--save-diff-dir", "diffs"], "item 12"),
     (phovo_align, ["--save-diff", "d.png"], "item 12"),
     (phovo_align, ["--save-diff-dir", "diffs"], "item 12"),

@@ -15,7 +15,11 @@ the ceres backend's per-frame run within 2e-4 (the trust-region level's
 bound against phovo_tpu, tests/test_torch_trust_region.py); the closures'
 relative poses within the same bound as the poses and mean residuals
 within 1e-5; the finalized poses within 1e-5 of phovo_tpu's finalize of
-the same run.
+the same run. finalize with the photometric bundle adjustment is held to
+phovo_tpu's bounds on the port alone: the trajectory within 2 cm, the
+landmark map on the plane within 2 cm, perturbed keyframes pulled back
+(tests/test_torch_photometric_ba.py holds the refinement to phovo_tpu's on
+shared keyframes).
 On the CPU the level kernels' plain versions run and nothing launches.
 """
 
@@ -68,15 +72,19 @@ LEVELMAJOR_ATOL = 1e-3
 TR_ATOL = 2e-4
 
 
-@pytest.fixture(scope="module")
-def frames():
-    """(uint8 intensity, float32 depth) of tests/test_keyframe.py's
-    out-and-back camera states."""
+def _states():
+    """tests/test_keyframe.py's out-and-back camera states."""
     n, reach = 9, 0.24
     xs = np.concatenate([np.linspace(0, reach, n // 2 + 1), np.linspace(reach, 0.02, n - n // 2 - 1)])
+    return [np.array([x, 0.01 * np.sin(k), 0.0, 0.05 * x, 0.0, 0.0]) for k, x in enumerate(xs)]
+
+
+@pytest.fixture(scope="module")
+def frames():
+    """(uint8 intensity, float32 depth) along _states."""
     out = []
-    for k, x in enumerate(xs):
-        I, D = render_plane(INTR, SHAPE, se3.pose_matrix_np([x, 0.01 * np.sin(k), 0.0, 0.05 * x, 0.0, 0.0]))
+    for st in _states():
+        I, D = render_plane(INTR, SHAPE, se3.pose_matrix_np(st))
         out.append(((I * 255).astype(np.uint8), D))
     return out
 
@@ -210,7 +218,7 @@ def test_finalize_matches_jax(frames, solver):
     kvo = _port_kvo(pg_solver=solver)
     list(kvo.run(_tframes(frames)))
     final = kvo.finalize(iterations=8)
-    assert set(kvo.finalize_timings) == {"pg_build", "pg_solve", "pose_graph"}
+    assert set(kvo.finalize_timings) == {"pg_build", "pg_solve", "pose_graph", "photometric_ba"}
     for tf, pose in zip(final, ref_final):
         np.testing.assert_allclose(tf.pose, pose, rtol=0, atol=SERIAL_ATOL)
 
@@ -255,11 +263,70 @@ def test_band_fallback_never_fires_and_cpu_launches_nothing(frames):
     assert (FB.LAUNCHES, FB.TR_LAUNCHES, FB.LIN_LAUNCHES) == before
 
 
+def test_finalize_with_photometric_ba(frames):
+    """finalize(ba_iterations > 0) refines the keyframes with windowed
+    photometric BA and keeps the (already accurate) trajectory accurate
+    (tests/test_keyframe.py's bound: mean position error below 2 cm)."""
+    kvo = _port_kvo()
+    list(kvo.run(_tframes(frames)))
+    tracked = kvo.finalize(iterations=8, ba_iterations=4, ba_window=4, ba_grid=6)
+    gts = [np.linalg.inv(se3.pose_matrix_np(st)) for st in _states()]
+    err = np.mean([np.linalg.norm(tf.pose[:3, 3] - gt[:3, 3]) for tf, gt in zip(tracked, gts[1:])])
+    assert err < 0.02, err
+    assert all(np.isfinite(tf.pose).all() for tf in tracked)
+    assert kvo.finalize_timings["photometric_ba"] > 0.0 and kvo.map_points is not None
+
+
+def test_photometric_ba_fixes_perturbed_keyframes(frames):
+    """Keyframe poses corrupted after tracking are pulled back toward their
+    tracked values from the stored images alone (tests/test_keyframe.py's
+    bound: the mean error at least halved)."""
+    kvo = _port_kvo()
+    list(kvo.run(_tframes(frames)))
+    assert len(kvo.keyframes) >= 3
+    rng = np.random.default_rng(0)
+    ref = {k.index: k.pose.copy() for k in kvo.keyframes}
+    for k in kvo.keyframes[1:]:
+        k.pose = k.pose @ se3.pose_matrix_np(rng.normal(0.0, 0.008, 6))
+
+    def err():
+        return np.mean([np.linalg.norm(k.pose[:3, 3] - ref[k.index][:3, 3]) for k in kvo.keyframes])
+
+    before = err()
+    kvo._refine_photometric(None, iterations=6, window=4, grid=6, damping=1e-4)
+    assert err() < before / 2, (before, err())
+
+
+@pytest.mark.parametrize("scope", ["window", "global"])
+def test_finalize_exports_the_landmark_map(frames, tmp_path, scope):
+    """finalize(ba_iterations > 0) fills map_points and map_intensity; the
+    landmarks lie on the rendered plane n.p = d (median distance below 2 cm,
+    tests/test_keyframe.py's oracle), and save_ply writes a valid ASCII PLY
+    of them."""
+    from phovo_tpu_torch.utils.viz import save_ply
+
+    kvo = _port_kvo()
+    list(kvo.run(_tframes(frames)))
+    kvo.finalize(ba_iterations=2, ba_scope=scope, ba_covis=3)
+    assert kvo.map_points is not None and len(kvo.map_points) > 20
+    assert len(kvo.map_intensity) == len(kvo.map_points)
+    n = np.array([0.06, -0.04, 1.0])
+    d = np.abs(kvo.map_points @ n - 2.0) / np.linalg.norm(n)
+    assert float(np.median(d)) < 0.02, float(np.median(d))
+    ply = tmp_path / "map.ply"
+    save_ply(ply, kvo.map_points, kvo.map_intensity)
+    txt = ply.read_text().splitlines()
+    assert txt[0] == "ply" and "end_header" in txt
+    n_hdr = int([ln for ln in txt if ln.startswith("element vertex")][0].split()[-1])
+    body = txt[txt.index("end_header") + 1:]
+    assert n_hdr == len(kvo.map_points) == len(body) and len(body[0].split()) == 6
+    np.testing.assert_allclose(np.array([[float(v) for v in ln.split()[:3]] for ln in body]), kvo.map_points,
+                               atol=1e-6)
+
+
 def test_unported_and_invalid_calls_raise(frames):
     kvo = _port_kvo()
     list(kvo.run(_tframes(frames[:3])))
-    with pytest.raises(NotImplementedError, match="item 10"):
-        kvo.finalize(ba_iterations=2)
     with pytest.raises(NotImplementedError, match="item 11"):
         kvo.finalize(mesh=object())
     with pytest.raises(ValueError, match="levelmajor"):
