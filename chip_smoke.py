@@ -118,7 +118,11 @@ Phases, each of which raises on failure (exit code 1, no result line):
      phovo-serve with 2 streams (each its own phovo-vo --chunk lines) and
      phovo-eval --json; each ATE below standing still, each run's kernel
      launches counted from 0, pairs/s per CLI, and whether the libpng
-     loader loads (information)
+     loader loads (information); the difference images: frame mode with
+     --save-diff-dir (one PNG a pair) and phovo-align on .npy frames with
+     --save-diff and --save-diff-dir (visualize_iterations on: one PNG a
+     replayed iteration, K-LIN launched once an iteration), each PNG
+     decoded with zlib and equal to alignment_diff's image
  7e. timing: the keyframe path's frames/s with its dispatches, closures
      and finalize apart, align_sequences beside align_sequence on the same
      256 pairs, align_sequences_multi a time step, and per level K-GN
@@ -145,9 +149,25 @@ Phases, each of which raises on failure (exit code 1, no result line):
      4,096, K = 24,576), and the two held together at damping 1.0;
      optimize_bundle sparse and dense at map scale
      (128 poses, 50,000 landmarks, 102,400 observations)
+ 4h. the iteration trace: utils/trace.trace_alignment on one VGA pair
+     (bilinear, the analytic preset's budgets in full), 'warped', 'esm' and
+     the Student-t loss, through K-LIN and again with the linearizer forced
+     to its plain version: the same records, states within 2e-4, valid
+     counts equal or accounted for by edge pixels, K-LIN launched once a
+     record (and once a burn-in step)
+ 4i. tools/parity_harness_torch on the cluttered scene (240x320, 10
+     frames), every shipped preset, the port on the card against the
+     reference-exact oracle on the host, written to
+     artifacts/parity_torch_cluttered_qvga.md and .json
+ 6g. the ceres backend's jacfwd Jacobian on one VGA pair against the
+     linearizer mode (within 5e-3), ms a pair of each
+ 7h. profiler windows (utils/profiling.trace): kernel launches,
+     device-busy and wall ms of one serving step (align_sequences_multi, 8
+     streams) and of one LM iteration of finalize's photometric bundle
+     adjustment (phase 4g's global keyframes)
 Each of the paths of phases 4, 4b, 4c, 4d, 4e, 4f (each CLI run), 4g (each
-CLI run), 5, 6, 6b, 6d, 6e and 6f runs with the launch counts set to 0 just
-before it and read just after. A line
+CLI run), 4h (each trace), 5, 6, 6b, 6d, 6e and 6f runs with the launch
+counts set to 0 just before it and read just after. A line
 "[t s] phase" marks each phase's start. The line before the last is the
 kernels' JSON record (for fused_lin, max_abs_err is the largest Gram
 difference over the Gram's largest entry; bound_ms is the least time the
@@ -156,7 +176,8 @@ float32 operations it does; cluster is the blocks a pair by level of the
 timed work; K-LIN's split is its blocks a pair by level, and by_level its
 times at B = 1 and 16; K-IC's resident says by level whether its pack
 stays in shared memory; cli_launches counts each kernel's launches under
-each CLI run of phase 4f); the last line is
+each CLI run of phase 4f; K-LIN's trace_launches its launches under each
+trace of phase 4h); the last line is
 {"ok": true, "device": {...}}.
 """
 
@@ -168,6 +189,7 @@ import json
 import subprocess
 import sys
 import time
+from types import SimpleNamespace
 from unittest import mock
 
 import numpy as np
@@ -2835,6 +2857,8 @@ def phase_cli(fb, dev, card, shape=SHAPE):
               f"frame mode wrote {len(frame_lines)} poses with launches {got}")
         check(err <= 1e-4, f"frame mode vs chunked positions {err}")
 
+        launches.update(phase_cli_diffs(fb, dev, card, I8, D16, seq, intr, spec, tmp))
+
         out = tmp / "vo_keyframe.txt"
         wall = counted("phovo-vo --mode keyframe", lambda: phovo_vo.main(
             ["--config", cfg_path, "--output", str(out), "--mode", "keyframe", "--chunk", str(CLI_CHUNK),
@@ -3247,6 +3271,346 @@ def phase_cluster_timing(frames, dev, card):
     return totals
 
 
+
+# the diagnostics path (phases 4h, 4i, 6g, 7h): the iteration trace through
+# K-LIN on one VGA pair, bilinear, the analytic preset's budgets run in
+# full; jacfwd on one VGA pair of the ceres preset; the port's parity
+# harness on the cluttered scene; profiler windows of a serving step and of
+# an LM iteration of finalize's photometric bundle adjustment
+TRACE_CASES = (("warped", {}), ("esm", {"gradient_at": "esm"}),
+               ("tdist", {"robust_loss": "tdist", "robust_delta": LOSS_DELTAS["tdist"]}))
+# tests/test_autodiff_modes.py:25: jacfwd and the linearizer agree to this
+JACFWD_ATOL = 5e-3
+PARITY_SCENE = dict(scene="cluttered", shape=(240, 320), frames=10)
+PARITY_OUT = "artifacts/parity_torch_cluttered_qvga"
+
+
+def trace_config(**overrides):
+    """The analytic preset, bilinear, every budget run in full (min
+    gradient norm 0), visualize_iterations on."""
+    from phovo_tpu_torch.utils.config import config_from_dict
+
+    return dataclasses.replace(
+        config_from_dict({**ANALYTIC_PRESET, "min_gradient_norms": [0] * 5, "visualize_iterations": True}),
+        sampling="bilinear", **overrides)
+
+
+def decode_png(path) -> np.ndarray:
+    """An 8-bit grayscale PNG of utils/viz.save_image's layout (one IDAT
+    stream, filter type 0 on every row) decoded with zlib alone."""
+    import struct
+    import zlib
+
+    data = open(path, "rb").read()
+    check(data[:8] == b"\x89PNG\r\n\x1a\n", f"{path}: not a PNG")
+    pos, chunks = 8, {}
+    while pos < len(data):
+        n = struct.unpack(">I", data[pos:pos + 4])[0]
+        chunks.setdefault(data[pos + 4:pos + 8], []).append(data[pos + 8:pos + 8 + n])
+        pos += 12 + n
+    W, H, depth, colour = struct.unpack(">IIBB", chunks[b"IHDR"][0][:10])
+    check((depth, colour) == (8, 0), f"{path}: not 8-bit grayscale")
+    rows = np.frombuffer(zlib.decompress(b"".join(chunks[b"IDAT"])), np.uint8).reshape(H, W + 1)
+    check(bool((rows[:, 0] == 0).all()), f"{path}: a row filter other than 0")
+    return rows[:, 1:]
+
+
+def trace_pair(dev):
+    """One synthetic VGA pair on the card: (u8 intensity, metric depth) of
+    frames 0 and 1 of make_sequence at TUM fr1."""
+    from phovo_tpu_torch.ops.camera import TUM_FR1
+    from phovo_tpu_torch.utils.synthetic import make_sequence
+
+    I, D, _, _ = make_sequence(TUM_FR1, SHAPE, 2)
+    I8 = [np.round(i * 255.0).astype(np.uint8) for i in I]
+    return [torch.from_numpy(x).to(dev) for x in (I8[0], D[0], I8[1], D[1])]
+
+
+def phase_trace(fb, dev, card):
+    """Phase 4h: utils/trace.trace_alignment on one VGA pair, 'warped',
+    'esm' and 'warped' with the Student-t loss, the budgets of
+    trace_config: through K-LIN (its launches counted from 0: one a
+    record, and one a burn-in step with tdist), then with the linearizer
+    forced to its plain version, on the card; the same records, levels and
+    iterations, states within STATE_ATOL, valid counts equal or accounted
+    for by edge pixels (explain_valid_diff). Returns {case: K-LIN
+    launches}."""
+    from phovo_tpu_torch.ops import fused as fused_ops
+    from phovo_tpu_torch.ops import pyramid as pyr
+    from phovo_tpu_torch.ops.camera import TUM_FR1
+    from phovo_tpu_torch.ops.robust import TDIST_BURNIN
+    from phovo_tpu_torch.utils.trace import trace_alignment
+
+    si, sd, ti, td = trace_pair(dev)
+    launches = {}
+    for name, overrides in TRACE_CASES:
+        cfg = trace_config(**overrides)
+        reset_counts(fb)
+        t0 = time.perf_counter()
+        kern = trace_alignment(si, sd, ti, td, TUM_FR1, cfg, device=dev)
+        wall = time.perf_counter() - t0
+        counts = launch_counts(fb)
+        launches[name] = counts["K-LIN"]
+        t0 = time.perf_counter()
+        with mock.patch.object(fused_ops, "fused_lin_batch", fb.fused_lin_batch_reference):
+            plain = trace_alignment(si, sd, ti, td, TUM_FR1, cfg, device=dev)
+        plain_wall = time.perf_counter() - t0
+        check(launch_counts(fb) == counts, f"trace {name}: the plain run launched a kernel")
+        expect = len(kern) + (TDIST_BURNIN if cfg.robust_loss == "tdist" else 0)
+        others = {k: v for k, v in counts.items() if v and k != "K-LIN"}
+        check(launches[name] == expect and not others,
+              f"trace {name}: K-LIN launches {launches[name]}, expected {expect} (records {len(kern)}); others {others}")
+        check([(r.level, r.iteration) for r in kern] == [(r.level, r.iteration) for r in plain],
+              f"trace {name}: the records' levels and iterations differ")
+        err = max(float(np.abs(a.state - b.state).max()) for a, b in zip(kern, plain))
+        check(err <= STATE_ATOL, f"trace {name}: state diff {err}")
+        n_diff = 0
+        prev_k = prev_p = np.zeros(6, np.float32)
+        for a, b in zip(kern, plain):
+            if a.num_valid != b.num_valid:
+                n_diff += 1
+                H, W = pyr.level_shape(SHAPE, a.level)
+                intr = TUM_FR1.at_level(a.level)
+                d0 = pyr.build_pyramid(sd, cfg.num_levels)[a.level]
+                geom = fused_ops.pack_geometry(d0, intr, cfg.min_depth, cfg.max_depth)[None]
+
+                def res(state, nv):
+                    return SimpleNamespace(state=torch.from_numpy(state).to(dev)[None],
+                                           num_valid=torch.tensor([nv], device=dev))
+
+                explain_valid_diff(fb, geom, intr, H, W, res(prev_k, a.num_valid), res(prev_p, b.num_valid),
+                                   f"trace {name} level {a.level} iteration {a.iteration}")
+            prev_k, prev_p = a.state, b.state
+        per_level = {lv: sum(1 for r in kern if r.level == lv) for lv in sorted({r.level for r in kern}, reverse=True)}
+        print(f"trace {name}: one VGA pair, records by level {per_level}, K-LIN launches {launches[name]} (records "
+              f"{len(kern)}{f' + {TDIST_BURNIN} burn-in' if cfg.robust_loss == 'tdist' else ''}); kernel vs plain "
+              f"max|state diff| {err:.3e}, valid counts differing in {n_diff} records (edge pixels), last cost "
+              f"{kern[-1].cost:.6f} / {plain[-1].cost:.6f}, gnorm {kern[-1].gradient_norm:.4f} / "
+              f"{plain[-1].gradient_norm:.4f}; wall {1e3 * wall:.1f} ms through K-LIN, {1e3 * plain_wall:.1f} ms plain "
+              f"(host-paced: every record reads its norm) [{card}]")
+    return launches
+
+
+def phase_cli_diffs(fb, dev, card, I8, D16, seq, intr, spec, tmp):
+    """Phase 4f's difference-image runs, on its raw frames: phovo-vo frame
+    mode with --save-diff-dir over CLI_FRAME_MODE_PAIRS pairs (one PNG a
+    pair, each decoding to alignment_diff at the pair's state from
+    --metrics), and phovo-align on the first pair as .npy frames with
+    --save-diff and --save-diff-dir under the analytic preset with
+    visualize_iterations on (one PNG a replayed iteration, each decoding to
+    the in-process trace's image; the --save-diff PNG to alignment_diff at
+    the object API's result). Returns {run: launches}."""
+    import contextlib
+    import io
+
+    from phovo_tpu_torch.apps import phovo_align, phovo_vo
+    from phovo_tpu_torch.models import BACKENDS
+    from phovo_tpu_torch.utils import config as C
+    from phovo_tpu_torch.utils.trace import trace_alignment
+    from phovo_tpu_torch.utils.viz import alignment_diff
+
+    device = "cpu" if dev.type == "cpu" else "cuda"
+    depth = [d.astype(np.float32) * np.float32(DEPTH_SCALE) for d in D16[:CLI_FRAME_MODE_PAIRS + 1]]
+    launches = {}
+
+    def counted(name, run):
+        reset_counts(fb)
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rc = run()
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        check(rc == 0, f"{name} exited with {rc}")
+        launches[name] = launch_counts(fb)
+        return time.perf_counter() - t0, buf.getvalue()
+
+    preset = C.builtin_config_dir() / f"{CLI_PRESETS['analytic']}.yml"
+    diffs, metrics = tmp / "vo_diffs", tmp / "vo_metrics.jsonl"
+    wall, _ = counted("phovo-vo frame mode --save-diff-dir", lambda: phovo_vo.main(
+        ["--config", str(preset), "--dataset", str(seq), "--output", str(tmp / "vo_diff.txt"), "--intrinsics", spec,
+         "--loader", "raw", "--max-frames", str(CLI_FRAME_MODE_PAIRS), "--save-diff-dir", str(diffs), "--metrics",
+         str(metrics), "--device", device, "-q"]))
+    pngs = sorted(diffs.glob("*.png"))
+    states = [np.asarray(json.loads(ln)["relative_state"], np.float32) for ln in metrics.read_text().splitlines()]
+    check([p.name for p in pngs] == [f"diff_{k:06d}.png" for k in range(1, CLI_FRAME_MODE_PAIRS + 1)]
+          and len(states) == CLI_FRAME_MODE_PAIRS, f"phovo-vo --save-diff-dir wrote {[p.name for p in pngs]}")
+    for k, (png, state) in enumerate(zip(pngs, states)):
+        want = np.clip(alignment_diff(I8[k], depth[k], I8[k + 1], state, intr, device=dev), 0, 255).astype(np.uint8)
+        check(np.array_equal(decode_png(png), want), f"{png.name} is not alignment_diff at its pair's state")
+    got = launches["phovo-vo frame mode --save-diff-dir"]
+    active = sum(1 for n in C.load_config(preset).max_iterations if n > 0)
+    check(got["K-GN"] == active * CLI_FRAME_MODE_PAIRS and got["K-LIN"] == 0, f"frame mode --save-diff-dir {got}")
+    print(f"CLI phovo-vo frame mode --save-diff-dir: {CLI_FRAME_MODE_PAIRS} pairs in {wall:.3f} s, "
+          f"{len(pngs)} PNGs, each zlib-decoded equal to alignment_diff at its pair's state; launches {got} [{card}]")
+
+    npys = []
+    for k, a in enumerate((I8[0], D16[0], I8[1], D16[1])):
+        npys.append(tmp / f"align{k}.npy")
+        np.save(npys[-1], a)
+    vis = tmp / "visualize.yml"
+    vis.write_text(preset.read_text().replace("visualize_iterations: false", "visualize_iterations: true"))
+    cfg = C.load_config(vis)
+    check(cfg.visualize_iterations, "the visualize preset did not turn visualize_iterations on")
+    iters, one = tmp / "align_iters", tmp / "align_diff.png"
+    wall, out = counted("phovo-align --save-diff-dir", lambda: phovo_align.main(
+        [str(vis), *map(str, npys), "--intrinsics", spec, "--depth-scale", repr(DEPTH_SCALE), "--save-diff", str(one),
+         "--save-diff-dir", str(iters), "--device", device]))
+    got = launches["phovo-align --save-diff-dir"]
+    d0, d1 = (D16[k].astype(np.float32) * DEPTH_SCALE for k in (0, 1))
+    records = trace_alignment(I8[0], d0, I8[1], d1, intr, cfg, device=dev)
+    pngs = sorted(iters.glob("*.png"))
+    names = [f"level{r.level}_iter{r.iteration:03d}.png" for r in records]
+    check(sorted(names) == [p.name for p in pngs] and f"wrote {len(records)} per-iteration diff images" in out,
+          f"phovo-align --save-diff-dir wrote {[p.name for p in pngs]}, the trace has {names}")
+    for name, rec in zip(names, records):
+        want = np.clip(alignment_diff(I8[0].astype(np.float32) / 255.0, d0, I8[1].astype(np.float32) / 255.0,
+                                      rec.state, intr, device=dev) * 255.0, 0, 255).astype(np.uint8)
+        check(np.array_equal(decode_png(iters / name), want), f"{name} is not the trace's image")
+    vo = BACKENDS["analytic"](cfg, device=dev)
+    vo.set_intrinsic_matrix(intr.matrix())
+    vo.set_source_frame(I8[0], d0)
+    vo.set_target_frame(I8[1], d1)
+    vo.set_initial_state_vector(np.zeros(6, np.float32))
+    state = vo.optimize().state.cpu().numpy()
+    check(np.array_equal(decode_png(one), alignment_diff(I8[0], d0, I8[1], state, intr, device=dev).astype(np.uint8)),
+          "the --save-diff PNG is not alignment_diff at the result")
+    # one K-GN launch a level for the alignment, one K-LIN launch a record
+    check(got["K-LIN"] == len(records) and got["K-GN"] == active, f"phovo-align --save-diff-dir launches {got}")
+    print(f"CLI phovo-align --save-diff --save-diff-dir (analytic preset, visualize_iterations): {wall:.3f} s, "
+          f"{len(pngs)} per-iteration PNGs and the result's, each zlib-decoded equal to the in-process images; "
+          f"K-LIN launches {got['K-LIN']} (the replay's records), K-GN {got['K-GN']} [{card}]")
+    return launches
+
+
+def phase_jacfwd(dev, card):
+    """Phase 6g: one VGA pair through align_autodiff with the ceres preset,
+    jacobian_mode 'jacfwd' (torch.func.jacfwd over the residual, plain
+    torch) against 'linearizer' (K-TR), states within JACFWD_ATOL; ms a
+    pair of each, Stopwatch-timed (median of 3 after a warm-up). Returns
+    the jacfwd ms."""
+    from phovo_tpu_torch.models import autodiff
+    from phovo_tpu_torch.ops.camera import TUM_FR1
+    from phovo_tpu_torch.utils.config import config_from_dict
+    from phovo_tpu_torch.utils.profiling import Stopwatch
+
+    cfg = config_from_dict(CERES_PRESET)
+    si, sd, ti, td = trace_pair(dev)
+    zero = torch.zeros(6, device=dev)
+    out, ms = {}, {}
+    for mode in ("jacfwd", "linearizer"):
+        autodiff.align_autodiff(si, sd, ti, td, TUM_FR1, zero, cfg, mode)  # warm-up
+        times = []
+        for _ in range(3):
+            sw = Stopwatch().start()
+            out[mode] = autodiff.align_autodiff(si, sd, ti, td, TUM_FR1, zero, cfg, mode)
+            times.append(1e3 * sw.stop(out[mode]))
+        ms[mode] = float(np.median(times))
+    err = float((out["jacfwd"].state - out["linearizer"].state).abs().max())
+    print(f"jacfwd: one VGA pair, the ceres preset: jacfwd {ms['jacfwd']:.3f} ms a pair, linearizer (K-TR) "
+          f"{ms['linearizer']:.3f} ms (Stopwatch, medians of 3); iterations jacfwd "
+          f"{out['jacfwd'].iterations.tolist()}, linearizer {out['linearizer'].iterations.tolist()}; valid counts "
+          f"{out['jacfwd'].num_valid.tolist()}; max|state jacfwd - linearizer| {err:.3e} (limit {JACFWD_ATOL:g}) "
+          f"[{card}]")
+    check(err <= JACFWD_ATOL and bool(torch.isfinite(out["jacfwd"].state).all()), f"jacfwd vs linearizer {err}")
+    check(bool((out["jacfwd"].num_valid[out["jacfwd"].iterations > 0] > 0).all()), "jacfwd reported no valid pixels")
+    return ms["jacfwd"]
+
+
+def phase_parity(dev, card):
+    """Phase 4i: tools/parity_harness_torch on PARITY_SCENE, every shipped
+    preset, the port on the card (the oracle on the host; NumpyCV2 where
+    cv2 is missing), written to PARITY_OUT .md and .json. Every ATE must
+    be finite; the rows are printed."""
+    import pathlib
+
+    from tools import parity_harness_torch as harness
+
+    t0 = time.perf_counter()
+    shape = PARITY_SCENE["shape"]
+    I, D, gt_poses, K = harness.scene_frames(PARITY_SCENE["scene"], shape, PARITY_SCENE["frames"])
+    rows = harness.run_harness(I, D, gt_poses, K, harness.ALL_PRESETS, dev,
+                               out=lambda s: print(f"parity: {s} [{card}]", flush=True))
+    meta = {"frames": PARITY_SCENE["frames"], "shape": list(shape), "scene": PARITY_SCENE["scene"],
+            "motion_scale": 1.0, "device": f"{torch.device(dev)} ({card})",
+            "oracle_opencv": "cv2" if harness.oracle_module().cv2 is not harness.NumpyCV2 else "NumpyCV2"}
+    out = pathlib.Path(__file__).resolve().parent / PARITY_OUT
+    out.parent.mkdir(exist_ok=True)
+    harness.write_tables(rows, meta, f"{out}.md", f"{out}.json")
+    wall = time.perf_counter() - t0
+    check(len(rows) == 15 and all(np.isfinite([r["ate_fw_vs_oracle"], r["ate_fw_vs_gt"], r["ate_oracle_vs_gt"]]).all()
+                                  for r in rows), "the parity table has non-finite or missing rows")
+    print(f"parity: {len(rows)} rows ({PARITY_SCENE['scene']}, {shape[0]}x{shape[1]}, {PARITY_SCENE['frames']} "
+          f"frames, oracle OpenCV {meta['oracle_opencv']}) in {wall:.1f} s, written to {PARITY_OUT}.md/.json [{card}]")
+    return wall
+
+
+def profiled(name, fn, card, log_dir):
+    """fn() once as warm-up, then once inside utils/profiling.trace:
+    prints and returns its trace_summary."""
+    from phovo_tpu_torch.utils.profiling import trace, trace_summary
+
+    fn()
+    torch.cuda.synchronize()
+    with trace(log_dir) as window:
+        fn()
+    s = trace_summary(window)
+    print(f"profile {name}: {s['kernel_launches']} kernel launches, device busy {s['device_busy_ms']:.3f} ms of "
+          f"{s['wall_ms']:.3f} ms wall (host share {1 - s['device_busy_ms'] / s['wall_ms']:.3f}) [{card}]")
+    return s
+
+
+def phase_profiles(dev, I8, D16, trackers, snaps, card):
+    """Phase 7h: the kernel launches, device-busy and wall ms of a traced
+    window (utils/profiling.trace): one serving step (align_sequences_multi,
+    S = 8 streams, one time step of phase 7e's frames, the analytic
+    preset), and one LM iteration of finalize's photometric bundle
+    adjustment: the problem and arguments finalize passes for phase 4g's
+    BA global keyframes, run for 1 and 2 iterations, the difference. The
+    traces go to build/phovo_tpu_torch/profiles. Returns {row: summary}."""
+    from phovo_tpu_torch.models import keyframe
+    from phovo_tpu_torch.ops import _build
+    from phovo_tpu_torch.ops.camera import TUM_FR1
+    from phovo_tpu_torch.parallel import batch
+    from phovo_tpu_torch.utils.config import config_from_dict
+
+    logs = _build.BUILD_DIR / "profiles"
+    rows = {}
+    I, _, D = serve_streams(I8, D16, dev)
+    cfg = config_from_dict(ANALYTIC_PRESET)
+    rows["serving step"] = profiled(f"one serving step (align_sequences_multi, S = {I.shape[0]}, one time step)",
+                                    lambda: batch.align_sequences_multi(I[:, :2], D[:, :2], TUM_FR1, cfg), card,
+                                    logs / "serving_step")
+    del I, D
+
+    kvo, kw = trackers["BA global"], finalize_kwargs(BA_RUNS["BA global"][:4])
+    captured = {}
+    real = keyframe.optimize_photometric_bundle
+
+    def capture(problem, intr, **kwargs):
+        captured.update(problem=problem, intr=intr, kwargs=kwargs)
+        return real(problem, intr, **kwargs)
+
+    for k, p in zip(kvo.keyframes, snaps["BA global"]):
+        k.pose = p.copy()
+    with mock.patch.object(keyframe, "optimize_photometric_bundle", capture):
+        kvo.finalize(**kw)
+    check("problem" in captured, "finalize did not run the photometric bundle adjustment")
+    lm = {}
+    for n in (1, 2):
+        args = {**captured["kwargs"], "iterations": n}
+        lm[n] = profiled(f"photometric_ba of finalize (BA global, {len(kvo.keyframes)} VGA keyframes), {n} "
+                         f"iteration{'s' if n > 1 else ''}",
+                         lambda: real(captured["problem"], captured["intr"], **args), card, logs / f"ba_{n}")
+    one = {k: lm[2][k] - lm[1][k] for k in lm[1]}
+    print(f"profile one LM iteration of finalize's photometric_ba (2 iterations minus 1): {one['kernel_launches']} "
+          f"kernel launches, device busy {one['device_busy_ms']:.3f} ms of {one['wall_ms']:.3f} ms wall (host share "
+          f"{1 - one['device_busy_ms'] / one['wall_ms']:.3f}) [{card}]")
+    rows["photometric_ba 1 iteration"], rows["photometric_ba 2 iterations"] = lm[1], lm[2]
+    rows["photometric_ba LM iteration"] = one
+    return rows
+
+
 T_START = time.perf_counter()
 
 
@@ -3405,6 +3769,14 @@ def main() -> int:
     stamp("4g. keyframe back-end")
     ba_trackers, ba_snaps = phase_backend(fb, traj, dev, card)
 
+    # 4h. the iteration trace through K-LIN
+    stamp("4h. iteration trace")
+    trace_launches = phase_trace(fb, dev, card)
+
+    # 4i. the port's parity harness on the cluttered scene
+    stamp("4i. parity harness")
+    phase_parity(dev, card)
+
     # 5. the ceres main path: the same frames, the shipped ceres preset
     stamp("5. ceres main path")
     t0 = time.perf_counter()
@@ -3481,6 +3853,9 @@ def main() -> int:
     # 6f. the bi-objective object API
     stamp("6f. bi-objective object API")
     bi_api_launches, bi_api_err = phase_bi_api(fb, I8, D16, card)
+    # 6g. the ceres backend's jacfwd Jacobian
+    stamp("6g. jacfwd")
+    phase_jacfwd(dev, card)
 
     # 7. timing, device-resident frames: the bench.py workload
     stamp("7. timing")
@@ -3613,6 +3988,9 @@ def main() -> int:
     # 7g. the keyframe back-end's times
     stamp("7g. back-end timing")
     phase_backend_timing(dev, ba_trackers, ba_snaps, card)
+    # 7h. launches and host share of a serving step and an LM iteration
+    stamp("7h. profiles")
+    phase_profiles(dev, I8, D16, ba_trackers, ba_snaps, card)
     stamp("done")
 
     gn_bound, tr_bound = bound(gn_bytes, gn_flops), bound(tr_bytes, tr_flops)
@@ -3666,6 +4044,7 @@ def main() -> int:
             "library_ms": None,
             "variants": variants["fused_lin"][1],
             "split": level_clusters(range(5), fb.lin_split),
+            "trace_launches": trace_launches,
             "by_level": {f"B = {B}, level {lv}": {"ms": r[0], "plain_ms": r[1], "bound_ms": r[2][0],
                                                    "wrapper_ms": r[3]}
                          for (B, lv), r in lin_rows.items()},

@@ -36,7 +36,3 @@ def to_device(array: np.ndarray, device: torch.device) -> torch.Tensor:
         array = np.array(array, order="C")
     return torch.from_numpy(array).to(device)
 
-
-def intrinsic_matrix(intr) -> list:
-    """The 3x3 camera matrix of an Intrinsics."""
-    return [[intr.fx, 0.0, intr.cx], [0.0, intr.fy, intr.cy], [0.0, 0.0, 1.0]]

@@ -6,7 +6,7 @@ PhotoconsistencyFrameAlignment).
         <source_intensity> <source_depth> <target_intensity> <target_depth> \
         [--backend analytic|ceres|autodiff|biobjective|ic] \
         [--intrinsics default|fr1|fr2|fr3|fx,fy,cx,cy] [--depth-scale 0.001] \
-        [--device cuda]
+        [--save-diff diff.png] [--save-diff-dir DIR] [--device cuda]
 
 The backend is chosen at run time, by BACKENDS' names. Images are PNGs
 (read with cv2, imported only for them: the reference's grayscale and
@@ -14,9 +14,11 @@ The backend is chosen at run time, by BACKENDS' names. Images are PNGs
 machine without cv2). Depth is scaled by --depth-scale (the reference's
 1/1000); the default intrinsics are K = [525, 0, 319.5; 0, 525, 239.5].
 The pair runs on --device, the CUDA card unless the caller names
-another. --save-diff and --save-diff-dir (the difference images) wait for
-the visualisation utilities, ROADMAP.md queue A, item 12, and raise
-NotImplementedError.
+another. --save-diff writes |target - forward-warped source| at the
+result as an 8-bit PNG (the reference's imshow check); --save-diff-dir,
+with visualizeIterations (visualize_iterations) true in the config and
+the analytic or biobjective backend, replays the alignment iteration by
+iteration (utils/trace.py) and writes one difference PNG an iteration.
 """
 
 from __future__ import annotations
@@ -27,7 +29,7 @@ import time
 
 import numpy as np
 
-from phovo_tpu_torch.apps._common import add_device_argument, intrinsic_matrix, resolve_device
+from phovo_tpu_torch.apps._common import add_device_argument, resolve_device
 
 BACKEND_NAMES = ["analytic", "ceres", "autodiff", "biobjective", "ic"]
 
@@ -44,11 +46,12 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--depth-scale", type=float, default=1.0 / 1000.0,
                    help="meters per depth image unit (reference: 1/1000)")
     p.add_argument("--save-diff", default=None,
-                   help="write |target - warped source| here: not ported yet (ROADMAP.md queue A, item 12); raises")
+                   help="write the |target - warped source| image here (the reference's imshow check)")
     p.add_argument("--mix-mode", default=None, choices=["f32", "bf16x2g", "bf16x2", "bf16"],
                    help="accepted and without effect: the port computes in float32")
     p.add_argument("--save-diff-dir", default=None,
-                   help="per-iteration diff images: not ported yet (ROADMAP.md queue A, item 12); raises")
+                   help="with visualizeIterations: true in the config, write a per-iteration diff PNG into this "
+                        "directory (the reference's per-iteration imshow)")
     add_device_argument(p)
     return p
 
@@ -89,11 +92,6 @@ def main(argv=None) -> int:
 
 def _main(argv=None) -> int:
     args = build_parser().parse_args(argv)
-    for flag, value in (("--save-diff", args.save_diff), ("--save-diff-dir", args.save_diff_dir)):
-        if value:
-            raise NotImplementedError(
-                f"{flag}: the difference images are not ported yet (ROADMAP.md queue A, item 12)"
-            )
     device = resolve_device(args.device)
 
     from phovo_tpu_torch.models import BACKENDS
@@ -106,7 +104,7 @@ def _main(argv=None) -> int:
     tgt_d = read_image(args.target_depth, True).astype(np.float32) * args.depth_scale
 
     vo = BACKENDS[args.backend](cfg, device=device)
-    vo.set_intrinsic_matrix(intrinsic_matrix(intr))
+    vo.set_intrinsic_matrix(intr.matrix())
     vo.set_source_frame(src_i, src_d)
     vo.set_target_frame(tgt_i, tgt_d)
     vo.set_initial_state_vector(np.zeros(6, np.float32))
@@ -120,7 +118,32 @@ def _main(argv=None) -> int:
     print("Rt:")
     print(vo.get_optimal_rigid_transformation_matrix().cpu().numpy())
     print("per-level iterations:", result.iterations.cpu().numpy())
+    _save_diffs(args, cfg, intr, device, state, src_i, src_d, tgt_i, tgt_d)
     return 0
+
+
+def _save_diffs(args, cfg, intr, device, state, src_i, src_d, tgt_i, tgt_d) -> None:
+    """--save-diff-dir's per-iteration images and --save-diff's image at
+    the result, as phovo_tpu's app writes them."""
+    from phovo_tpu_torch.utils.viz import alignment_diff, save_image
+
+    if args.save_diff_dir and cfg.visualize_iterations:
+        if args.backend in ("analytic", "biobjective"):
+            from phovo_tpu_torch.utils.trace import save_iteration_diffs, trace_alignment
+
+            records = trace_alignment(src_i, src_d, tgt_i, tgt_d, intr, cfg, backend=args.backend, device=device)
+            paths = save_iteration_diffs(records, src_i, src_d, tgt_i, intr, args.save_diff_dir, device=device)
+            print(f"wrote {len(paths)} per-iteration diff images to {args.save_diff_dir}")
+        else:
+            print(f"note: per-iteration trace not supported for backend {args.backend!r}; see per-level "
+                  "diagnostics above", file=sys.stderr)
+    elif args.save_diff_dir:
+        print("note: --save-diff-dir needs visualizeIterations: true (or visualize_iterations: true) in the config",
+              file=sys.stderr)
+    if args.save_diff:
+        diff = alignment_diff(src_i, src_d, tgt_i, state, intr, device=device)
+        save_image(args.save_diff, diff.astype(np.uint8))
+        print(f"wrote difference image to {args.save_diff}")
 
 
 if __name__ == "__main__":

@@ -7,13 +7,15 @@ PhotoconsistencyVisualOdometry).
         [--intrinsics fr1] [--pairing associate|lockstep] [--loader auto|raw|native|python] \
         [--chunk N] [--mode frame|keyframe] [--warm-start] [--max-frames N] \
         [--checkpoint ckpt.json] [--resume] [--metrics m.jsonl] [--eval-gt gt.txt] \
-        [--ba-iterations N] [--ba-scope window|global] [--export-map map.ply] [--device cuda]
+        [--ba-iterations N] [--ba-scope window|global] [--export-map map.ply] [--save-diff-dir DIR] \
+        [--device cuda]
 
 Writes a TUM-format trajectory ('timestamp tx ty tz qx qy qz qw'). Three
 modes, as phovo_tpu's:
   * frame mode (--chunk 1): each pair through the backend's object API
     (models/sequence.py::VisualOdometryPipeline), with --warm-start,
-    --checkpoint/--resume and --metrics;
+    --checkpoint/--resume, --metrics and --save-diff-dir (one
+    |target - warped source| PNG a pair, diff_NNNNNN.png);
   * --chunk N: N frames a dispatch through the backend's
     align_sequence_chunk* entry; the carry frame stays on the device and
     the frames go up in their storage dtype (uint8 intensity; uint16 depth
@@ -29,9 +31,6 @@ pair from zero. Everything runs on --device, the CUDA card unless the
 caller names another (an error where torch finds none). The card's
 machine has no cv2: give it a sequence converted by phovo-convert (the
 raw format, --loader raw or auto) or the libpng loader (--loader native).
-
-Not ported, and raising NotImplementedError: --save-diff-dir (the
-difference images, ROADMAP.md queue A, item 12).
 """
 
 from __future__ import annotations
@@ -44,7 +43,7 @@ from pathlib import Path
 
 import numpy as np
 
-from phovo_tpu_torch.apps._common import add_device_argument, intrinsic_matrix, resolve_device, to_device
+from phovo_tpu_torch.apps._common import add_device_argument, resolve_device, to_device
 from phovo_tpu_torch.apps.phovo_align import BACKEND_NAMES, parse_intrinsics
 
 NO_EFFECT = "accepted and without effect in the port"
@@ -111,7 +110,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--eval-gt", default=None, help="TUM groundtruth.txt to evaluate ATE/RPE against")
     p.add_argument("--metrics", default=None, help="write per-frame JSONL metrics to this file")
     p.add_argument("--save-diff-dir", default=None,
-                   help="per-frame difference images: not ported yet (ROADMAP.md queue A, item 12); raises")
+                   help="frame mode: write each aligned pair's |target - warped source| PNG into this directory")
     p.add_argument("--robust-loss", default=None, choices=["none", "huber", "cauchy", "tukey", "tdist"],
                    help="override the config's robust loss")
     p.add_argument("--robust-delta", type=float, default=None, help="override the config's robust loss delta")
@@ -131,13 +130,6 @@ def main(argv=None) -> int:
     except (FileNotFoundError, ValueError, IOError) as e:
         print(f"error: {e}", file=sys.stderr)
         return 1
-
-
-def _check_ported(args) -> None:
-    if args.save_diff_dir:
-        raise NotImplementedError(
-            "--save-diff-dir: the difference images are not ported yet (ROADMAP.md queue A, item 12)"
-        )
 
 
 def open_sequence(args):
@@ -177,7 +169,6 @@ def open_sequence(args):
 
 def _main(argv=None) -> int:
     args = build_parser().parse_args(argv)
-    _check_ported(args)
     device = resolve_device(args.device)
 
     from phovo_tpu_torch.datasets.tum import prefetch
@@ -197,7 +188,7 @@ def _main(argv=None) -> int:
         return 1
 
     vo = BACKENDS[args.backend](cfg, device=device)
-    vo.set_intrinsic_matrix(intrinsic_matrix(intr))
+    vo.set_intrinsic_matrix(intr.matrix())
     if args.mode == "keyframe":
         return _run_keyframe_mode(args, vo, seq)
     if args.chunk > 1:
@@ -213,9 +204,23 @@ def _main(argv=None) -> int:
         from phovo_tpu_torch.utils.profiling import MetricsLogger
 
         metrics = MetricsLogger(args.metrics)
+    diff_dir = None
+    if args.save_diff_dir:
+        diff_dir = Path(args.save_diff_dir)
+        diff_dir.mkdir(parents=True, exist_ok=True)
+    # the stream teed so a pair's difference image can read its two frames
+    window: dict = {}
+
+    def tee(stream):
+        prev = None
+        for f in stream:
+            window["prev"], window["cur"] = prev, f
+            prev = f
+            yield f
+
     n_done = 0
     with TrajectoryWriter(args.output) as out:
-        for fr in pipeline.run(prefetch(iter(seq))):
+        for fr in pipeline.run(tee(prefetch(iter(seq)))):
             out.write(fr.timestamp, fr.global_pose)
             n_done += 1
             if not args.quiet:
@@ -223,6 +228,9 @@ def _main(argv=None) -> int:
             if metrics is not None:
                 metrics.log(frame=pipeline.frame_index, timestamp=fr.timestamp, align_seconds=fr.align_seconds,
                             iterations=fr.iterations, relative_state=fr.relative_state)
+            if diff_dir is not None and window.get("prev") is not None:
+                _save_pair_diff(diff_dir / f"diff_{pipeline.frame_index:06d}.png", window["prev"], window["cur"],
+                                fr.relative_state, intr, device)
             if args.max_frames is not None and n_done >= args.max_frames:
                 break
     if metrics is not None:
@@ -231,6 +239,16 @@ def _main(argv=None) -> int:
         print(f"wrote {n_done} poses to {args.output}")
     _maybe_eval(args)
     return 0
+
+
+def _save_pair_diff(path, prev, cur, state, intr, device) -> None:
+    """One pair's |target - warped source| PNG, in the frames' range: u8
+    storage gives 0..255, unit-range float frames are scaled by 255."""
+    from phovo_tpu_torch.utils.viz import alignment_diff, save_image
+
+    src = np.asarray(prev.intensity)
+    diff = alignment_diff(src, prev.depth, cur.intensity, state, intr, device=device)
+    save_image(path, diff, unit_range=src.dtype != np.uint8 and float(src.max()) <= 1.5)
 
 
 def _maybe_eval(args) -> None:
@@ -343,6 +361,9 @@ def _run_chunked(args, cfg, intr, seq, device) -> int:
     from phovo_tpu_torch.ops import se3
     from phovo_tpu_torch.utils.trajectory import TrajectoryWriter
 
+    if args.save_diff_dir:
+        print("note: --save-diff-dir is not supported with --chunk (frames stream through the device in storage "
+              "dtype); use --chunk 1", file=sys.stderr)
     pose, n_done, skip = np.eye(4), 0, 0
     if args.resume and args.checkpoint and Path(args.checkpoint).is_file():
         ck = Checkpoint.load(args.checkpoint)
@@ -425,7 +446,8 @@ def _run_keyframe_mode(args, vo, seq) -> int:
     from phovo_tpu_torch.utils.trajectory import TrajectoryWriter
 
     ignored = [name for name, on in [("--warm-start", args.warm_start), ("--checkpoint", bool(args.checkpoint)),
-                                     ("--metrics", bool(args.metrics))] if on]
+                                     ("--metrics", bool(args.metrics)), ("--save-diff-dir", bool(args.save_diff_dir))]
+               if on]
     chunked = args.chunk > 1
     if chunked and args.backend not in ("analytic", "ceres"):
         ignored.append("--chunk")

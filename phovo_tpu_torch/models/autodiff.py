@@ -1,5 +1,4 @@
-"""Trust-region ("ceres") backend (torch port of phovo_tpu/models/autodiff.py,
-linearizer mode).
+"""Trust-region ("ceres") backend (torch port of phovo_tpu/models/autodiff.py).
 
 The reference's Ceres functor bilinear-samples the target and its Scharr
 gradients at the warped point and chains them through forward-mode autodiff
@@ -22,11 +21,17 @@ Routing follows phovo_tpu:
     the keyframe's 4-row packs shared by every pair
     (track_chunk_levelmajor_tr);
   * levels with max_iterations 0 leave the state and report zero
-    diagnostics on both routes.
+    diagnostics on both routes;
+  * jacobian_mode='jacfwd' (the exact derivative of the bilinear
+    interpolant: torch.func.jacfwd over ops/residuals.residual_vector, plain
+    torch on any device, as phovo_tpu's is XLA) runs each pair alone,
+    level by level through the exact trust-region loop
+    (solvers/trust_region.py); its sequences run the pairs one after the
+    other, warm or from zero, and its keyframe chunks never run
+    level-major.
 Robust losses huber, cauchy and tukey weight the pixels at robust_delta
 inside the kernel (the costs, and rho, are then weighted sums, as in
-phovo_tpu); robust_loss='tdist' raises ValueError, as in phovo_tpu;
-jacobian_mode='jacfwd' is not ported and raises NotImplementedError.
+phovo_tpu); robust_loss='tdist' raises ValueError, as in phovo_tpu.
 """
 
 from __future__ import annotations
@@ -49,6 +54,8 @@ from phovo_tpu_torch.ops import pyramid as pyr
 from phovo_tpu_torch.ops.camera import Intrinsics
 from phovo_tpu_torch.ops.fused import fused_tr_level, pack_target
 from phovo_tpu_torch.ops.fused_batch import fused_tr_level_batch
+from phovo_tpu_torch.ops.residuals import residual_valid_count, residual_vector
+from phovo_tpu_torch.solvers.trust_region import residual_to_linearizer, trust_region_level
 from phovo_tpu_torch.utils.config import PhovoConfig
 
 
@@ -60,12 +67,7 @@ def _check_supported(config: PhovoConfig, jacobian_mode: str) -> None:
             "iterations, breaking the accept/reject comparison); use the "
             "'analytic' backend, or huber/cauchy/tukey here"
         )
-    if jacobian_mode == "jacfwd":
-        raise NotImplementedError(
-            "jacobian_mode='jacfwd' (torch.func.jacfwd over the residual) "
-            "is not ported yet (ROADMAP.md queue A, item 6)"
-        )
-    if jacobian_mode != "linearizer":
+    if jacobian_mode not in ("linearizer", "jacfwd"):
         raise ValueError(
             f"jacobian_mode={jacobian_mode!r}; expected 'linearizer' or 'jacfwd'"
         )
@@ -81,8 +83,10 @@ def align_autodiff(
     config: PhovoConfig,
     jacobian_mode: str = "linearizer",
 ) -> AlignmentResult:
-    """Align one pair coarse to fine, one trust-region kernel launch per
-    active level (B = 1), on the device the tensors live on."""
+    """Align one pair coarse to fine, on the device the tensors live on:
+    one trust-region kernel launch per active level (B = 1), or with
+    jacobian_mode='jacfwd' the exact trust-region loop over
+    torch.func.jacfwd of the residual."""
     del target_depth
     _check_supported(config, jacobian_mode)
     si = device_unit_intensity(source_intensity).to(torch.float32)
@@ -98,6 +102,15 @@ def align_autodiff(
     for level in range(L - 1, -1, -1):
         if config.max_iterations[level] <= 0:
             continue
+        if jacobian_mode == "jacfwd":
+            res = trust_region_level(
+                _jacfwd_linearizer(int0[level], dep0[level], int1[level], intr.at_level(level), config),
+                state, config.trust_region_options(level),
+            )
+            state = res.state
+            diags[level] = (torch.tensor(float(res.iterations), device=si.device), res.gradient_norm, res.cost,
+                            res.num_valid, zero)
+            continue
         img, scale = int1[level], config.gradient_scales[level]
         t_all = pack_target(img, pyr.scharr(img, "x", scale), pyr.scharr(img, "y", scale))
         state, its, cost, gnorm, _, nvalid, masked = fused_tr_level(
@@ -108,6 +121,23 @@ def align_autodiff(
         )
         diags[level] = (its.to(torch.float32), gnorm, cost, nvalid, masked)
     return stack_levels(state, diags)
+
+
+def _jacfwd_linearizer(i0, d0, i1, intr, config: PhovoConfig):
+    """linearize(state) -> NormalEquations of one level from (r,
+    torch.func.jacfwd(r)) of residual_vector, robust-weighted, with
+    residual_valid_count's valid count (phovo_tpu/models/autodiff.py:91-107)."""
+
+    def r_fn(s):
+        return residual_vector(s, i0, d0, i1, intr, min_depth=config.min_depth, max_depth=config.max_depth)
+
+    def nv_fn(s):
+        return residual_valid_count(s, d0, i1, intr, min_depth=config.min_depth, max_depth=config.max_depth)
+
+    return residual_to_linearizer(
+        lambda s: (r_fn(s), torch.func.jacfwd(r_fn)(s)),
+        robust_loss=config.robust_loss, robust_delta=config.robust_delta, num_valid_fn=nv_fn,
+    )
 
 
 def align_sequence_autodiff_levelmajor(
@@ -201,14 +231,15 @@ def align_sequence_autodiff(
 ) -> AlignmentResult:
     """Trust-region alignment of all consecutive pairs of a buffered
     segment (results have leading dim B): level-major from zero, or a
-    serial warm-started chain."""
+    serial chain of align_autodiff calls, warm-started or (jacfwd) each
+    pair from zero."""
     _check_supported(config, jacobian_mode)
-    if warm_start:
+    if warm_start or jacobian_mode == "jacfwd":
         return sequence_scan(
             lambda si, sd, ti, td, init: align_autodiff(
                 si, sd, ti, td, intr, init, config, jacobian_mode
             ),
-            intensities, depths, warm_start=True,
+            intensities, depths, warm_start=warm_start,
         )
     return align_sequence_autodiff_levelmajor(intensities, depths, intr, config)
 

@@ -35,7 +35,11 @@ class AlignmentResult(NamedTuple):
     num_valid: torch.Tensor  # (..., L) valid-pixel count
     # (..., L) pixels dropped by the TPU kernels' banded sampling window;
     # always 0 here, where the kernel samples the whole target
-    band_masked: torch.Tensor
+    band_masked: torch.Tensor | float = 0.0
+
+    def transform(self) -> torch.Tensor:
+        """The (..., 4, 4) rigid transform of the state."""
+        return se3.pose_matrix(self.state)
 
 
 def stack_levels(state: torch.Tensor, diags) -> AlignmentResult:

@@ -53,6 +53,7 @@ from phovo_tpu_torch.models.analytic import (
 from phovo_tpu_torch.models.autodiff import (
     PhotoconsistencyOdometryAutodiff,
     _check_supported,
+    tr_track_levelmajor_eligible,
     track_chunk_levelmajor_tr,
 )
 from phovo_tpu_torch.models.base import AlignmentResult, PhotoconsistencyOdometryBase, device_unit_intensity
@@ -287,8 +288,9 @@ class KeyframeVisualOdometry:
 
         The ceres backend (PhotoconsistencyOdometryAutodiff) always tracks
         level-major through the shared-source trust-region kernel
-        (models/autodiff.py::track_chunk_levelmajor_tr); 'off' raises, as in
-        phovo_tpu. Other backends raise ValueError.
+        (models/autodiff.py::track_chunk_levelmajor_tr); 'off' and
+        jacobian_mode='jacfwd' raise RuntimeError, as in phovo_tpu. Other
+        backends raise ValueError.
 
         depth_scale: frames carry raw depth counts (uint16), converted on
         the device; promoted keyframes are converted once, on the host."""
@@ -300,10 +302,11 @@ class KeyframeVisualOdometry:
             raise RuntimeError("set_intrinsic_matrix before run_chunked")
         if isinstance(odo, PhotoconsistencyOdometryAutodiff):
             _check_supported(cfg, odo.jacobian_mode)
-            if levelmajor == "off":
+            if levelmajor == "off" or not tr_track_levelmajor_eligible(cfg, odo.jacobian_mode):
                 raise RuntimeError(
                     "run_chunked with the ceres backend tracks level-major "
-                    "only; use run() for the per-frame path"
+                    "only (the linearizer Jacobian); use run() for the "
+                    "per-frame path"
                 )
             lm_track, track_fn = True, track_chunk_levelmajor_tr
             # the trust-region level reads four geometry rows whatever

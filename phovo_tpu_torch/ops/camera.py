@@ -33,6 +33,13 @@ class Intrinsics(NamedTuple):
             float(K[0, 0]), float(K[1, 1]), float(K[0, 2]), float(K[1, 2])
         )
 
+    def matrix(self) -> torch.Tensor:
+        """The (3, 3) float32 camera matrix [fx 0 cx; 0 fy cy; 0 0 1], on
+        the CPU (phovo_tpu/ops/camera.py::Intrinsics.matrix)."""
+        return torch.tensor(
+            [[self.fx, 0.0, self.cx], [0.0, self.fy, self.cy], [0.0, 0.0, 1.0]], dtype=torch.float32
+        )
+
     def at_level(self, level: int) -> "Intrinsics":
         s = 1.0 / (2.0**level)
         return Intrinsics(self.fx * s, self.fy * s, self.cx * s, self.cy * s)

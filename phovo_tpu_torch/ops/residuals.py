@@ -216,3 +216,45 @@ def normal_equations(
         Jf.T @ Jf, Jf.T @ rf, torch.sum(rf * rf),
         torch.sum(valid.to(torch.float32)),
     )
+
+
+def _warped_target_and_valid(state, source_depth, target_intensity, intr, min_depth, max_depth):
+    """The warp and validity predicate of the jacfwd residual path: the
+    target bilinear-sampled at the warped point, and valid = depth in
+    (min_depth, max_depth), tz > 0 and in bounds. Out of place throughout,
+    so torch.func.jacfwd runs through it."""
+    tp = transform_points(backproject(source_depth, intr), se3.pose_matrix(state))
+    tz = tp[..., 2]
+    safe_z = torch.where(torch.abs(tz) > 1e-12, tz, torch.full_like(tz, 1e-12))
+    col = tp[..., 0] * intr.fx / safe_z + intr.cx
+    row = tp[..., 1] * intr.fy / safe_z + intr.cy
+    tgt, inb = sample_bilinear(target_intensity, col, row)
+    valid = (source_depth > min_depth) & (source_depth < max_depth) & (tz > 0) & inb
+    return tgt, valid
+
+
+def residual_vector(
+    state: torch.Tensor,
+    source_intensity: torch.Tensor,
+    source_depth: torch.Tensor,
+    target_intensity: torch.Tensor,
+    intr: Intrinsics,
+    min_depth: float = 0.3,
+    max_depth: float = 5.0,
+) -> torch.Tensor:
+    """The residual field (H*W,) as a differentiable function of the state
+    (phovo_tpu/ops/residuals.py::residual_vector): bilinear target minus
+    source where valid, 0 elsewhere. torch.func.jacfwd of it is the exact
+    derivative of the bilinear interpolant, the counterpart of the
+    reference Ceres functor's Jets through SampleWithDerivative."""
+    tgt, valid = _warped_target_and_valid(state, source_depth, target_intensity, intr, min_depth, max_depth)
+    return torch.where(valid, tgt - source_intensity, torch.zeros_like(tgt)).reshape(-1)
+
+
+def residual_valid_count(
+    state, source_depth, target_intensity, intr, min_depth: float = 0.3, max_depth: float = 5.0,
+) -> torch.Tensor:
+    """Pixels contributing to residual_vector at this state (the num_valid
+    the jacfwd linearization reports)."""
+    _, valid = _warped_target_and_valid(state, source_depth, target_intensity, intr, min_depth, max_depth)
+    return torch.sum(valid.to(torch.float32))

@@ -32,6 +32,15 @@ def pose_matrix(state: torch.Tensor) -> torch.Tensor:
     return torch.stack([torch.stack(r, dim=-1) for r in rows], dim=-2)
 
 
+def rotation_zyx(yaw: torch.Tensor, pitch: torch.Tensor, roll: torch.Tensor) -> torch.Tensor:
+    """(...,) angles -> (..., 3, 3) rotation R = Rz(yaw) Ry(pitch) Rx(roll)."""
+    rows = _zyx_rows(
+        torch.zeros_like(yaw), torch.zeros_like(yaw), torch.zeros_like(yaw), yaw, pitch, roll,
+        torch.cos, torch.sin, torch.zeros_like, torch.ones_like,
+    )
+    return torch.stack([torch.stack(r[:3], dim=-1) for r in rows[:3]], dim=-2)
+
+
 def pose_matrix_np(state) -> np.ndarray:
     """Host-side float64 twin of pose_matrix."""
     state = np.asarray(state, np.float64)
@@ -122,43 +131,68 @@ def rotation_jacobian_wrt_euler(state: torch.Tensor) -> torch.Tensor:
     return torch.stack([d_yaw, d_pitch, d_roll], dim=-3)
 
 
-def rotation_to_quaternion_np(R) -> np.ndarray:
-    """Host-side float64 (..., 3, 3) rotation -> (..., 4) unit quaternion
-    [qx, qy, qz, qw], branchless Shepperd selection, normalized to
-    qw >= 0 (the trajectory writer's convention)."""
-    R = np.asarray(R, np.float64)
+def _shepperd(R, sqrt, maximum, stack, where, norm):
+    """Branchless Shepperd selection of the unit quaternion [qx, qy, qz,
+    qw] of (..., 3, 3) rotations: all four candidates are computed and the
+    numerically best one kept, normalized to qw >= 0 (the trajectory
+    writer's convention). Shared by the tensor and the numpy forms."""
     m00, m01, m02 = R[..., 0, 0], R[..., 0, 1], R[..., 0, 2]
     m10, m11, m12 = R[..., 1, 0], R[..., 1, 1], R[..., 1, 2]
     m20, m21, m22 = R[..., 2, 0], R[..., 2, 1], R[..., 2, 2]
     tr = m00 + m11 + m22
 
     def safe_sqrt(v):
-        return np.sqrt(np.maximum(v, 1e-24))
+        return sqrt(maximum(v, 1e-24))
 
     s0 = safe_sqrt(tr + 1.0) * 2.0
-    q0 = np.stack([(m21 - m12) / s0, (m02 - m20) / s0, (m10 - m01) / s0, 0.25 * s0], -1)
+    q0 = stack([(m21 - m12) / s0, (m02 - m20) / s0, (m10 - m01) / s0, 0.25 * s0], -1)
     s1 = safe_sqrt(1.0 + m00 - m11 - m22) * 2.0
-    q1 = np.stack([0.25 * s1, (m01 + m10) / s1, (m02 + m20) / s1, (m21 - m12) / s1], -1)
+    q1 = stack([0.25 * s1, (m01 + m10) / s1, (m02 + m20) / s1, (m21 - m12) / s1], -1)
     s2 = safe_sqrt(1.0 + m11 - m00 - m22) * 2.0
-    q2 = np.stack([(m01 + m10) / s2, 0.25 * s2, (m12 + m21) / s2, (m02 - m20) / s2], -1)
+    q2 = stack([(m01 + m10) / s2, 0.25 * s2, (m12 + m21) / s2, (m02 - m20) / s2], -1)
     s3 = safe_sqrt(1.0 + m22 - m00 - m11) * 2.0
-    q3 = np.stack([(m02 + m20) / s3, (m12 + m21) / s3, 0.25 * s3, (m10 - m01) / s3], -1)
+    q3 = stack([(m02 + m20) / s3, (m12 + m21) / s3, 0.25 * s3, (m10 - m01) / s3], -1)
     cond_tr = (tr > 0.0)[..., None]
     cond_1 = ((m00 > m11) & (m00 > m22))[..., None]
     cond_2 = (m11 > m22)[..., None]
-    q = np.where(cond_tr, q0, np.where(cond_1, q1, np.where(cond_2, q2, q3)))
-    q = q / np.linalg.norm(q, axis=-1, keepdims=True)
-    return np.where(q[..., 3:4] < 0, -q, q)
+    q = where(cond_tr, q0, where(cond_1, q1, where(cond_2, q2, q3)))
+    q = q / norm(q)
+    return where(q[..., 3:4] < 0, -q, q)
 
 
-def quaternion_to_rotation_np(q) -> np.ndarray:
-    """Host-side float64 (..., 4) quaternion [qx, qy, qz, qw] -> (..., 3, 3)
-    rotation (phovo_tpu/ops/se3.py::quaternion_to_rotation_np)."""
-    q = np.asarray(q, np.float64)
-    qx, qy, qz, qw = np.moveaxis(q, -1, 0)
-    rows = [
+def rotation_to_quaternion(R: torch.Tensor) -> torch.Tensor:
+    """(..., 3, 3) rotation -> (..., 4) unit quaternion [qx, qy, qz, qw]
+    (phovo_tpu/ops/se3.py::rotation_to_quaternion), qw >= 0."""
+    return _shepperd(
+        R, torch.sqrt, lambda v, lo: torch.clamp(v, min=lo), torch.stack, torch.where,
+        lambda q: torch.linalg.norm(q, dim=-1, keepdim=True),
+    )
+
+
+def rotation_to_quaternion_np(R) -> np.ndarray:
+    """Host-side float64 twin of rotation_to_quaternion."""
+    return _shepperd(
+        np.asarray(R, np.float64), np.sqrt, np.maximum, np.stack, np.where,
+        lambda q: np.linalg.norm(q, axis=-1, keepdims=True),
+    )
+
+
+def _quaternion_rows(q, unbind):
+    qx, qy, qz, qw = unbind(q)
+    return [
         [1 - 2 * (qy**2 + qz**2), 2 * (qx * qy - qz * qw), 2 * (qx * qz + qy * qw)],
         [2 * (qx * qy + qz * qw), 1 - 2 * (qx**2 + qz**2), 2 * (qy * qz - qx * qw)],
         [2 * (qx * qz - qy * qw), 2 * (qy * qz + qx * qw), 1 - 2 * (qx**2 + qy**2)],
     ]
+
+
+def quaternion_to_rotation(q: torch.Tensor) -> torch.Tensor:
+    """(..., 4) unit quaternion [qx, qy, qz, qw] -> (..., 3, 3) rotation."""
+    rows = _quaternion_rows(q, lambda v: v.unbind(-1))
+    return torch.stack([torch.stack(r, dim=-1) for r in rows], dim=-2)
+
+
+def quaternion_to_rotation_np(q) -> np.ndarray:
+    """Host-side float64 twin of quaternion_to_rotation."""
+    rows = _quaternion_rows(np.asarray(q, np.float64), lambda v: np.moveaxis(v, -1, 0))
     return np.stack([np.stack(r, axis=-1) for r in rows], axis=-2)

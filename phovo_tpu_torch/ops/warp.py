@@ -1,12 +1,22 @@
-"""Gather warping between RGB-D frames (torch port of phovo_tpu/ops/warp.py).
+"""Warping between RGB-D frames (torch port of phovo_tpu/ops/warp.py).
 
 Residuals live at the SOURCE pixel and sample the target at the warped
-coordinates (the gather formulation the Jacobians are consistent with).
+coordinates (gather_warp, sample_*: the gather formulation the Jacobians
+are consistent with). forward_warp is the reference's warpImage scatter,
+used for the difference images only.
 """
 
 from __future__ import annotations
 
 import torch
+
+from phovo_tpu_torch.ops import se3
+from phovo_tpu_torch.ops.camera import Intrinsics, backproject, project
+
+# |coordinate| clamp before a float -> int32 conversion: the CPU and CUDA
+# convert out-of-range floats differently, a clamped one converts the same
+# way on both and lands out of the image, as XLA's conversion does
+_INT_CLAMP = 2.0**30
 
 
 def transform_points(points: torch.Tensor, T: torch.Tensor) -> torch.Tensor:
@@ -14,6 +24,17 @@ def transform_points(points: torch.Tensor, T: torch.Tensor) -> torch.Tensor:
     R = T[..., :3, :3]
     t = T[..., :3, 3]
     return (R @ points.unsqueeze(-1)).squeeze(-1) + t
+
+
+def warp_coordinates(depth: torch.Tensor, state: torch.Tensor, intr: Intrinsics):
+    """Project every source pixel into the target frame: (col, row,
+    transformed z), each (H, W). Invalid depths still give (garbage)
+    coordinates, which callers mask; |z| is kept from 0 for the division."""
+    tp = transform_points(backproject(depth, intr), se3.pose_matrix(state))
+    z = tp[..., 2]
+    safe = torch.where(torch.abs(z) > 1e-12, z, torch.full_like(z, 1e-12))
+    col, row = project(torch.cat([tp[..., :2], safe[..., None]], dim=-1), intr)
+    return col, row, z
 
 
 def _take(img: torch.Tensor, ri: torch.Tensor, ci: torch.Tensor):
@@ -54,3 +75,51 @@ def sample_bilinear(img: torch.Tensor, col: torch.Tensor, row: torch.Tensor):
     top = _take(img, r0i, c0i) * (1 - wc) + _take(img, r0i, c1i) * wc
     bot = _take(img, r1i, c0i) * (1 - wc) + _take(img, r1i, c1i) * wc
     return top * (1 - wr) + bot * wr, inb
+
+
+def forward_warp(
+    intensity: torch.Tensor,
+    depth: torch.Tensor,
+    state: torch.Tensor,
+    intr: Intrinsics,
+    level: int = 0,
+) -> torch.Tensor:
+    """The reference's warpImage: each source pixel's intensity written at
+    its int-truncated projected pixel of the target frame, zeros where
+    nothing lands (phovo_tpu/ops/warp.py::forward_warp). Where several
+    source pixels land on one target pixel the later one (the largest
+    source index, the reference's sequential loop) wins: each slot's winner
+    is found with an amax scatter of source indices, which is
+    deterministic on the CPU and on CUDA alike, and then gathered."""
+    H, W = intensity.shape[-2:]
+    col, row, _ = warp_coordinates(depth, state, intr.at_level(level))
+    # truncation toward zero (static_cast<int>), not floor: a column in
+    # (-1, 0) lands in column 0
+    ci = col.clamp(-_INT_CLAMP, _INT_CLAMP).to(torch.int32)
+    ri = row.clamp(-_INT_CLAMP, _INT_CLAMP).to(torch.int32)
+    valid = (depth > 0) & (ri >= 0) & (ri < H) & (ci >= 0) & (ci < W)
+    n = H * W
+    idx = torch.where(valid, ri.to(torch.int64) * W + ci, torch.full_like(ri, n, dtype=torch.int64)).reshape(-1)
+    src = torch.arange(n, dtype=torch.int64, device=intensity.device)
+    winner = torch.full((n + 1,), -1, dtype=torch.int64, device=intensity.device)
+    winner = winner.scatter_reduce(0, idx, src, reduce="amax")[:n]
+    flat = intensity.reshape(-1)
+    out = torch.where(winner >= 0, flat[winner.clamp(min=0)], torch.zeros((), dtype=flat.dtype, device=flat.device))
+    return out.reshape(H, W)
+
+
+def gather_warp(
+    target: torch.Tensor,
+    source_depth: torch.Tensor,
+    state: torch.Tensor,
+    intr: Intrinsics,
+    level: int = 0,
+    bilinear: bool = True,
+):
+    """Sample `target` at the projected coordinates of each source pixel:
+    (warped target, valid), valid = source depth > 0, projected z > 0 and
+    in bounds; invalid pixels read 0."""
+    col, row, z = warp_coordinates(source_depth, state, intr.at_level(level))
+    vals, inb = (sample_bilinear if bilinear else sample_nearest)(target, col, row)
+    valid = (source_depth > 0) & (z > 0) & inb
+    return torch.where(valid, vals, torch.zeros_like(vals)), valid

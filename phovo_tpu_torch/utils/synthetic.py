@@ -1,11 +1,13 @@
 """Synthetic RGB-D frames with exact ground-truth pose (numpy; a jax-free
-copy of the generators of phovo_tpu/utils/synthetic.py that the frame
-chain and the keyframe back-end need).
+copy of the generators of phovo_tpu/utils/synthetic.py).
 
-An analytically textured slanted plane (render_plane) or a room interior
-(render_room: five non-parallel walls and two slabs) is rendered from
-known camera poses, so alignment must recover a KNOWN state. The renderers
-are phovo_tpu's numpy code: the same pose gives the same bits. Poses here
+An analytically textured slanted plane (render_plane), a cluttered scene
+(render_cluttered: floating rectangles before a plane, with occlusions;
+degrade_frame adds sensor noise, holes and exposure drift) or a room
+interior (render_room: five non-parallel walls and two slabs) is rendered
+from known camera poses, so alignment must recover a KNOWN state. The
+renderers are phovo_tpu's numpy code: the same pose (and generator state)
+gives the same bits. Poses here
 are computed in float64 (phovo_tpu rounds them through float32), so
 trajectories from the two packages agree to about 1e-7; tests feed both
 packages the same arrays.
@@ -55,6 +57,74 @@ def render_plane(
     pc = np.stack([vx * z, vy * z, z], axis=-1)
     pw = (pc - t) @ R  # R^T (p - t), row-wise
     return _texture(pw[..., 0], pw[..., 1]).astype(np.float32), z.astype(np.float32)
+
+
+def render_cluttered(
+    intr: Intrinsics,
+    shape: tuple[int, int],
+    T_cam_from_world: np.ndarray,
+    objects: list[dict] | None = None,
+    plane_normal=(0.06, -0.04, 1.0),
+    plane_d: float = 2.6,
+) -> tuple[np.ndarray, np.ndarray]:
+    """Render a multi-object scene: background plane + floating textured
+    rectangles at different depths, composited by nearest-hit along each
+    pixel ray. Unlike render_plane, this produces depth DISCONTINUITIES and
+    OCCLUSION (pixels visible in one frame and hidden in the next) — the
+    photometric-violation regime real TUM sequences live in
+    (PhotoconsistencyVisualOdometry.cpp:119-267 is built for such data).
+
+    objects: list of dicts with keys normal (3,), d (plane offset), center
+    (2,) in-plane xy, half_extent (2,), phase (texture offset). Defaults to
+    a seeded 6-object arrangement.
+    """
+    H, W = shape
+    fx, fy, cx, cy = (float(np.asarray(v)) for v in intr)
+    R = np.asarray(T_cam_from_world, dtype=np.float64)[:3, :3]
+    t = np.asarray(T_cam_from_world, dtype=np.float64)[:3, 3]
+
+    if objects is None:
+        objects = default_clutter(seed=1)
+
+    c = np.arange(W, dtype=np.float64)
+    r = np.arange(H, dtype=np.float64)
+    cc, rr = np.meshgrid(c, r)
+    vx = (cc - cx) / fx
+    vy = (rr - cy) / fy
+
+    def hit(normal, d):
+        n = np.asarray(normal, dtype=np.float64)
+        n_c = R @ n
+        d_c = d + n_c @ t
+        denom = n_c[0] * vx + n_c[1] * vy + n_c[2]
+        with np.errstate(divide="ignore", invalid="ignore"):
+            z = d_c / denom
+        z = np.where((denom > 1e-9) & (z > 0.05), z, np.inf)
+        pc = np.stack([vx * z, vy * z, z], axis=-1)
+        pw = (pc - t) @ R  # world point, row-wise R^T (p - t)
+        return z, pw
+
+    # background plane
+    z_best, pw = hit(plane_normal, plane_d)
+    intensity = _texture(pw[..., 0], pw[..., 1])
+
+    for k, obj in enumerate(objects):
+        z, pw_o = hit(obj["normal"], obj["d"])
+        inb = (
+            (np.abs(pw_o[..., 0] - obj["center"][0]) < obj["half_extent"][0])
+            & (np.abs(pw_o[..., 1] - obj["center"][1]) < obj["half_extent"][1])
+        )
+        z = np.where(inb, z, np.inf)
+        closer = z < z_best
+        tex = _texture(
+            (pw_o[..., 0] + obj["phase"]) * (1.3 + 0.2 * k),
+            (pw_o[..., 1] - obj["phase"]) * (1.1 + 0.15 * k),
+        )
+        intensity = np.where(closer, tex, intensity)
+        z_best = np.where(closer, z, z_best)
+
+    z_best = np.where(np.isfinite(z_best), z_best, 0.0)  # misses -> invalid depth
+    return intensity.astype(np.float32), z_best.astype(np.float32)
 
 
 def render_room(
@@ -195,6 +265,83 @@ def make_room_sequence(
     return intensities, depths, gts, np.arange(n_frames, dtype=np.float64) / 30.0
 
 
+def default_clutter(seed: int = 1) -> list[dict]:
+    """Seeded arrangement of floating rectangles in front of the plane."""
+    rng = np.random.default_rng(seed)
+    objects = []
+    for k in range(6):
+        n = np.array([rng.uniform(-0.25, 0.25), rng.uniform(-0.25, 0.25), 1.0])
+        objects.append(
+            dict(
+                normal=n,
+                d=rng.uniform(1.0, 2.2),
+                center=np.array([rng.uniform(-0.9, 0.9), rng.uniform(-0.7, 0.7)]),
+                half_extent=np.array([rng.uniform(0.15, 0.45), rng.uniform(0.12, 0.4)]),
+                phase=rng.uniform(0, 3.0),
+            )
+        )
+    return objects
+
+
+def degrade_frame(
+    intensity: np.ndarray,
+    depth: np.ndarray,
+    rng: np.random.Generator,
+    exposure_gain: float = 1.0,
+    exposure_bias: float = 0.0,
+    depth_noise: float = 0.0025,
+    hole_fraction: float = 0.02,
+    quantize: float = 1.0 / 5000.0,
+) -> tuple[np.ndarray, np.ndarray]:
+    """Sensor-realistic degradation: exposure drift (gain+bias on intensity),
+    Kinect-like depth noise growing ~z^2, 1/5000 m quantization (the TUM
+    16-bit PNG step, PhotoconsistencyVisualOdometry.cpp:163), random holes,
+    and dropouts at depth discontinuities (where structured-light sensors
+    actually fail)."""
+    I = np.clip(intensity * exposure_gain + exposure_bias, 0.0, 1.0)
+    D = depth.astype(np.float64)
+    valid = D > 0
+    noise = rng.standard_normal(D.shape) * depth_noise * np.square(D / 2.0)
+    D = np.where(valid, D + noise, 0.0)
+    if quantize > 0:
+        D = np.round(D / quantize) * quantize
+    # random holes
+    D = np.where(rng.uniform(size=D.shape) < hole_fraction, 0.0, D)
+    # edge dropouts: kill pixels near strong depth gradients
+    gy, gx = np.gradient(np.where(valid, depth, 0.0))
+    edges = np.hypot(gx, gy) > 0.04
+    D = np.where(edges & (rng.uniform(size=D.shape) < 0.6), 0.0, D)
+    return I.astype(np.float32), D.astype(np.float32)
+
+
+def make_cluttered_sequence(
+    intr: Intrinsics,
+    shape: tuple[int, int] = (480, 640),
+    n_frames: int = 30,
+    motion_scale: float = 1.0,
+    seed: int = 0,
+    degrade: bool = True,
+) -> tuple[list[np.ndarray], list[np.ndarray], list[np.ndarray], np.ndarray]:
+    """Hard synthetic sequence: occluding multi-object geometry, depth
+    noise/holes/quantization, exposure drift, seeded and exactly
+    reproducible. Same return convention as make_sequence."""
+    poses_cw = smooth_trajectory(n_frames, motion_scale, seed)
+    objects = default_clutter(seed=seed + 1)
+    rng = np.random.default_rng(seed + 2)
+    gains = 1.0 + 0.06 * np.sin(np.linspace(0, 2.5 * np.pi, n_frames) + 0.7)
+    biases = 0.02 * np.sin(np.linspace(0, 1.7 * np.pi, n_frames))
+    intensities, depths, gts = [], [], []
+    for k, T in enumerate(poses_cw):
+        I, D = render_cluttered(intr, shape, T, objects)
+        if degrade:
+            I, D = degrade_frame(I, D, rng, float(gains[k]), float(biases[k]))
+        intensities.append(I)
+        depths.append(D)
+        gts.append(np.linalg.inv(T))
+    timestamps = np.arange(n_frames, dtype=np.float64) / 30.0
+    return intensities, depths, gts, timestamps
+
+
 def smooth_trajectory(
     n_frames: int, motion_scale: float = 1.0, seed: int = 0
 ) -> list[np.ndarray]:
@@ -222,12 +369,16 @@ def make_sequence(
     n_frames: int = 30,
     motion_scale: float = 1.0,
     seed: int = 0,
+    trajectory: str = "smooth",
 ):
-    """Synthetic RGB-D sequence along smooth_trajectory. Returns
-    (intensities, depths, gt world_from_cam poses, timestamps at 30 Hz);
-    the gt poses are what integrating pose <- pose @ Rt^-1 reproduces."""
+    """Synthetic RGB-D sequence of the plane along smooth_trajectory
+    ('smooth', translation-dominant) or rotation_trajectory ('rotation').
+    Returns (intensities, depths, gt world_from_cam poses, timestamps at 30
+    Hz); the gt poses are what integrating pose <- pose @ Rt^-1
+    reproduces."""
+    traj_fn = {"smooth": smooth_trajectory, "rotation": rotation_trajectory}[trajectory]
     intensities, depths, gts = [], [], []
-    for T in smooth_trajectory(n_frames, motion_scale, seed):
+    for T in traj_fn(n_frames, motion_scale, seed):
         I, D = render_plane(intr, shape, T)
         intensities.append(I)
         depths.append(D)

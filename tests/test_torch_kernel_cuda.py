@@ -1267,3 +1267,37 @@ def test_backend_on_the_card_matches_the_cpu_and_repeats_its_bits(scope, damping
     else:
         errs = (err(start), err(first[0]), err(on_cpu[0]))
         assert errs[1] < 0.75 * errs[0] and errs[2] < 0.75 * errs[0], errs
+
+
+# -- the iteration trace through K-LIN --------------------------------------------
+
+
+@pytest.mark.parametrize("case", [{}, {"gradient_at": "esm"}, {"robust_loss": "tdist", "robust_delta": 0.1},
+                                  {"sampling": "nearest", "max_iterations": (2, 2)}],
+                         ids=["warped", "esm", "tdist", "nearest"])
+def test_trace_alignment_through_klin_matches_plain(case):
+    """utils/trace.trace_alignment on the card launches K-LIN once a
+    record (and once a Student-t burn-in step), and replays the plain
+    version's records: the same levels and iterations, states within
+    2e-4, valid counts equal."""
+    from phovo_tpu_torch.ops import fused as fused_ops
+    from phovo_tpu_torch.ops.robust import TDIST_BURNIN
+    from phovo_tpu_torch.utils.config import PhovoConfig
+    from phovo_tpu_torch.utils.trace import trace_alignment
+
+    I, D, _, _ = make_sequence(INTR, (96, 128), 2)
+    cfg = PhovoConfig(**{**dict(num_levels=2, blur_filter_sizes=(0, 0), gradient_scales=(0.0625,) * 2,
+                                max_iterations=(3, 5), lambda_steps=(1.0,) * 2, min_gradient_norms=(0.0,) * 2,
+                                sampling="bilinear"), **case})
+    dev = torch.device("cuda")
+    before = FB.LIN_LAUNCHES
+    kern = trace_alignment(I[0], D[0], I[1], D[1], INTR, cfg, device=dev)
+    launches = FB.LIN_LAUNCHES - before
+    with mock.patch.object(fused_ops, "fused_lin_batch", FB.fused_lin_batch_reference):
+        plain = trace_alignment(I[0], D[0], I[1], D[1], INTR, cfg, device=dev)
+    assert FB.LIN_LAUNCHES - before == launches
+    assert launches == len(kern) + (TDIST_BURNIN if cfg.robust_loss == "tdist" else 0)
+    assert [(r.level, r.iteration) for r in kern] == [(r.level, r.iteration) for r in plain]
+    for a, b in zip(kern, plain):
+        np.testing.assert_allclose(a.state, b.state, rtol=0, atol=2e-4)
+        assert a.num_valid == b.num_valid

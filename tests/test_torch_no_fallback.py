@@ -354,20 +354,21 @@ def test_trust_region_other_devices_raise():
 @pytest.mark.parametrize(
     "kwargs,error",
     [
-        (dict(jacobian_mode="jacfwd"), NotImplementedError),
         (dict(jacobian_mode="numeric"), ValueError),
         (dict(robust_loss="tdist"), ValueError),
     ],
     ids=lambda v: "-".join(f"{k}={x}" for k, x in v.items()) if isinstance(v, dict) else "",
 )
 def test_unported_trust_region_routes_raise(kwargs, error):
-    """The jacfwd Jacobian is not ported, and the Student-t loss has no
-    trust-region solver (phovo_tpu raises the same ValueError): every
-    entry point refuses them, and the kernel wrappers refuse tdist."""
+    """An unknown Jacobian mode, and the Student-t loss, which has no
+    trust-region solver (phovo_tpu raises the same ValueError): every entry
+    point refuses them, and the kernel wrappers refuse tdist. (The jacfwd
+    mode runs: tests/test_torch_jacfwd.py holds each entry point to
+    phovo_tpu's.)"""
     mode = kwargs.pop("jacobian_mode", "linearizer")
     cfg = dataclasses.replace(TR_CONFIG, **kwargs)
     I, D = _frames()
-    match = {"jacfwd": "ROADMAP.md", "numeric": "jacobian_mode"}.get(mode, "tdist")
+    match = {"numeric": "jacobian_mode"}.get(mode, "tdist")
     calls = [
         lambda: tad.align_autodiff(I[0], D[0], I[1], D[1], INTR, torch.zeros(6), cfg, mode),
         lambda: tad.align_sequence_autodiff(I, D, INTR, cfg, mode),

@@ -73,3 +73,59 @@ def test_make_room_sequence_follows_its_trajectory(traj):
         I_k, D_k = tsyn.render_room(intr, shape, poses[k])
         np.testing.assert_array_equal(I[k], I_k)
         np.testing.assert_array_equal(D[k], D_k)
+
+
+# -- the cluttered scene --------------------------------------------------------
+
+
+@pytest.mark.parametrize("seed", [1, 4])
+def test_default_clutter_is_jax_exactly(seed):
+    ref, got = jsyn.default_clutter(seed), tsyn.default_clutter(seed)
+    assert len(got) == len(ref) == 6
+    for a, b in zip(ref, got):
+        assert a.keys() == b.keys()
+        for k in a:
+            np.testing.assert_array_equal(np.asarray(b[k]), np.asarray(a[k]))
+
+
+@pytest.mark.parametrize("shape,k", [((60, 80), 0), ((60, 80), 7), ((240, 320), 3)])
+def test_render_cluttered_is_jax_bit_for_bit(shape, k):
+    """Both renderers on phovo_tpu's pose matrix: equal bits; the scene has
+    depth edges and misses (depth 0)."""
+    jintr, intr = _intr(*shape)
+    T = jsyn.smooth_trajectory(10, 1.0, 0)[k]
+    I_ref, D_ref = jsyn.render_cluttered(jintr, shape, T)
+    I, D = tsyn.render_cluttered(intr, shape, T)
+    assert I.dtype == D.dtype == np.float32 and I.shape == D.shape == shape
+    np.testing.assert_array_equal(I, I_ref)
+    np.testing.assert_array_equal(D, D_ref)
+    assert len(np.unique(np.round(D[D > 0], 1))) > 3  # the plane and boxes at several depths
+
+
+def test_degrade_frame_is_jax_bit_for_bit():
+    jintr, intr = _intr(60, 80)
+    I, D = tsyn.render_cluttered(intr, (60, 80), np.eye(4))
+    got = tsyn.degrade_frame(I, D, np.random.default_rng(5), 1.05, 0.01)
+    ref = jsyn.degrade_frame(I, D, np.random.default_rng(5), 1.05, 0.01)
+    for a, b in zip(got, ref):
+        assert a.dtype == np.float32
+        np.testing.assert_array_equal(a, b)
+    assert (got[1] == 0).sum() > (D == 0).sum()  # holes and edge dropouts
+
+
+@pytest.mark.parametrize("degrade", [True, False])
+def test_make_cluttered_sequence_is_jax_bit_for_bit(monkeypatch, degrade):
+    """On phovo_tpu's poses (its smooth_trajectory, float32; the port's own
+    is float64, within POSE_ATOL of it: test_trajectories_match_jax) the
+    sequence is phovo_tpu's bit for bit: renders, degradations drawn from
+    the same seeded generator, ground truth and timestamps."""
+    shape = (48, 64)
+    jintr, intr = _intr(*shape)
+    ref = jsyn.make_cluttered_sequence(jintr, shape, 4, 1.0, 3, degrade)
+    monkeypatch.setattr(tsyn, "smooth_trajectory", jsyn.smooth_trajectory)
+    got = tsyn.make_cluttered_sequence(intr, shape, 4, 1.0, 3, degrade)
+    for a_list, b_list in zip(got[:3], ref[:3]):
+        assert len(a_list) == len(b_list) == 4
+        for a, b in zip(a_list, b_list):
+            np.testing.assert_array_equal(a, b)
+    np.testing.assert_array_equal(got[3], ref[3])
