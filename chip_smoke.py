@@ -141,8 +141,8 @@ Phases, each of which raises on failure (exit code 1, no result line):
      run_chunked + finalize lines bit for bit, BA(3)'s ATE below the pose
      graph's alone, the PLY's vertex count the map's, the back-end
      launching no kernel, the same refinement twice the same bits, and the
-     windowed, global and sequential refinements on the card against the
-     CPU's from the same keyframes at damping 1.0
+     windowed (dense, and on the sparse Schur path) and global refinements
+     on the card against the CPU's from the same keyframes at damping 1.0
  7g. the back-end's times: finalize's pg_solve and photometric_ba, window
      and global, on phase 4g's keyframes; optimize_photometric_bundle
      dense and sparse on one global problem of 64 VGA room keyframes (P =
@@ -159,6 +159,18 @@ Phases, each of which raises on failure (exit code 1, no result line):
      frames), every shipped preset, the port on the card against the
      reference-exact oracle on the host, written to
      artifacts/parity_torch_cluttered_qvga.md and .json
+ 4j. the mesh forms (parallel/mesh.py): make_data_parallel_aligner on the
+     256 main-path pairs and on 255 of them (K-GN), make_chunked_sequence_
+     server on phase 4e's 8 streams (K-GN), make_pixel_sharded_aligner on
+     one VGA pair, finalize(mesh=) on phase 4g's keyframes with BA(3)
+     window and global at damping 1.0, optimize_bundle(mesh=) at map
+     scale: unsharded, then one rank in an NCCL group, then two ranks
+     spawned over gloo sharing the card (data = 2, and pixel = 2 for the
+     pixel aligner), the library built before they start. The data axis
+     gives the unsharded bits with K-GN launched on each rank, the
+     all-reduced forms agree within 1e-5 (finalize: its keyframe poses,
+     its map the same size), and phovo-serve --devices 2 in the two ranks
+     writes the one-process trajectories
  6g. the ceres backend's jacfwd Jacobian on one VGA pair against the
      linearizer mode (within 5e-3), ms a pair of each
  7h. profiler windows (utils/profiling.trace): kernel launches,
@@ -166,7 +178,8 @@ Phases, each of which raises on failure (exit code 1, no result line):
      streams) and of one LM iteration of finalize's photometric bundle
      adjustment (phase 4g's global keyframes)
 Each of the paths of phases 4, 4b, 4c, 4d, 4e, 4f (each CLI run), 4g (each
-CLI run), 4h (each trace), 5, 6, 6b, 6d, 6e and 6f runs with the launch
+CLI run), 4h (each trace), 4j (each form on each rank), 5, 6, 6b, 6d, 6e and
+6f runs with the launch
 counts set to 0 just before it and read just after. A line
 "[t s] phase" marks each phase's start. The line before the last is the
 kernels' JSON record (for fused_lin, max_abs_err is the largest Gram
@@ -177,7 +190,8 @@ timed work; K-LIN's split is its blocks a pair by level, and by_level its
 times at B = 1 and 16; K-IC's resident says by level whether its pack
 stays in shared memory; cli_launches counts each kernel's launches under
 each CLI run of phase 4f; K-LIN's trace_launches its launches under each
-trace of phase 4h); the last line is
+trace of phase 4h; K-GN's mesh_launches its launches under each form of
+phase 4j by rank); the last line is
 {"ok": true, "device": {...}}.
 """
 
@@ -2992,7 +3006,7 @@ def phase_backend(fb, traj, dev, card):
     kernel (each BA run's counts are the pose-graph run's); the same
     refinement twice gives the same bits; and the refinement on the card
     against the CPU's from the same keyframes at damping 1.0 within
-    BA_CPU_ATOL (window, global and the host-built sequential windows).
+    BA_CPU_ATOL (window, global, and the windows on the sparse Schur path).
     Returns (the in-process trackers by run, their keyframe poses before
     finalize)."""
     import pathlib
@@ -3086,12 +3100,18 @@ def phase_backend(fb, traj, dev, card):
     for k, p in zip(kvo.keyframes, snaps["BA window"]):
         k.pose = p.copy()
     kvo.finalize()  # the pose graph alone: the keyframes the refinement starts from
-    for path, args in (("_refine_photometric", (None, BA_ITERATIONS, 8, 8, 1.0, 0.1, 0.3, 0.02)),
-                       ("_refine_photometric_global", (None, BA_ITERATIONS, 8, 1.0, 0.1, 6, 0.3, 0.02)),
-                       ("_refine_photometric_sequential", (None, BA_ITERATIONS, 8, 8, 1.0, 0.1, 0.3, 0.02))):
+    from phovo_tpu_torch.parallel import bundle_adjustment as ba
+
+    window = ("_refine_photometric", (None, BA_ITERATIONS, 8, 8, 1.0, 0.1, 0.3, 0.02))
+    for path, args, budget in (window + (ba.DENSE_W_BUDGET_BYTES,),
+                               ("_refine_photometric_global", (None, BA_ITERATIONS, 8, 1.0, 0.1, 6, 0.3, 0.02),
+                                ba.DENSE_W_BUDGET_BYTES),
+                               window + (0,)):
         on_card, on_cpu = keyframe_copy(kvo, cfg, TUM_FR1, dev), keyframe_copy(kvo, cfg, TUM_FR1, torch.device("cpu"))
-        getattr(on_card, path)(*args)
-        getattr(on_cpu, path)(*args)
+        with mock.patch.object(ba, "DENSE_W_BUDGET_BYTES", budget):  # 0: every window on the sparse Schur path
+            getattr(on_card, path)(*args)
+            getattr(on_cpu, path)(*args)
+        path += "" if budget else " (sparse windows)"
         err = max(float(np.abs(a.pose - b.pose).max()) for a, b in zip(on_card.keyframes, on_cpu.keyframes))
         moved = max(float(np.abs(a.pose - b.pose).max()) for a, b in zip(on_card.keyframes, kvo.keyframes))
         print(f"back-end {path} at damping 1.0: card vs CPU max|pose diff| {err:.3e} (the refinement moved the "
@@ -3611,6 +3631,288 @@ def phase_profiles(dev, I8, D16, trackers, snaps, card):
     return rows
 
 
+# phase 4j: the mesh forms (parallel/mesh.py) on the one card: one rank in
+# an NCCL group in this process, then two ranks sharing the card over gloo
+# (NCCL refuses two ranks on one device), spawned, the library built first.
+# The pixel-sharded aligner's schedule: bilinear, no early exit (an early
+# exit at a threshold, or nearest sampling, turns the all-reduce's rounding
+# into other iteration counts or sample flips); 5 and 10 iterations at the
+# three coarse levels
+MESH_PIXEL_CFG = dict(num_levels=5, blur_filter_sizes=(0,) * 5, gradient_scales=(0.0625,) * 5,
+                      max_iterations=(0, 0, 5, 10, 10), lambda_steps=(1.0,) * 5, min_gradient_norms=(0.0,) * 5,
+                      sampling="bilinear")
+MESH_B_ODD = 255  # the dp aligner again on the first 255 pairs: data = 2 pads it
+MESH_ATOL = 1e-5  # the all-reduced forms against the unsharded call (BA at damping 1.0)
+
+
+def mesh_inputs(I8, D16, kvo, snap):
+    """Phase 4j's inputs as host arrays (what the spawned ranks load): the
+    main path's frames, the serving streams of phase 4e, phase 4g's
+    keyframes at their poses before finalize with their edges, and the
+    map-scale BA problem."""
+    from phovo_tpu_torch.parallel import bundle_adjustment as ba
+
+    problem, _, _ = ba.make_synthetic_ba(**BA_MAP_SCALE)
+    step = SERVE_FRAMES - 1
+    idx = np.stack([np.arange(s * step, s * step + SERVE_FRAMES) for s in range(SERVE_STREAMS)])
+    closures = [(lc.from_kf, lc.to_kf, lc.relative, lc.mean_residual) for lc in kvo.loop_closures]
+    return dict(
+        I8=I8, D16=D16, batches=(len(I8) - 1, min(MESH_B_ODD, len(I8) - 2)), serve_idx=idx, ba=tuple(problem),
+        kf=dict(I=np.stack([k.intensity for k in kvo.keyframes]), D=np.stack([k.depth for k in kvo.keyframes]),
+                poses=np.stack(snap), edges=list(kvo.odometry_edges), closures=closures,
+                meta=[(k.index, k.frame_index, k.timestamp) for k in kvo.keyframes]),
+    )
+
+
+def mesh_tracker(kf, dev):
+    """A back-end tracker on dev holding phase 4g's keyframes at their
+    poses before finalize, with their odometry and loop edges."""
+    from phovo_tpu_torch.models.keyframe import Keyframe, LoopClosure
+    from phovo_tpu_torch.ops.camera import TUM_FR1
+    from phovo_tpu_torch.utils import config as C
+
+    kvo = backend_tracker(C.load_config(C.builtin_config_dir() / f"{BA_PRESET}.yml"), TUM_FR1, dev)
+    for (index, frame_index, ts), I, D, pose in zip(kf["meta"], kf["I"], kf["D"], kf["poses"]):
+        kvo.keyframes.append(Keyframe(index=index, frame_index=frame_index, timestamp=ts, intensity=I, depth=D,
+                                      pose=pose.copy(), device=dev))
+    kvo.odometry_edges = [(i, j, rel.copy()) for i, j, rel in kf["edges"]]
+    kvo.loop_closures = [LoopClosure(i, j, rel.copy(), r) for i, j, rel, r in kf["closures"]]
+    return kvo
+
+
+def mesh_forms(inputs, mesh, dev, fb, pixel_mesh=None) -> dict:
+    """Phase 4j's forms on `mesh`, every rank the same global inputs, each
+    run's launches counted from 0 and its wall time taken after a
+    synchronize: {form: (result on the host, launches, seconds)}. The
+    data axis: make_data_parallel_aligner on the 256 main-path pairs and on
+    MESH_B_ODD of them (K-GN, the bench schedule with early exit) and
+    make_chunked_sequence_server on the 8 serving streams (K-GN, the
+    analytic preset); the pixel axis: make_pixel_sharded_aligner on one
+    pair, on pixel_mesh where given; the flattened mesh: finalize(mesh=)
+    with BA(3) window and global at damping 1.0 and optimize_bundle(mesh=)
+    at map scale at damping 1.0."""
+    from phovo_tpu_torch.ops.camera import TUM_FR1
+    from phovo_tpu_torch.parallel import batch
+    from phovo_tpu_torch.parallel import bundle_adjustment as ba
+    from phovo_tpu_torch.parallel.distributed import to_numpy
+    from phovo_tpu_torch.parallel.sharded_ne import make_pixel_sharded_aligner
+    from phovo_tpu_torch.utils.config import PhovoConfig, config_from_dict
+
+    I8 = torch.from_numpy(np.asarray(inputs["I8"])).to(dev)
+    Dm = torch.from_numpy(np.asarray(inputs["D16"])).to(dev).to(torch.float32) * float(np.float32(DEPTH_SCALE))
+    out = {}
+
+    def run(name, fn):
+        reset_counts(fb)
+        sync(dev)
+        t0 = time.perf_counter()
+        res = fn()
+        sync(dev)
+        out[name] = (to_numpy(res), launch_counts(fb), time.perf_counter() - t0)
+
+    align = batch.make_data_parallel_aligner(mesh, bench_config(300.0), use_fused=True)
+    for B in inputs["batches"]:
+        run(f"dp aligner, B = {B}", lambda: align(I8[:B], Dm[:B], I8[1:B + 1], Dm[1:B + 1], TUM_FR1,
+                                                  torch.zeros((B, 6), device=dev)))
+    idx = np.asarray(inputs["serve_idx"])  # the streams gathered on the host (no uint16 indexing on the card)
+    sI = torch.from_numpy(np.asarray(inputs["I8"])[idx]).to(dev)
+    sD = torch.from_numpy(np.asarray(inputs["D16"])[idx]).to(dev)
+    serve = batch.make_chunked_sequence_server(mesh, config_from_dict(ANALYTIC_PRESET), depth_scale=DEPTH_SCALE)
+    carry_d = sD[:, 0].to(torch.float32) * float(np.float32(DEPTH_SCALE))
+    run("chunked server", lambda: serve(sI[:, 0], carry_d, sI[:, 1:], sD[:, 1:], TUM_FR1))
+    pixel = make_pixel_sharded_aligner(pixel_mesh or mesh, PhovoConfig(**MESH_PIXEL_CFG))
+    run("pixel aligner", lambda: pixel(I8[0], Dm[0], I8[1], Dm[1], TUM_FR1, torch.zeros(6, device=dev)))
+    for scope in ("window", "global"):
+        def refine():
+            kvo = mesh_tracker(inputs["kf"], dev)
+            kvo.finalize(mesh=mesh, ba_iterations=BA_ITERATIONS, ba_scope=scope, ba_damping=1.0)
+            return np.stack([k.pose for k in kvo.keyframes]), kvo.map_points
+
+        run(f"finalize BA({BA_ITERATIONS}) {scope}", refine)
+    problem = ba.BAProblem(*(ba.to_tensor(x, dev, torch.int64 if k in (2, 3) else torch.float32)
+                             for k, x in enumerate(inputs["ba"])))
+    run("optimize_bundle map scale", lambda: ba.optimize_bundle(problem, TUM_FR1, mesh=mesh, damping=1.0,
+                                                                  iterations=BA_MAP_ITERATIONS, schur="auto"))
+    return out
+
+
+def sync(dev) -> None:
+    """Wait for the card's queued work (nothing to wait for on the CPU)."""
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def mesh_serve(streams, out_dir, devices, dev):
+    """phovo-serve over the raw streams into out_dir, in process, --devices
+    `devices`; returns its exit code."""
+    from phovo_tpu_torch.apps import phovo_serve
+    from phovo_tpu_torch.ops.camera import TUM_FR1
+    from phovo_tpu_torch.utils import config as C
+
+    cfg_path = C.builtin_config_dir() / f"{CLI_PRESETS['analytic']}.yml"
+    return phovo_serve.main(["--config", str(cfg_path), *[a for d in streams for a in ("--dataset", str(d))],
+                             "--out-dir", str(out_dir), "--chunk", str(CLI_CHUNK), "--devices", str(devices),
+                             "--intrinsics", ",".join(repr(float(v)) for v in TUM_FR1), "--device",
+                             "cpu" if dev.type == "cpu" else "cuda", "-q"])
+
+
+def mesh_rank(inputs_path, streams, out_dir, dev_type):
+    """A spawned rank of phase 4j: the forms on a mesh of the world's ranks
+    along the data axis (the pixel aligner along the pixel axis), then
+    phovo-serve --devices <world> into out_dir. Returns
+    ({form: (result, launches, seconds)}, phovo-serve's exit code, its
+    launches)."""
+    import pickle
+
+    import torch.distributed as dist
+
+    from phovo_tpu_torch.ops import fused_batch as fb
+    from phovo_tpu_torch.parallel.mesh import make_mesh
+
+    dev = torch.device(dev_type, 0) if dev_type == "cuda" else torch.device("cpu")
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    with open(inputs_path, "rb") as f:
+        inputs = pickle.load(f)
+    n = dist.get_world_size()
+    data, pixel = (make_mesh(n, pixel_parallel=p, devices=[dev] * n) for p in (1, n))
+    forms = mesh_forms(inputs, data, dev, fb, pixel_mesh=pixel)
+    reset_counts(fb)
+    rc = mesh_serve(streams, out_dir, n, dev)
+    sync(dev)
+    return forms, rc, launch_counts(fb)
+
+
+def leaves(x) -> list:
+    """A result's arrays, flattened (tuples, lists and NamedTuples)."""
+    if isinstance(x, (tuple, list)):
+        return [a for y in x for a in leaves(y)]
+    return [np.asarray(x)]
+
+
+def same_bits(a, b) -> bool:
+    la, lb = leaves(a), leaves(b)
+    return len(la) == len(lb) and all(x.shape == y.shape and np.array_equal(x, y) for x, y in zip(la, lb))
+
+
+def max_diff(a, b) -> float:
+    return max(float(np.abs(np.asarray(x, np.float64) - y).max(initial=0.0)) for x, y in zip(leaves(a), leaves(b)))
+
+
+def phase_mesh(fb, dev, card, I8, D16, kvo, snap):
+    """Phase 4j: the mesh forms (mesh_forms) on the card. The unsharded
+    calls (a one-rank mesh with no process group: the single-device code),
+    then one rank in an NCCL group in this process (a one-rank mesh makes
+    no collective: the forms must give the unsharded bits; one all_reduce
+    checks the group), then two ranks spawned over gloo sharing the card
+    (distributed.spawn_ranks): data = 2 for the data-axis forms and the
+    flattened ones, pixel = 2 for the pixel aligner. Checks: both ranks the
+    same bits; the data-axis forms the unsharded bits, with K-GN launched
+    on each rank; the all-reduced forms (the pixel aligner's states,
+    finalize's keyframe poses with its map the same size, the map-scale
+    BA's states and points) within MESH_ATOL; phovo-serve --devices 2 in
+    the two ranks writes the files of the one-process run. Returns {run:
+    K-GN launches}."""
+    import pathlib
+    import pickle
+    import tempfile
+
+    import torch.distributed as dist
+
+    from phovo_tpu_torch.ops import _build
+    from phovo_tpu_torch.parallel import distributed
+    from phovo_tpu_torch.parallel.mesh import make_mesh
+
+    t0 = time.perf_counter()
+    kernels = dev.type == "cuda"  # a CPU rehearsal runs the plain versions, which count nothing
+    inputs = mesh_inputs(I8, D16, kvo, snap)
+    print(f"mesh: inputs made in {time.perf_counter() - t0:.1f} s ({len(inputs['kf']['I'])} keyframes, "
+          f"{len(inputs['ba'][2])} BA observations)")
+    ref = mesh_forms(inputs, make_mesh(1, devices=[dev]), dev, fb)
+    for name, (_, launches, wall) in ref.items():
+        print(f"mesh: {name} unsharded: {wall:.3f} s, K-GN launches {launches['K-GN']} [{card}]")
+    kgn = {}
+    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR) as tmp:
+        tmp = pathlib.Path(tmp)
+        check(distributed.initialize(f"file://{tmp / 'nccl'}", 1, 0, backend="nccl"), "no NCCL group was made")
+        try:
+            probe = torch.arange(4.0, device=dev)
+            dist.all_reduce(probe)
+            check(torch.equal(probe, torch.arange(4.0, device=dev)), "a one-rank NCCL all_reduce changed its input")
+            one = mesh_forms(inputs, make_mesh(devices=[dev]), dev, fb)
+        finally:
+            dist.destroy_process_group()
+        for name, (res, launches, wall) in one.items():
+            bits = same_bits(res, ref[name][0])
+            kgn[f"nccl 1 rank: {name}"] = launches["K-GN"]
+            print(f"mesh: {name}, one rank in an NCCL group: {wall:.3f} s, the unsharded bits {bits}, K-GN launches "
+                  f"{launches['K-GN']} [{card}]")
+            check(bits and launches == ref[name][1], f"mesh {name}: one NCCL rank is not the unsharded call")
+
+        ts = np.arange(CLI_FRAMES, dtype=np.float64) / 30.0
+        streams = [write_raw_sequence(tmp / f"stream{k}", I8[:n], D16[:n], ts[:n], DEPTH_SCALE)
+                   for k, n in enumerate(CLI_SERVE_FRAMES)]
+        t0 = time.perf_counter()
+        check(mesh_serve(streams, tmp / "served1", 1, dev) == 0, "phovo-serve on one process failed")
+        print(f"mesh: phovo-serve --devices 1, one process: {time.perf_counter() - t0:.3f} s")
+        with open(tmp / "inputs.pkl", "wb") as f:
+            pickle.dump(inputs, f, protocol=pickle.HIGHEST_PROTOCOL)
+        t0 = time.perf_counter()
+        ranks = distributed.spawn_ranks(mesh_rank, 2, f"file://{tmp / 'gloo'}", backend="gloo",
+                                        args=(str(tmp / "inputs.pkl"), [str(d) for d in streams],
+                                              str(tmp / "served2"), dev.type))
+        print(f"mesh: two gloo ranks on the card spawned, run and joined in {time.perf_counter() - t0:.1f} s")
+        for r, (forms, rc, launches) in enumerate(ranks):
+            kgn[f"gloo rank {r}: phovo-serve --devices 2"] = launches["K-GN"]
+            check(rc == 0 and (launches["K-GN"] > 0 or not kernels),
+                  f"phovo-serve --devices 2 on rank {r}: exit {rc}, {launches}")
+            for name, (res, lc, wall) in forms.items():
+                kgn[f"gloo rank {r}: {name}"] = lc["K-GN"]
+                check(same_bits(res, ranks[0][0][name][0]), f"mesh {name}: rank {r} differs from rank 0")
+        served = [pose_lines(tmp / "served2" / f"{d.name}.txt") == pose_lines(tmp / "served1" / f"{d.name}.txt")
+                  for d in streams]
+        print(f"mesh: phovo-serve --devices 2 over two gloo ranks: each stream's file the one-process file {served}, "
+              f"K-GN launches by rank {[r[2]['K-GN'] for r in ranks]} [{card}]")
+        check(all(served), "phovo-serve --devices 2 wrote other trajectories than one process")
+    forms = ranks[0][0]
+    for name, (res, launches, wall) in forms.items():
+        unsharded = ref[name][0]
+        counts = [r[0][name][1]["K-GN"] for r in ranks]
+        if name.startswith(("dp aligner", "chunked server")):
+            bits = same_bits(res, unsharded)
+            apart = [(k, float(np.abs(np.asarray(a, np.float64) - b).max())) for k, (a, b) in
+                     enumerate(zip(leaves(res), leaves(unsharded))) if not np.array_equal(a, b)]
+            print(f"mesh: {name}, data = 2 over gloo: {wall:.3f} s on rank 0, the unsharded bits {bits}"
+                  f"{f' (fields apart, max|diff|: {apart})' if apart else ''}, K-GN launches by rank {counts} "
+                  f"[{card}]")
+            check(bits and (all(counts) or not kernels),
+                  f"mesh {name}: the data axis is not the unsharded call or launched no K-GN")
+        elif name == "pixel aligner":
+            err = float(np.abs(res.state - unsharded.state).max())
+            cost = float(np.abs(res.cost - unsharded.cost).max() / max(np.abs(unsharded.cost).max(), 1e-30))
+            same = np.array_equal(res.iterations, unsharded.iterations)
+            print(f"mesh: {name}, pixel = 2 over gloo: {wall:.3f} s, max|state - unsharded| {err:.3e} (limit "
+                  f"{MESH_ATOL:g}), max relative cost difference {cost:.3e}, iterations equal {same}, valid "
+                  f"count difference {int(np.abs(res.num_valid - unsharded.num_valid).max())} [{card}]")
+            check(err <= MESH_ATOL and same, f"mesh {name}: state difference {err}")
+        elif name.startswith(("finalize", "optimize_bundle")):
+            limit = MESH_ATOL
+            # finalize: the keyframe poses, and the map's size (a landmark whose observation sits on the
+            # occlusion gate or the image edge answers the poses' float32 noise in its validity, as on
+            # the CPU against the card, phase 4g); optimize_bundle: the states and the points
+            finalize = name.startswith("finalize")
+            err = max_diff(res[:1] if finalize else res[:2], unsharded[:1] if finalize else unsharded[:2])
+            moved = max_diff(unsharded[0], inputs["kf"]["poses"] if finalize else inputs["ba"][0])
+            sizes = (len(res[1]), len(unsharded[1])) if finalize else (0, 0)
+            print(f"mesh: {name}, data = 2 over gloo: {wall:.3f} s on rank 0, max|difference from the unsharded "
+                  f"call| {err:.3e} (limit {limit:g}; the call moved the states by up to {moved:.3e})"
+                  f"{f', map sizes {sizes}' if finalize else ''} [{card}]")
+            check(err <= limit and moved > 10 * limit and sizes[0] == sizes[1],
+                  f"mesh {name}: {err} from the unsharded call, map sizes {sizes}")
+    return kgn
+
+
 T_START = time.perf_counter()
 
 
@@ -3776,6 +4078,10 @@ def main() -> int:
     # 4i. the port's parity harness on the cluttered scene
     stamp("4i. parity harness")
     phase_parity(dev, card)
+
+    # 4j. the mesh forms: one NCCL rank, two gloo ranks sharing the card
+    stamp("4j. mesh forms")
+    mesh_launches = phase_mesh(fb, dev, card, I8, D16, ba_trackers["BA window"], ba_snaps["BA window"])
 
     # 5. the ceres main path: the same frames, the shipped ceres preset
     stamp("5. ceres main path")
@@ -4013,6 +4319,7 @@ def main() -> int:
             "library_ms": None,
             "variants": variants["fused_gn_level_batch"][1],
             "per_pair_launches": an_launches,
+            "mesh_launches": mesh_launches,
             "cluster": level_clusters(bench_levels),
         },
         {

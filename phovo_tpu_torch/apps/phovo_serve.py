@@ -1,10 +1,11 @@
-"""CLI: multi-camera visual odometry serving on one card: S RGB-D streams,
-one dispatch a round (torch port of phovo_tpu/apps/phovo_serve.py's
-single-device form).
+"""CLI: multi-camera visual odometry serving: S RGB-D streams, one
+dispatch a round (torch port of phovo_tpu/apps/phovo_serve.py).
 
     python -m phovo_tpu_torch.apps.phovo_serve --config cfg.yml \
         --dataset seqA --dataset seqB [...] --out-dir out/ \
         [--chunk 16] [--intrinsics fr1] [--warm-start] [--device cuda]
+    torchrun --nproc-per-node N -m phovo_tpu_torch.apps.phovo_serve \
+        --devices N --dataset ... --out-dir out/
 
 Every round a chunk of --chunk frames from EACH stream is aligned in one
 call of parallel/batch.py::serve_sequences_chunk: the streams' zero-init
@@ -17,9 +18,15 @@ trajectory, and writes one TUM-format trajectory per stream
 or short chunk is padded by repeating the stream's last frame, and the
 padding pairs' poses are dropped.
 
---devices takes 'auto' or 1: serving over several cards waits for the
-multi-GPU work, ROADMAP.md queue A, item 11, and raises
-NotImplementedError.
+Several cards (--devices, phovo_tpu's rule): the streams are split over
+the data axis of a mesh of N ranks (parallel/mesh.py); 'auto' takes the
+largest divisor of S that is at most the world size (torchrun's ranks, 1
+without it), and an N that does not divide S exits 1. Each rank opens only
+its share of the streams (distributed.local_batch_slice), serves them on
+its own card and writes their trajectories: the ranks exchange nothing,
+and each file is a one-card run's file, since a stream's result does not
+depend on the streams beside it. An N above the world size raises
+ValueError (exit 1); a rank past the mesh serves nothing.
 """
 
 from __future__ import annotations
@@ -46,8 +53,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--pairing", default="associate", choices=["associate", "lockstep"])
     p.add_argument("--chunk", type=int, default=16, help="frames ingested per stream per dispatch")
     p.add_argument("--devices", default="auto",
-                   help="cards to serve on: 'auto' or 1 (several cards are not ported yet, ROADMAP.md queue A, "
-                        "item 11)")
+                   help="cards to serve on (the data axis): 'auto' (the largest divisor of the stream count up to "
+                        "the world size) or N, dividing the stream count, at most the world size (torchrun's ranks)")
     p.add_argument("--warm-start", action="store_true")
     p.add_argument("--max-frames", type=int, default=None, help="cap on aligned pairs per stream")
     p.add_argument("--mix-mode", default=None, choices=["f32", "bf16x2g", "bf16x2", "bf16"],
@@ -81,30 +88,58 @@ def main(argv=None) -> int:
 
 
 def _main(argv=None) -> int:
+    from phovo_tpu_torch.parallel import distributed
+
     args = build_parser().parse_args(argv)
-    if args.devices not in ("auto", "1"):
-        raise NotImplementedError(
-            f"--devices {args.devices}: serving over several cards is not ported yet (ROADMAP.md queue A, item 11)"
-        )
+    created = distributed.initialize()
+    try:
+        return _serve(args)
+    finally:
+        if created:
+            import torch.distributed as dist
+
+            dist.destroy_process_group()
+
+
+def _serve(args) -> int:
     device = resolve_device(args.device)
 
     from phovo_tpu_torch.apps.phovo_align import parse_intrinsics
     from phovo_tpu_torch.datasets.tum import prefetch
     from phovo_tpu_torch.ops import se3
     from phovo_tpu_torch.parallel.batch import serve_sequences_chunk
+    from phovo_tpu_torch.parallel.distributed import local_batch_slice
+    from phovo_tpu_torch.parallel.mesh import make_mesh, world
     from phovo_tpu_torch.utils.config import load_config, override_config
     from phovo_tpu_torch.utils.trajectory import TrajectoryWriter
 
     cfg = override_config(load_config(args.config), mix_mode=args.mix_mode)
     intr = parse_intrinsics(args.intrinsics)
-    S = len(args.dataset)
-    seqs = [_open_stream(d, args.depth_scale, args.pairing) for d in args.dataset]
-    for d, s in zip(args.dataset, seqs):
+    if args.devices == "auto":
+        n_world = world()[0]
+        n_data = max(k for k in range(1, min(len(args.dataset), n_world) + 1) if len(args.dataset) % k == 0)
+    else:
+        n_data = int(args.devices)
+        if n_data < 1:
+            print(f"error: --devices {n_data}: at least 1", file=sys.stderr)
+            return 1
+        if len(args.dataset) % n_data != 0:
+            print(f"error: {len(args.dataset)} streams not divisible by --devices {n_data}", file=sys.stderr)
+            return 1
+    mesh = make_mesh(n_data, pixel_parallel=1)
+    if device.type == "cuda" and device.index is None:  # each rank its own card
+        device = mesh.device
+    lo, S = local_batch_slice(len(args.dataset), mesh)
+    if S == 0:  # a rank past the mesh
+        return 0
+    datasets = args.dataset[lo:lo + S]
+    seqs = [_open_stream(d, args.depth_scale, args.pairing) for d in datasets]
+    for d, s in zip(datasets, seqs):
         if len(s) < 2:
             print(f"error: fewer than 2 paired frames in {d}", file=sys.stderr)
             return 1
     streams = [prefetch(iter(s)) for s in seqs]
-    names = _stream_names(args.dataset)
+    names = _stream_names(args.dataset)[lo:lo + S]
     out_dir = Path(args.out_dir)
     out_dir.mkdir(parents=True, exist_ok=True)
 

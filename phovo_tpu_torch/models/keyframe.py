@@ -27,10 +27,13 @@ track_chunk_levelmajor_tr), or the serial warm-started scan
 align in one batch (parallel/batch.py::align_batch); the other backends
 align them one by one through the object API.
 
-Not ported: finalize(mesh=...) (ROADMAP.md queue A, item 11).
-phovo_tpu's band fallback has nothing to catch here: the GPU kernels
-sample the whole target, so band_masked is always 0; band_fallback is
-accepted and stored, and band_fallbacks stays 0.
+finalize(mesh=...) runs the pose graph and the bundle adjustment over a
+mesh of ranks (parallel/mesh.py), each rank holding the same keyframes:
+the edges and observations are sharded, the result is the same on every
+rank; tracking stays on each rank's own card. phovo_tpu's band fallback
+has nothing to catch here: the GPU kernels sample the whole target, so
+band_masked is always 0; band_fallback is accepted and stored, and
+band_fallbacks stays 0.
 """
 
 from __future__ import annotations
@@ -59,10 +62,8 @@ from phovo_tpu_torch.models.autodiff import (
 from phovo_tpu_torch.models.base import AlignmentResult, PhotoconsistencyOdometryBase, device_unit_intensity
 from phovo_tpu_torch.ops import se3
 from phovo_tpu_torch.parallel.batch import align_batch
-from phovo_tpu_torch.parallel.bundle_adjustment import dense_w_fits
 from phovo_tpu_torch.parallel.photometric_ba import (
     build_photometric_global,
-    build_photometric_window,
     optimize_photometric_bundle,
     refine_photometric_windows,
     select_landmark_pixels,
@@ -568,13 +569,12 @@ class KeyframeVisualOdometry:
         measured depths differ by more than that many metres (an occluded
         landmark sees another surface); ba_robust_delta is a Huber delta on
         the photometric row (intensity units) and ba_z_robust_delta on the
-        depth row (metres). 0 or None disables either. mesh (the sharded
-        solve, ROADMAP.md queue A, item 11) raises NotImplementedError."""
-        if mesh is not None:
-            raise NotImplementedError(
-                "finalize(mesh=...): the sharded pose graph is not ported yet "
-                "(ROADMAP.md queue A, item 11)"
-            )
+        depth row (metres). 0 or None disables either. mesh
+        (parallel/mesh.py): every rank of the mesh calls finalize on a
+        tracker holding the same keyframes; the pose graph's edges and the
+        bundle adjustments' observations are split over the ranks and
+        every rank ends with the same poses and map (a one-rank mesh: the
+        unsharded bits)."""
         if ba_scope not in ("window", "global"):
             raise ValueError(f"ba_scope={ba_scope!r}")
         ba_robust_delta = ba_robust_delta or None
@@ -587,7 +587,7 @@ class KeyframeVisualOdometry:
             t1 = time.perf_counter()
             self.finalize_timings["pg_build"] = t1 - t0
             states, _ = optimize_pose_graph(
-                graph, iterations=iterations, solver=self.pg_solver, device=self.odometry.device,
+                graph, mesh=mesh, iterations=iterations, solver=self.pg_solver, device=self.odometry.device,
             )
             states = states.cpu().numpy().astype(np.float64)
             self.finalize_timings["pg_solve"] = time.perf_counter() - t1
@@ -597,10 +597,10 @@ class KeyframeVisualOdometry:
         t0 = time.perf_counter()
         if ba_iterations > 0 and len(self.keyframes) >= 2:
             if ba_scope == "global":
-                self._refine_photometric_global(None, ba_iterations, ba_grid, ba_damping, ba_robust_delta, ba_covis,
+                self._refine_photometric_global(mesh, ba_iterations, ba_grid, ba_damping, ba_robust_delta, ba_covis,
                                                 ba_occ_gate, ba_z_robust_delta)
             else:
-                self._refine_photometric(None, ba_iterations, ba_window, ba_grid, ba_damping, ba_robust_delta,
+                self._refine_photometric(mesh, ba_iterations, ba_window, ba_grid, ba_damping, ba_robust_delta,
                                          ba_occ_gate, ba_z_robust_delta)
         _synchronize(self.odometry.device)
         self.finalize_timings["photometric_ba"] = time.perf_counter() - t0
@@ -610,11 +610,7 @@ class KeyframeVisualOdometry:
 
     # -- photometric bundle adjustment ----------------------------------------
 
-    def _ba_intrinsics(self, mesh):
-        if mesh is not None:
-            raise NotImplementedError(
-                "the photometric bundle adjustment over a mesh is not ported yet (ROADMAP.md queue A, item 11)"
-            )
+    def _ba_intrinsics(self):
         if self.odometry.intrinsics is None:
             raise RuntimeError("photometric BA needs intrinsics on the odometry backend")
         return self.odometry.intrinsics
@@ -640,26 +636,22 @@ class KeyframeVisualOdometry:
     ) -> None:
         """Windowed photometric BA over all keyframes: every sliding window
         built and solved on the device from the keyframe stacks
-        (refine_photometric_windows), or window by window from host-built
-        problems (_refine_photometric_sequential) where a window's dense W
-        would not fit the budget. phovo_tpu pads the keyframes and the
-        windows to reuse one compiled program; the port runs unpadded."""
-        intr = self._ba_intrinsics(mesh)
+        (refine_photometric_windows: each window's Schur path routed by
+        size, its observations sharded over `mesh`). phovo_tpu pads the
+        keyframes and the windows to reuse one compiled program; the port
+        runs unpadded."""
+        intr = self._ba_intrinsics()
         M = len(self.keyframes)
         window = max(2, min(window, M))
-        if not dense_w_fits(window, window * grid * grid):
-            self._refine_photometric_sequential(mesh, iterations, window, grid, damping, robust_delta, occ_gate,
-                                                robust_z_delta)
-            return
         kfs = self.keyframes
         starts = window_starts(M, window)
         sel = np.stack([select_landmark_pixels(k.intensity, k.depth, grid=grid) for k in kfs])
         dev_I, dev_D, states = self._keyframe_stacks()
         dev = dev_I.device
         refined, points, refs, lm_valid = refine_photometric_windows(
-            dev_I, dev_D, torch.from_numpy(states).to(dev), torch.from_numpy(sel).to(dev), starts,
-            [True] * len(starts), intr, damping, window=window, grid=grid, iterations=iterations,
-            robust_delta=robust_delta, occ_gate=float(occ_gate), robust_z_delta=robust_z_delta,
+            dev_I, dev_D, torch.from_numpy(states).to(dev), torch.from_numpy(sel).to(dev), starts, intr, damping,
+            window=window, grid=grid, iterations=iterations, robust_delta=robust_delta, occ_gate=float(occ_gate),
+            robust_z_delta=robust_z_delta, mesh=mesh,
         )
         self._set_poses(kfs, refined)
         pts = points.cpu().numpy().astype(np.float64).reshape(-1, 3)
@@ -667,38 +659,6 @@ class KeyframeVisualOdometry:
         keep = lm_valid.cpu().numpy().reshape(-1) & (np.linalg.norm(pts, axis=1) > 1e-9)
         self.map_points = pts[keep]
         self.map_intensity = ref_i[keep]
-
-    def _refine_photometric_sequential(
-        self, mesh, iterations: int, window: int, grid: int, damping: float,
-        robust_delta: float | None = None, occ_gate: float = 0.3, robust_z_delta: float | None = 0.02,
-    ) -> None:
-        """Windowed photometric BA from host-built windows
-        (build_photometric_window, float64), one after the other, each
-        solved with schur='auto' on the odometry's device."""
-        intr = self._ba_intrinsics(mesh)
-        M = len(self.keyframes)
-        window = max(2, min(window, M))
-        map_pts, map_int = [], []
-        for start in window_starts(M, window):
-            kfs = self.keyframes[start:start + window]
-            I = np.stack([k.intensity for k in kfs])
-            if I.dtype == np.uint8:  # the aligners' convention: intensity in 0..1
-                I = I.astype(np.float32) / 255.0
-            D = np.stack([k.depth for k in kfs])
-            states = se3.matrix_to_state_np(np.stack([k.pose for k in kfs])).astype(np.float32)
-            problem = build_photometric_window(I, D, states, intr, grid=grid, occ_gate=occ_gate,
-                                               device=self.odometry.device)
-            refined, points, _ = optimize_photometric_bundle(
-                problem, intr, iterations=iterations, damping=damping, fixed_first=True, robust_delta=robust_delta,
-                schur="auto", robust_z_delta=robust_z_delta,
-            )
-            self._set_poses(kfs, refined)
-            pts = points.cpu().numpy().astype(np.float64)
-            keep = np.linalg.norm(pts, axis=1) > 1e-9  # zero rows: invalid landmark slots
-            map_pts.append(pts[keep])
-            map_int.append(problem.ref_intensity.cpu().numpy()[keep])
-        self.map_points = np.concatenate(map_pts) if map_pts else None
-        self.map_intensity = np.concatenate(map_int) if map_int else None
 
     def _refine_photometric_global(
         self, mesh, iterations: int, grid: int, damping: float, robust_delta: float | None, covis: int,
@@ -709,7 +669,7 @@ class KeyframeVisualOdometry:
         schur='auto' (the sparse path past the dense budget). phovo_tpu
         pads the keyframe count to a multiple of 16 with inert keyframes to
         reuse compiled programs; the port runs unpadded."""
-        intr = self._ba_intrinsics(mesh)
+        intr = self._ba_intrinsics()
         kfs = self.keyframes
         dev_I, dev_D, states = self._keyframe_stacks()
         problem = build_photometric_global(
@@ -717,8 +677,8 @@ class KeyframeVisualOdometry:
             grid=grid, max_covis=covis, occ_gate=occ_gate, device_intensities=dev_I, device_depths=dev_D,
         )
         refined, points, _ = optimize_photometric_bundle(
-            problem, intr, iterations=iterations, damping=damping, fixed_first=True, robust_delta=robust_delta,
-            schur="auto", robust_z_delta=robust_z_delta,
+            problem, intr, mesh=mesh, iterations=iterations, damping=damping, fixed_first=True,
+            robust_delta=robust_delta, schur="auto", robust_z_delta=robust_z_delta,
         )
         self._set_poses(kfs, refined)
         pts = points.cpu().numpy().astype(np.float64)

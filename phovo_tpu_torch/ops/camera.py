@@ -62,13 +62,15 @@ TUM_FR3 = Intrinsics(_f32(535.4), _f32(539.2), _f32(320.1), _f32(247.6))
 NAMED_INTRINSICS = {"fr1": TUM_FR1, "fr2": TUM_FR2, "fr3": TUM_FR3, "default": TUM_DEFAULT}
 
 
-def backproject(depth: torch.Tensor, intr: Intrinsics) -> torch.Tensor:
+def backproject(depth: torch.Tensor, intr: Intrinsics, row_offset: float = 0.0) -> torch.Tensor:
     """Depth image (..., H, W) -> camera-frame points (..., H, W, 3).
 
-    x = (c - cx) z / fx, y = (r - cy) z / fy (columns are x, rows are y)."""
+    x = (c - cx) z / fx, y = (r - cy) z / fy (columns are x, rows are y).
+    row_offset: the global row of local row 0, where the image is a block
+    of rows of a frame split over ranks (parallel/sharded_ne.py)."""
     H, W = depth.shape[-2:]
     c = torch.arange(W, dtype=depth.dtype, device=depth.device)
-    r = torch.arange(H, dtype=depth.dtype, device=depth.device)
+    r = torch.arange(H, dtype=depth.dtype, device=depth.device) + row_offset
     rr, cc = torch.meshgrid(r, c, indexing="ij")
     x = (cc - intr.cx) * depth / intr.fx
     y = (rr - intr.cy) * depth / intr.fy

@@ -60,11 +60,13 @@ def warp_and_jacobian(
     min_depth: float,
     max_depth: float,
     return_rigid: bool = False,
+    row_offset: float = 0.0,
 ):
     """Shared geometry: (col, row, transformed points, J_pix (..., 2, 6),
     valid_src); return_rigid appends the rigid-transform Jacobian J_rt
-    (..., 3, 6), whose z-row the bi-objective depth channel needs."""
-    pts = backproject(source_depth, intr)
+    (..., 3, 6), whose z-row the bi-objective depth channel needs.
+    row_offset: see ops/camera.py::backproject."""
+    pts = backproject(source_depth, intr, row_offset)
     tp = transform_points(pts, se3.pose_matrix(state))
     tz = tp[..., 2]
     safe_z = torch.where(torch.abs(tz) > 1e-12, tz, torch.full_like(tz, 1e-12))
@@ -93,16 +95,19 @@ def photometric_residual_jacobian(
     gradient_at: str = "warped",
     source_grad_x: torch.Tensor | None = None,
     source_grad_y: torch.Tensor | None = None,
+    row_offset: float = 0.0,
 ):
     """Photometric residual field and analytic Jacobian rows. gradient_at:
     'warped' samples the target gradient at the warped coordinates;
     'source' reads it at the source pixel index (the reference analytic
     kernel, CPhotoconsistencyOdometryAnalytic.h:346-347); 'esm' averages
     the warped target gradient with the source gradient source_grad_x/y
-    (Scharr of the source intensity at the same scale). Returns
+    (Scharr of the source intensity at the same scale). row_offset: the
+    global row of the source's row 0 where the source is a block of rows
+    (parallel/sharded_ne.py; the target stays whole). Returns
     (residual (H, W), J (H, W, 6), valid (H, W))."""
     col, row, _, J_pix, valid_src = warp_and_jacobian(
-        source_depth, state, intr, min_depth, max_depth
+        source_depth, state, intr, min_depth, max_depth, row_offset=row_offset
     )
     sample = sample_bilinear if sampling == "bilinear" else sample_nearest
     tgt_val, inb = sample(target_intensity, col, row)

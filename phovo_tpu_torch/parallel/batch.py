@@ -23,10 +23,17 @@ the streams are grouped by camera and each group runs its own level-major
 batch; zero-init pairs are independent, so this gives what phovo_tpu's
 vmap over (S,) intrinsic vectors gives.
 
-The mesh factories (make_data_parallel_aligner,
+The mesh forms (make_data_parallel_aligner,
 align_sequences_levelmajor_sharded, make_multi_sequence_server,
-make_chunked_sequence_server) wait for multi-GPU work (ROADMAP.md queue A,
-item 11).
+make_chunked_sequence_server) shard pairs or streams over the mesh's data
+axis (parallel/mesh.py): every rank takes the global inputs, runs its
+shard through the single-device entries above on its card (the level
+kernel at B = its pairs), and the shards are gathered back whole on every
+rank. A pair's result on the card does not depend on its batch, so there
+a data-axis form gives the unsharded call's bits; on the CPU the plain
+versions' batched sums round with the batch (~1e-7). The servers integrate
+the poses from the gathered states: the card's batched 4x4 products round
+with the batch count.
 """
 
 from __future__ import annotations
@@ -39,12 +46,15 @@ from phovo_tpu_torch.models.analytic import (
     align_batch_fused,
     align_pairs_levelmajor,
     align_sequence,
+    align_sequence_chunk,
+    multi_kernel_eligible,
     prep_frame_analytic,
     prep_frame_targets,
 )
 from phovo_tpu_torch.models.base import AlignmentResult, chunk_device_prep, device_unit_intensity
 from phovo_tpu_torch.ops import se3
 from phovo_tpu_torch.ops.camera import Intrinsics
+from phovo_tpu_torch.parallel.mesh import DATA_AXIS, Mesh, gather
 from phovo_tpu_torch.utils.config import PhovoConfig
 
 
@@ -241,3 +251,136 @@ def serve_sequences_chunk(
     D = torch.stack([p[1] for p in prepped])
     res, poses = align_sequences(I, D, intr, config, use_fused, warm_start)
     return res, poses, I[:, -1], D[:, -1]
+
+
+# -- the mesh forms: pairs and streams over the data axis ---------------------
+
+
+def _stream_shard(mesh: Mesh, S: int) -> tuple[int, int]:
+    """[start, stop) of this rank's streams of S; S must be divisible by the
+    data axis (phovo_tpu's rule)."""
+    n_data = mesh.shape[DATA_AXIS]
+    if S % n_data:
+        raise ValueError(f"S={S} not divisible by data axis {n_data}")
+    per = S // n_data
+    lo = mesh.index(DATA_AXIS) * per
+    return lo, lo + per
+
+
+def _shard_cameras(intr, lo: int, hi: int):
+    """The intrinsics of items [lo, hi): a shared Intrinsics, or that slice
+    of a list."""
+    return intr if isinstance(intr, Intrinsics) else list(intr)[lo:hi]
+
+
+def make_data_parallel_aligner(mesh: Mesh, config: PhovoConfig, use_fused: bool = False):
+    """align(si, sd, ti, td, intr, init_states) over (B, H, W) pairs with the
+    batch sharded over the mesh's data axis: each rank aligns its
+    B / data pairs with align_batch, and the results are gathered whole on
+    every rank (phovo_tpu/parallel/batch.py::make_data_parallel_aligner). A
+    B the data axis does not divide is padded by repeating the last pair
+    (a padded pair aligns on its own, so the real pairs' results are the
+    divisible case's) and the results are cut back to B."""
+    n_data = mesh.shape[DATA_AXIS]
+
+    def align(si, sd, ti, td, intr, init_states) -> AlignmentResult:
+        B = si.shape[0]
+        pad = (-B) % n_data
+        cams = _cameras(intr, B)
+        if pad:
+            def rep(a):
+                return torch.cat([a, a[-1:].expand(pad, *a.shape[1:])])
+
+            si, sd, ti, td, init_states = (rep(a) for a in (si, sd, ti, td, init_states))
+            cams = cams + cams[-1:] * pad
+        per = (B + pad) // n_data
+        lo = mesh.index(DATA_AXIS) * per
+        shard_intr = intr if isinstance(intr, Intrinsics) else cams[lo:lo + per]
+        sl = slice(lo, lo + per)
+        res = align_batch(si[sl], sd[sl], ti[sl], td[sl], shard_intr, init_states[sl], config, use_fused)
+        res = gather(mesh, res, B + pad, lo)
+        return AlignmentResult(*(x[:B] if isinstance(x, torch.Tensor) else x for x in res))
+
+    return align
+
+
+def align_sequences_levelmajor_sharded(
+    intensities: torch.Tensor,  # (S, T, H, W)
+    depths: torch.Tensor,  # (S, T, H, W) metres
+    intr: Intrinsics,  # shared by the streams
+    config: PhovoConfig,
+    mesh: Mesh,
+) -> AlignmentResult:
+    """align_sequences_levelmajor with the S streams sharded over the mesh's
+    data axis: each rank flattens ITS streams' pairs into one local
+    level-major batch (phovo_tpu/parallel/batch.py::
+    align_sequences_levelmajor_sharded). S must be divisible by the data
+    axis. Returns results with leading dims (S, T-1), whole on every
+    rank."""
+    lo, hi = _stream_shard(mesh, intensities.shape[0])
+    res = align_sequences_levelmajor(intensities[lo:hi], depths[lo:hi], intr, config)
+    return gather(mesh, res, intensities.shape[0], lo)
+
+
+def make_multi_sequence_server(mesh: Mesh, config: PhovoConfig, use_fused: bool = True, warm_start: bool = False):
+    """serve(intensities (S, T, H, W), depths, intr) -> (results (S, T-1,
+    ...), global poses (S, T-1, 4, 4)) with the S camera streams sharded
+    over the mesh's data axis (phovo_tpu/parallel/batch.py::
+    make_multi_sequence_server): each rank serves its streams through
+    align_sequences_multi (one multi-stream launch a level a time step,
+    phovo_tpu's B7) where that route takes the config (the level kernel's
+    route, no 'tdist', a shared rig), else through align_sequences. S must
+    be divisible by the data axis."""
+
+    def serve(intensities, depths, intr):
+        S = intensities.shape[0]
+        lo, hi = _stream_shard(mesh, S)
+        I, D = intensities[lo:hi], depths[lo:hi]
+        if isinstance(intr, Intrinsics) and _fused_route(config, use_fused) and multi_kernel_eligible(config):
+            res, _ = align_sequences_multi(I, D, intr, config, warm_start)
+        else:
+            res, _ = align_sequences(I, D, _shard_cameras(intr, lo, hi), config, use_fused, warm_start)
+        res = gather(mesh, res, S, lo)
+        return res, se3.integrate_trajectory(res.state)
+
+    return serve
+
+
+def make_chunked_sequence_server(
+    mesh: Mesh,
+    config: PhovoConfig,
+    use_fused: bool = True,
+    warm_start: bool = False,
+    depth_scale: float | None = None,
+    levelmajor: str = "auto",
+):
+    """serve(carry_i (S, H, W), carry_d, intensities (S, B, H, W), depths,
+    intr) -> (results (S, B, ...), chunk-relative poses (S, B, 4, 4), new
+    carry intensities, new carry depths): the streaming server with the S
+    streams sharded over the mesh's data axis (phovo_tpu/parallel/batch.py::
+    make_chunked_sequence_server), frames in their storage dtypes,
+    converted on the card. levelmajor 'auto' serves each rank's streams
+    with serve_sequences_chunk (their zero-init pairs flattened into one
+    level-major batch where eligible); 'off' runs each stream's own chunked
+    chain (align_sequence_chunk); 'interpret' is taken as 'auto' (phovo_tpu's
+    interpret-mode kernels have no counterpart), as run_chunked takes it.
+    S must be divisible by the data axis."""
+    if levelmajor not in ("auto", "off", "interpret"):
+        raise ValueError(f"levelmajor={levelmajor!r}; expected 'auto', 'off' or 'interpret'")
+
+    def serve(carry_i, carry_d, intensities, depths, intr):
+        S = intensities.shape[0]
+        lo, hi = _stream_shard(mesh, S)
+        cams = _shard_cameras(intr, lo, hi)
+        args = (carry_i[lo:hi], carry_d[lo:hi], intensities[lo:hi], depths[lo:hi])
+        if levelmajor == "off":
+            runs = [align_sequence_chunk(*a, cam, config, use_fused, warm_start, depth_scale)
+                    for *a, cam in zip(*args, _cameras(cams, hi - lo))]
+            res = AlignmentResult(*(torch.stack(x) for x in zip(*(r[0] for r in runs))))
+            carry_i, carry_d = torch.stack([r[1] for r in runs]), torch.stack([r[2] for r in runs])
+        else:
+            res, _, carry_i, carry_d = serve_sequences_chunk(*args, cams, config, use_fused, warm_start, depth_scale)
+        res, carry_i, carry_d = (gather(mesh, x, S, lo) for x in (res, carry_i, carry_d))
+        return res, se3.integrate_trajectory(res.state), carry_i, carry_d
+
+    return serve

@@ -34,9 +34,14 @@ pose_matrix(s_i) world-from-keyframe, landmarks are in world coordinates,
 and a landmark is observed at pixel (u, v) through the reference's
 pinhole projection (u = fx x / z + cx).
 
-The mesh-sharded form (observations sharded over devices, one psum of the
-blocks an iteration) waits for multi-GPU work (ROADMAP.md queue A, item
-11): mesh= raises NotImplementedError.
+With a mesh (parallel/mesh.py) the observations are sharded over all its
+ranks, flattened: each rank linearizes its observations and ONE
+all_reduce a build, so one an LM iteration, merges the blocks {U, V, W,
+v, w, cost} (merge_blocks; the sparse path's per-observation AtB rows are
+gathered in the same collective); every rank then solves the same reduced
+camera system. Sums over ranks round in the backend's order, so a sharded
+run agrees with the unsharded one to float32 rounding, and two runs at
+one world size give the same bits.
 """
 
 from __future__ import annotations
@@ -49,6 +54,7 @@ import torch
 from phovo_tpu_torch.models.base import DEFAULT_DEVICE
 from phovo_tpu_torch.ops import se3
 from phovo_tpu_torch.ops.camera import Intrinsics
+from phovo_tpu_torch.parallel.mesh import psum, shard_bounds
 
 # schur='auto' memory guard, shared with parallel/photometric_ba.py: the
 # dense path holds W (M, P, 6, 3) and the W V^-1 intermediate of the same
@@ -101,12 +107,29 @@ def to_tensor(x, device, dtype) -> torch.Tensor:
     return (x if isinstance(x, torch.Tensor) else torch.from_numpy(np.array(x))).to(device, dtype)
 
 
-def no_mesh(mesh, what: str) -> None:
-    if mesh is not None:
-        raise NotImplementedError(
-            f"{what}(mesh=...): the observation-sharded multi-device form is "
-            "not ported yet (ROADMAP.md queue A, item 11)"
-        )
+def observation_shard(mesh, n_obs: int) -> tuple[int, int]:
+    """[start, stop) of this rank's observations of n_obs: all of them
+    without a mesh or on one rank, else its slice over the flattened
+    mesh."""
+    if mesh is None or mesh.size == 1:
+        return 0, n_obs
+    return shard_bounds(n_obs, mesh.size, mesh.flat_index)
+
+
+def merge_blocks(mesh, blocks, sparse: bool, n_obs: int, lo: int):
+    """A shard's blocks summed over the mesh in ONE all_reduce: U, V, the
+    dense W, v, w and the cost added; the sparse path's per-observation
+    AtB placed at rows [lo, lo + shard) of a zero-filled (n_obs, 6, 3), so
+    every rank holds every row. The blocks themselves without a mesh or on
+    one rank."""
+    if mesh is None or mesh.size == 1:
+        return blocks  # psum would return them too; the sparse AtB needs no gather
+    U, V, W, vv, ww, cost = blocks
+    if sparse:
+        full = W.new_zeros((n_obs, *W.shape[1:]))
+        full[lo:lo + W.shape[0]] = W
+        W = full
+    return psum(mesh, (U, V, W, vv, ww, cost))
 
 
 def camera_point(states: torch.Tensor, points: torch.Tensor) -> torch.Tensor:
@@ -420,9 +443,11 @@ def optimize_bundle(
     norm (pixel-equivalents). schur: 'dense' forms W (M, P, 6, 3); 'sparse'
     never does and adds the Schur fill over the same-landmark pair list,
     memory O(K x mean track length); 'auto' is dense where W and W V^-1
-    fit DENSE_W_BUDGET_BYTES, else sparse. mesh (the sharded form, item
-    11) raises NotImplementedError."""
-    no_mesh(mesh, "optimize_bundle")
+    fit DENSE_W_BUDGET_BYTES, else sparse. mesh (parallel/mesh.py): every
+    rank calls with the same problem, its observations are split over the
+    mesh's ranks and the blocks merged once an iteration (merge_blocks);
+    every rank returns the same result, a one-rank mesh the unsharded
+    bits."""
     dev = resolve_device(device, problem.pose_states)
     route = schur_route(schur, int(problem.pose_states.shape[0]), int(problem.points.shape[0]))
     f32, i64 = torch.float32, torch.int64
@@ -431,17 +456,21 @@ def optimize_bundle(
     if route == "sparse":
         pair_a, pair_b = pair_tensors(problem.obs_pose, problem.obs_point, dev)
     return _optimize_bundle_core(problem, intr, damping, pair_a, pair_b, iterations=iterations,
-                                 fixed_first=fixed_first, robust_delta=robust_delta)
+                                 fixed_first=fixed_first, robust_delta=robust_delta, mesh=mesh)
 
 
-def _optimize_bundle_core(problem, intr, damping, pair_a, pair_b, *, iterations, fixed_first, robust_delta):
+def _optimize_bundle_core(problem, intr, damping, pair_a, pair_b, *, iterations, fixed_first, robust_delta,
+                          mesh=None):
     """The LM loop over a problem on its device; pair_a not None selects
-    the sparse-W path."""
-    M, Pn = problem.pose_states.shape[0], problem.points.shape[0]
+    the sparse-W path; mesh shards the observations."""
+    M, Pn, K = problem.pose_states.shape[0], problem.points.shape[0], problem.obs_pose.shape[0]
     sparse = pair_a is not None
+    lo, hi = observation_shard(mesh, K)
+    shard = problem._replace(**{f: getattr(problem, f)[lo:hi] for f in BAProblem._fields[2:]})
 
     def raw_build(states, points):
-        return _accumulate(states, points, problem, intr, M, Pn, robust_delta, sparse)
+        blocks = _accumulate(states, points, shard, intr, M, Pn, robust_delta, sparse)
+        return merge_blocks(mesh, blocks, sparse, K, lo)
 
     if sparse:
         build = sparse_build(raw_build, problem.obs_pose, problem.obs_point)

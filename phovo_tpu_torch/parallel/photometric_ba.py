@@ -15,15 +15,17 @@ of parallel/bundle_adjustment.py, dense or sparse W.
 
 phovo_tpu runs this as XLA code with no Pallas kernel; the port runs it as
 plain torch on the device of the keyframe images (the card unless the
-caller puts them elsewhere). phovo_tpu's lax.scan over sliding windows
-(refine_photometric_windows) is a Python loop over the windows here, each
-window built and solved on the device from the device-resident keyframe
-stacks, chained through the overlap pose as the scan is. phovo_tpu pads
-shapes to reuse compiled XLA programs; the port compiles nothing and pads
-nothing.
+caller puts them elsewhere). The sliding windows (refine_photometric_windows)
+are one Python loop, each window built and solved on the device from the
+device-resident keyframe stacks, its Schur path routed by size
+(bundle_adjustment.schur_route 'auto'), chained through the overlap pose
+as phovo_tpu's scan is. phovo_tpu pads shapes to reuse compiled XLA
+programs; the port compiles nothing and pads nothing.
 
-The mesh-sharded form waits for multi-GPU work (ROADMAP.md queue A, item
-11): mesh= raises NotImplementedError.
+With a mesh (parallel/mesh.py) the keyframe images stay whole on every
+rank and the observations are sharded over its ranks, flattened, the
+blocks merged by one all_reduce a build (bundle_adjustment.merge_blocks),
+for windows and global problems alike.
 """
 
 from __future__ import annotations
@@ -154,29 +156,33 @@ def optimize_photometric_bundle(
     schur: 'dense' forms W (M, P, 6, 3); 'sparse' adds the Schur fill over
     the same-landmark pair list instead; 'auto' is dense where
     bundle_adjustment.dense_w_fits. robust_delta and robust_z_delta: the
-    per-row Huber deltas of _accumulate. mesh (item 11) raises
-    NotImplementedError."""
-    ba.no_mesh(mesh, "optimize_photometric_bundle")
+    per-row Huber deltas of _accumulate. mesh (parallel/mesh.py): every
+    rank calls with the same problem, its observations are split over the
+    mesh's ranks and the blocks merged once an iteration; every rank
+    returns the same result, a one-rank mesh the unsharded bits."""
     route = ba.schur_route(schur, int(problem.pose_states.shape[0]), int(problem.points.shape[0]))
     pair_a = pair_b = None
     if route == "sparse":
         pair_a, pair_b = ba.pair_tensors(problem.obs_pose, problem.obs_point, problem.pose_states.device)
     return _optimize_photometric_core(problem, intr, damping, pair_a, pair_b, iterations=iterations,
                                       fixed_first=fixed_first, robust_delta=robust_delta,
-                                      robust_z_delta=robust_z_delta)
+                                      robust_z_delta=robust_z_delta, mesh=mesh)
 
 
 def _optimize_photometric_core(problem, intr, damping, pair_a, pair_b, *, iterations, fixed_first, robust_delta,
-                               robust_z_delta=None):
+                               robust_z_delta=None, mesh=None):
     """The LM loop over a photometric problem; pair_a not None selects
-    the sparse-W path. Called by optimize_photometric_bundle and by each
-    window of refine_photometric_windows."""
-    M, Pn = problem.pose_states.shape[0], problem.points.shape[0]
+    the sparse-W path; mesh shards the observations."""
+    M, Pn, K = problem.pose_states.shape[0], problem.points.shape[0], problem.obs_pose.shape[0]
     sparse = pair_a is not None
+    lo, hi = ba.observation_shard(mesh, K)
+    shard = problem._replace(obs_pose=problem.obs_pose[lo:hi], obs_point=problem.obs_point[lo:hi],
+                             weights=problem.weights[lo:hi], z_weights=problem.z_weights[lo:hi])
 
     def raw_build(states, points):
-        return _accumulate(problem._replace(pose_states=states, points=points), intr, M, Pn, robust_delta, sparse,
-                           robust_z_delta)
+        blocks = _accumulate(shard._replace(pose_states=states, points=points), intr, M, Pn, robust_delta, sparse,
+                             robust_z_delta)
+        return ba.merge_blocks(mesh, blocks, sparse, K, lo)
 
     if sparse:
         build = ba.sparse_build(raw_build, problem.obs_pose, problem.obs_point)
@@ -451,7 +457,6 @@ def refine_photometric_windows(
     states0: torch.Tensor,
     sel: torch.Tensor,
     starts,
-    apply_mask,
     intr: Intrinsics,
     damping: float,
     *,
@@ -463,35 +468,34 @@ def refine_photometric_windows(
     depth_weight_scale: float = 1.0,
     occ_gate: float = np.inf,
     robust_z_delta: float | None = None,
+    mesh=None,
 ):
     """Every sliding-window photometric BA over the device-resident
     keyframe stacks kf_intensities (M, H, W, float 0..1), kf_depths (M, H,
     W, metres), on their device: window by window (phovo_tpu's lax.scan),
     each window built on the device from the CURRENT states
-    (build_window_problem_device) and refined by the dense LM loop, its
-    refined poses written back, so the next window's overlap pose is the
-    refined one. A window whose apply_mask entry is False leaves the
-    states as they are and reports no landmarks. starts and apply_mask are
-    read once on the host.
+    (build_window_problem_device) and refined by optimize_photometric_bundle
+    with schur='auto' (the sparse path where a window's dense W would not
+    fit DENSE_W_BUDGET_BYTES) over `mesh`, its refined poses written back,
+    so the next window's overlap pose is the refined one. starts is read
+    once on the host.
 
     Returns (states (M, 6), points (Nw, P, 3), ref_i (Nw, P), lm_valid
     (Nw, P) bool): each window's refined landmarks, for the map."""
     starts = [int(s) for s in torch.as_tensor(starts).tolist()]
-    apply_mask = [bool(a) for a in torch.as_tensor(apply_mask).tolist()]
     states = torch.as_tensor(states0, dtype=torch.float32, device=kf_intensities.device).clone()
     points, refs, lm_valid = [], [], []
-    for s, apply in zip(starts, apply_mask):
+    for s in starts:
         st_w = states[s:s + window].clone()
         problem, lm_v = build_window_problem_device(
             kf_intensities, kf_depths, st_w, sel, s, intr, window=window, grid=grid, photo_weight=photo_weight,
             depth_weight_scale=depth_weight_scale, occ_gate=occ_gate,
         )
-        refined, pts, _ = _optimize_photometric_core(problem, intr, damping, None, None, iterations=iterations,
-                                                     fixed_first=True, robust_delta=robust_delta,
-                                                     robust_z_delta=robust_z_delta)
-        if apply:
-            states[s:s + window] = refined
+        refined, pts, _ = optimize_photometric_bundle(problem, intr, mesh=mesh, iterations=iterations,
+                                                      damping=damping, fixed_first=True, robust_delta=robust_delta,
+                                                      schur="auto", robust_z_delta=robust_z_delta)
+        states[s:s + window] = refined
         points.append(pts)
         refs.append(problem.ref_intensity)
-        lm_valid.append(lm_v & apply)
+        lm_valid.append(lm_v)
     return states, torch.stack(points), torch.stack(refs), torch.stack(lm_valid)

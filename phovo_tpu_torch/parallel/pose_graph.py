@@ -13,8 +13,11 @@ matrix-free block-Jacobi-preconditioned conjugate gradient. phovo_tpu
 solves in XLA, not in Pallas, so no kernel of the repository is involved:
 the dense solve is torch.linalg.solve.
 
-The mesh-sharded form (edges sharded over devices, psum-merged blocks)
-waits for multi-GPU work (ROADMAP.md queue A, item 11): mesh= raises.
+With a mesh (parallel/mesh.py) the edges are sharded over all its ranks,
+flattened: each rank linearizes its edges, the dense solver all-reduces
+its (H, g, cost) blocks once a Gauss-Newton step and the CG solver its
+(M, 6) product once a Hessian application, and every rank then solves
+the same system.
 """
 
 from __future__ import annotations
@@ -26,6 +29,7 @@ import torch
 
 from phovo_tpu_torch.models.base import DEFAULT_DEVICE
 from phovo_tpu_torch.ops import se3
+from phovo_tpu_torch.parallel.mesh import psum, shard_bounds
 
 
 class PoseGraph(NamedTuple):
@@ -77,8 +81,9 @@ def _scatter(out, index, values):
     return out.index_put_(index, values, accumulate=True)
 
 
-def _dense_gn_step(states, ei, ej, z, w, damping, fixed_first):
-    """One Gauss-Newton step on the dense (6M, 6M) system."""
+def _dense_gn_step(states, ei, ej, z, w, damping, fixed_first, mesh=None):
+    """One Gauss-Newton step on the dense (6M, 6M) system; with a mesh the
+    edge shards' blocks are summed in one all_reduce."""
     M = states.shape[0]
     r, Ji, Jj, iw, jw = _linearize(states, ei, ej, z, w)
     JiT, JjT = Ji.transpose(1, 2), Jj.transpose(1, 2)
@@ -90,6 +95,7 @@ def _dense_gn_step(states, ei, ej, z, w, damping, fixed_first):
     g = states.new_zeros((M, 6))
     _scatter(g, (iw,), (JiT @ r[:, :, None])[..., 0])
     _scatter(g, (jw,), (JjT @ r[:, :, None])[..., 0])
+    H, g, cost = psum(mesh, (H, g, torch.sum(r * r)))
     Hd = H.permute(0, 2, 1, 3).reshape(6 * M, 6 * M)
     gd = g.reshape(6 * M)
     if fixed_first:
@@ -101,30 +107,31 @@ def _dense_gn_step(states, ei, ej, z, w, damping, fixed_first):
     Hd = Hd + damping * torch.eye(6 * M, dtype=states.dtype, device=states.device)
     step = torch.linalg.solve(Hd, gd)
     step = torch.where(torch.isfinite(step).all(), step, torch.zeros_like(step))
-    return states - step.reshape(M, 6), torch.sum(r * r)
+    return states - step.reshape(M, 6), cost
 
 
-def _cg_gn_step(states, ei, ej, z, w, damping, fixed_first, cg_iterations, cg_tol):
+def _cg_gn_step(states, ei, ej, z, w, damping, fixed_first, cg_iterations, cg_tol, mesh=None):
     """One Gauss-Newton step with a matrix-free preconditioned CG inner
     solve of (J^T J + damping I) step = J^T r: each CG iteration applies
     J^T J edge by edge (two 6x6 block products and a scatter-add); the
     preconditioner inverts the diagonal 6x6 blocks. The gauge (pose 0,
     fixed_first) is pinned by projection, which keeps every iterate in the
-    fixed-gauge subspace: the dense solver's solution."""
+    fixed-gauge subspace: the dense solver's solution. With a mesh the
+    edge shards' sums are all-reduced: once for (g, D, cost), then once a
+    Hessian application."""
     M = states.shape[0]
     r, Ji, Jj, iw, jw = _linearize(states, ei, ej, z, w)
     JiT, JjT = Ji.transpose(1, 2), Jj.transpose(1, 2)
-    cost = torch.sum(r * r)
 
-    def jt_apply(u):  # J^T u: (K, 6) -> (M, 6)
+    def jt_apply(u):  # this shard's J^T u: (K, 6) -> (M, 6)
         g = states.new_zeros((M, 6))
         _scatter(g, (iw,), (JiT @ u[:, :, None])[..., 0])
         return _scatter(g, (jw,), (JjT @ u[:, :, None])[..., 0])
 
-    g = jt_apply(r)
     D = states.new_zeros((M, 6, 6))
     _scatter(D, (iw,), JiT @ Ji)
     _scatter(D, (jw,), JjT @ Jj)
+    g, D, cost = psum(mesh, (jt_apply(r), D, torch.sum(r * r)))
     eye = torch.eye(6, dtype=states.dtype, device=states.device)
     D = D + damping * eye
     if fixed_first:
@@ -137,7 +144,7 @@ def _cg_gn_step(states, ei, ej, z, w, damping, fixed_first, cg_iterations, cg_to
 
     def hess_apply(v):  # (J^T J + damping I) v, the gauge row pinned
         u = (Ji @ v[iw][:, :, None])[..., 0] + (Jj @ v[jw][:, :, None])[..., 0]
-        y = jt_apply(u) + damping * v
+        y = psum(mesh, jt_apply(u)) + damping * v
         if fixed_first:
             y[0] = v[0]
         return y
@@ -195,13 +202,10 @@ def optimize_pose_graph(
     padding edges carry i = -1, so the states returned (sliced to M) are
     those of the unpadded solve up to float32 rounding in the dense solve.
 
-    mesh: the edge-sharded multi-device form is not ported (ROADMAP.md
-    queue A, item 11) and raises NotImplementedError."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "optimize_pose_graph(mesh=...): the edge-sharded multi-device "
-            "pose graph is not ported yet (ROADMAP.md queue A, item 11)"
-        )
+    mesh (parallel/mesh.py): every rank of the mesh calls with the same
+    graph; the (bucketed) edges are split over its ranks, flattened, each
+    rank's blocks summed over the mesh, and every rank returns the same
+    states. A one-rank mesh gives the unsharded bits."""
     if solver == "auto":
         solver = "dense" if graph.states.shape[0] <= 192 else "cg"
     if solver not in ("dense", "cg"):
@@ -228,12 +232,15 @@ def optimize_pose_graph(
         states = _pad(states, Mb - M, 0.0)
         ei, ej = _pad(ei, Kb - K, -1), _pad(ej, Kb - K, -1)
         z, w = _pad(z, Kb - K, 0.0), _pad(w, Kb - K, 0.0)
+    if mesh is not None and mesh.size > 1:
+        lo, hi = shard_bounds(ei.shape[0], mesh.size, mesh.flat_index)
+        ei, ej, z, w = ei[lo:hi], ej[lo:hi], z[lo:hi], w[lo:hi]
     cost = states.new_zeros(())
     for _ in range(iterations):
         if solver == "dense":
-            states, cost = _dense_gn_step(states, ei, ej, z, w, damping, fixed_first)
+            states, cost = _dense_gn_step(states, ei, ej, z, w, damping, fixed_first, mesh)
         else:
-            states, cost = _cg_gn_step(states, ei, ej, z, w, damping, fixed_first, cg_iterations, cg_tol)
+            states, cost = _cg_gn_step(states, ei, ej, z, w, damping, fixed_first, cg_iterations, cg_tol, mesh)
     return states[:M], cost
 
 

@@ -31,6 +31,7 @@ from phovo_tpu.ops.camera import TUM_DEFAULT as J_TUM
 from phovo_tpu_torch.ops import se3
 from phovo_tpu_torch.ops.camera import TUM_DEFAULT
 from phovo_tpu_torch.parallel import bundle_adjustment as TB
+from phovo_tpu_torch.parallel.mesh import make_mesh
 
 torch.set_num_threads(1)
 
@@ -359,8 +360,12 @@ def test_refusals(monkeypatch):
     _, tp = _pair("small")
     with pytest.raises(ValueError, match="schur"):
         TB.optimize_bundle(tp, TUM_DEFAULT, iterations=1, schur="bogus")
-    with pytest.raises(NotImplementedError, match="item 11"):
-        TB.optimize_bundle(tp, TUM_DEFAULT, mesh=object())
+    # a one-rank mesh (no process group) runs the unsharded code: its bits
+    one = make_mesh(1, devices=["cpu"])
+    for schur in ("dense", "sparse"):
+        got = TB.optimize_bundle(tp, TUM_DEFAULT, mesh=one, iterations=2, schur=schur)
+        ref = TB.optimize_bundle(tp, TUM_DEFAULT, iterations=2, schur=schur)
+        assert all(torch.equal(a, b) for a, b in zip(got, ref))
     problem, _, _ = TB.make_synthetic_ba(n_poses=2, n_points=8)
     assert isinstance(problem.pose_states, np.ndarray)  # host arrays: the card by default
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)

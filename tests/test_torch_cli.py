@@ -448,21 +448,22 @@ def test_export_map_without_ba_writes_no_map(data, tmp_path, capsys):
     assert "no map written" in capsys.readouterr().err and not (tmp_path / "m.ply").exists()
 
 
-@pytest.mark.parametrize("cli,argv,item", [
-    (phovo_serve, ["--devices", "2"], "item 11"),
+@pytest.mark.parametrize("devices,message", [
+    ("2", "needs 2 ranks.*world size 1"),
+    ("3", "2 streams not divisible by --devices 3"),
 ])
-def test_unported_flags_raise_naming_their_roadmap_item(data, tmp_path, cli, argv, item):
-    if cli is phovo_align:
-        rgb = sorted((data["tum"] / "rgb").iterdir())
-        dep = sorted((data["tum"] / "depth").iterdir())
-        base = [str(data["tight"]), str(rgb[0]), str(dep[0]), str(rgb[1]), str(dep[1])]
-    elif cli is phovo_serve:
-        base = ["--config", str(data["tight"]), "--dataset", str(data["raw"]), "--out-dir", str(tmp_path)]
-    else:
-        base = ["--config", str(data["tight"]), "--dataset", str(data["raw"]), "--output", str(tmp_path / "t.txt")]
-    with pytest.raises(NotImplementedError, match=f"ROADMAP.md queue A, {item}"):
-        cli.main([*base, *argv, "--device", "cpu"])
-    assert not (tmp_path / "t.txt").exists()
+def test_unported_flags_raise_naming_their_roadmap_item(data, tmp_path, capsys, devices, message):
+    """phovo-serve --devices over 2 streams in one process: 2 cards need 2
+    ranks (ValueError naming both numbers, exit 1 through main); 3 does
+    not divide the streams (phovo_tpu's message, exit 1). Nothing is
+    written."""
+    argv = ["--config", str(data["tight"]), "--dataset", str(data["raw"]), "--dataset", str(data["raw"]),
+            "--out-dir", str(tmp_path / "out"), "--devices", devices, "--device", "cpu"]
+    if devices == "2":
+        with pytest.raises(ValueError, match=message):
+            phovo_serve._main(argv)
+    assert phovo_serve.main(argv) == 1
+    assert re.search(message, capsys.readouterr().err) and not (tmp_path / "out").exists()
 
 
 @pytest.mark.parametrize("name", ["phovo_vo", "phovo_align", "phovo_serve"])

@@ -325,10 +325,15 @@ def test_finalize_exports_the_landmark_map(frames, tmp_path, scope):
 
 
 def test_unported_and_invalid_calls_raise(frames):
-    kvo = _port_kvo()
-    list(kvo.run(_tframes(frames[:3])))
-    with pytest.raises(NotImplementedError, match="item 11"):
-        kvo.finalize(mesh=object())
+    from phovo_tpu_torch.parallel.mesh import make_mesh
+
+    # finalize over a one-rank mesh (no process group): the unsharded poses
+    runs = []
+    for mesh in (make_mesh(1, devices=["cpu"]), None):
+        kvo = _port_kvo()
+        list(kvo.run(_tframes(frames[:3])))
+        runs.append([tf.pose.copy() for tf in kvo.finalize(mesh=mesh)])
+    assert all(np.array_equal(a, b) for a, b in zip(*runs))
     with pytest.raises(ValueError, match="levelmajor"):
         list(_port_kvo().run_chunked(_tframes(frames), levelmajor="on"))
     vo = PhotoconsistencyOdometryIC(PhovoConfig(**CFG), device="cpu")

@@ -31,6 +31,8 @@ Held, each tolerance beside the reading that set it:
     ATE forward, 0.85x on the loop; 0.52x and 0.69x measured).
 """
 
+from unittest import mock
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -49,6 +51,7 @@ from phovo_tpu_torch.ops import se3
 from phovo_tpu_torch.ops.camera import Intrinsics
 from phovo_tpu_torch.parallel import bundle_adjustment as TB
 from phovo_tpu_torch.parallel import photometric_ba as TP
+from phovo_tpu_torch.parallel.mesh import make_mesh
 from phovo_tpu_torch.utils import synthetic
 from phovo_tpu_torch.utils.config import PhovoConfig
 from phovo_tpu_torch.utils.trajectory import horn_align
@@ -326,9 +329,8 @@ def test_global_ba_tightens_poses():
 @pytest.mark.parametrize("robust_delta", [0.1, None])
 def test_window_loop_matches_jax_scan(room, robust_delta):
     """refine_photometric_windows, window by window on the device stacks,
-    against phovo_tpu's scanned program over the same windows, two padding
-    windows (apply False) at the end: at damping 1.0 within 1e-5, the
-    padding windows inert in both."""
+    against phovo_tpu's scanned program over the same windows, every one
+    applied: at damping 1.0 within 1e-5, the same landmarks valid."""
     jkvo, snap, _, jintr, intr = room
     I = np.stack([k.intensity for k in jkvo.keyframes]).astype(np.float32)
     D = np.stack([k.depth for k in jkvo.keyframes]).astype(np.float32)
@@ -336,21 +338,15 @@ def test_window_loop_matches_jax_scan(room, robust_delta):
     sel = np.stack([JP.select_landmark_pixels(a, b, grid=GRID) for a, b in zip(I, D)])
     starts = JP.window_starts(len(I), WINDOW)
     assert starts == TP.window_starts(len(I), WINDOW)
-    starts = np.asarray(starts + [starts[-1]] * 2, np.int32)
-    apply = np.asarray([True] * (len(starts) - 2) + [False] * 2)
     kw = dict(window=WINDOW, grid=GRID, iterations=3, robust_delta=robust_delta, occ_gate=0.3, robust_z_delta=0.02)
     ref = JP.refine_photometric_windows(jnp.asarray(I), jnp.asarray(D), jnp.asarray(states), jnp.asarray(sel),
-                                        jnp.asarray(starts), jnp.asarray(apply), jintr, jnp.float32(1.0), **kw)
+                                        jnp.asarray(np.asarray(starts, np.int32)), jnp.ones(len(starts), bool),
+                                        jintr, jnp.float32(1.0), **kw)
     got = TP.refine_photometric_windows(torch.from_numpy(I), torch.from_numpy(D), torch.from_numpy(states),
-                                        torch.from_numpy(sel), starts, apply, intr, 1.0, **kw)
+                                        torch.from_numpy(sel), starts, intr, 1.0, **kw)
     np.testing.assert_allclose(got[0].numpy(), np.asarray(ref[0]), rtol=0, atol=DAMPED_ATOL)
     assert np.abs(got[0].numpy() - states).max() > 1e-4
     np.testing.assert_array_equal(got[3].numpy(), np.asarray(ref[3]))
-    assert not got[3][-2:].any()
-    # one window alone, applied and not: the states move only where applied
-    one = TP.refine_photometric_windows(torch.from_numpy(I), torch.from_numpy(D), torch.from_numpy(states),
-                                        torch.from_numpy(sel), [2], [False], intr, 1.0, **kw)
-    assert torch.equal(one[0], torch.from_numpy(states))
 
 
 @pytest.fixture(scope="module")
@@ -373,11 +369,18 @@ REFINE_PATHS = ("window", "global", "sequential")
 
 def _refine(kvo, path, damping, iterations=3):
     """One refinement path of either package's tracker: finalize's window
-    or global scope, or finalize's pose graph then the sequential host-built
-    windows (the same float32 pass of the poses)."""
+    or global scope, or finalize's pose graph then the windows again, on
+    the sparse Schur path: phovo_tpu's sequential host-built windows, and
+    the port's one windowed loop with the dense budget at 0, so that
+    schur_route sends every window down the sparse path (the same float32
+    pass of the poses)."""
     if path == "sequential":
         kvo.finalize()
-        kvo._refine_photometric_sequential(None, iterations, WINDOW, GRID, damping, 0.1, 0.3, 0.02)
+        if isinstance(kvo, tkf.KeyframeVisualOdometry):
+            with mock.patch.object(TB, "DENSE_W_BUDGET_BYTES", 0):
+                kvo._refine_photometric(None, iterations, WINDOW, GRID, damping, 0.1, 0.3, 0.02)
+        else:
+            kvo._refine_photometric_sequential(None, iterations, WINDOW, GRID, damping, 0.1, 0.3, 0.02)
     else:
         kvo.finalize(ba_iterations=iterations, ba_window=WINDOW, ba_grid=GRID, ba_covis=3, ba_scope=path,
                      ba_damping=damping)
@@ -474,8 +477,14 @@ def test_refusals(window, monkeypatch):
     jp, tp, _ = window
     with pytest.raises(ValueError, match="schur"):
         TP.optimize_photometric_bundle(tp, INTR, iterations=1, schur="bogus")
-    with pytest.raises(NotImplementedError, match="item 11"):
-        TP.optimize_photometric_bundle(tp, INTR, mesh=object())
+    # a one-rank mesh (no process group) runs the unsharded code: its bits
+    one = make_mesh(1, devices=["cpu"])
+    for schur in ("dense", "sparse"):
+        got = TP.optimize_photometric_bundle(tp, INTR, mesh=one, iterations=2, schur=schur)
+        ref = TP.optimize_photometric_bundle(tp, INTR, iterations=2, schur=schur)
+        assert all(torch.equal(a, b) for a, b in zip(got, ref))
+    with pytest.raises(ValueError, match="world size 1"):
+        make_mesh(2)
     I, D = _render_window(np.zeros((2, 6), np.float32))
     with pytest.raises(ValueError, match="at least 2"):
         TP.build_photometric_global(I[:1], D[:1], np.zeros((1, 6)), INTR, device="cpu")

@@ -19,6 +19,7 @@ from phovo_tpu.ops import se3 as jse3
 from phovo_tpu.parallel import pose_graph as jpg
 from phovo_tpu_torch.ops import se3
 from phovo_tpu_torch.parallel import pose_graph as tpg
+from phovo_tpu_torch.parallel.mesh import make_mesh
 
 torch.set_num_threads(1)
 
@@ -111,9 +112,14 @@ def test_pose_graph_closes_a_loop_like_jax():
 
 
 def test_mesh_and_unknown_solver_raise():
+    """A one-rank mesh (no process group) runs the unsharded solve, bit for
+    bit, with either solver; an unknown solver raises."""
     _, tg, _, _ = _graphs()
-    with pytest.raises(NotImplementedError, match="item 11"):
-        tpg.optimize_pose_graph(tg, mesh=object())
+    one = make_mesh(1, devices=["cpu"])
+    for solver in ("dense", "cg"):
+        got = tpg.optimize_pose_graph(tg, mesh=one, iterations=3, solver=solver, device="cpu")
+        ref = tpg.optimize_pose_graph(tg, iterations=3, solver=solver, device="cpu")
+        assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
     with pytest.raises(ValueError, match="unknown solver"):
         tpg.optimize_pose_graph(tg, solver="lu")
     # the matrix_to_state_np twin the keyframe back end builds graphs with
