@@ -59,6 +59,7 @@ from phovo_tpu_torch.ops.fused_batch import fused_gn_level_batch
 from phovo_tpu_torch.ops.residuals import normal_equations, photometric_residual_jacobian
 from phovo_tpu_torch.ops.robust import TDIST_BURNIN, tdist_scale_update
 from phovo_tpu_torch.solvers.gauss_newton import gauss_newton_level
+from phovo_tpu_torch.utils import profiling
 from phovo_tpu_torch.utils.config import PhovoConfig
 
 
@@ -169,26 +170,27 @@ def prep_frame_analytic(
     own level gradients as rows 4 and 5, the same arrays as its target
     pack's gx and gy."""
     L = config.num_levels
-    int_p = pyr.build_pyramid(
-        intensity, L, config.blur_filter_sizes, blur_type=config.blur_type
-    )
-    dep_p = pyr.build_pyramid(depth, L)
     esm = config.gradient_at == "esm"
     out = {}
-    for level in range(L):
-        if config.max_iterations[level] <= 0:
-            continue
-        img = int_p[level]
-        scale = config.gradient_scales[level]
-        gx, gy = pyr.scharr(img, "x", scale), pyr.scharr(img, "y", scale)
-        out[level] = (
-            img.reshape(*img.shape[:-2], -1),
-            pack_geometry(
-                dep_p[level], intr.at_level(level), config.min_depth,
-                config.max_depth, (gx, gy) if esm else None,
-            ),
-            pack_target(img, gx, gy),
+    with profiling.span("phovo.prep"):
+        int_p = pyr.build_pyramid(
+            intensity, L, config.blur_filter_sizes, blur_type=config.blur_type
         )
+        dep_p = pyr.build_pyramid(depth, L)
+        for level in range(L):
+            if config.max_iterations[level] <= 0:
+                continue
+            img = int_p[level]
+            scale = config.gradient_scales[level]
+            gx, gy = pyr.scharr(img, "x", scale), pyr.scharr(img, "y", scale)
+            out[level] = (
+                img.reshape(*img.shape[:-2], -1),
+                pack_geometry(
+                    dep_p[level], intr.at_level(level), config.min_depth,
+                    config.max_depth, (gx, gy) if esm else None,
+                ),
+                pack_target(img, gx, gy),
+            )
     return out
 
 
@@ -198,15 +200,16 @@ def prep_frame_targets(intensity: torch.Tensor, config: PhovoConfig) -> dict:
     tracked against a keyframe are targets only (the reference's
     SetTargetFrame ignores depth), so they need neither depth nor a
     geometry pack."""
-    int_p = pyr.build_pyramid(
-        intensity, config.num_levels, config.blur_filter_sizes, blur_type=config.blur_type
-    )
     out = {}
-    for level, img in enumerate(int_p):
-        if config.max_iterations[level] <= 0:
-            continue
-        scale = config.gradient_scales[level]
-        out[level] = pack_target(img, pyr.scharr(img, "x", scale), pyr.scharr(img, "y", scale))
+    with profiling.span("phovo.prep"):
+        int_p = pyr.build_pyramid(
+            intensity, config.num_levels, config.blur_filter_sizes, blur_type=config.blur_type
+        )
+        for level, img in enumerate(int_p):
+            if config.max_iterations[level] <= 0:
+                continue
+            scale = config.gradient_scales[level]
+            out[level] = pack_target(img, pyr.scharr(img, "x", scale), pyr.scharr(img, "y", scale))
     return out
 
 
@@ -480,10 +483,11 @@ def align_sequence_chunk(
     as phovo_tpu's does. Returns (results over B pairs, new carry
     intensity, new carry depth), the carries already converted to
     float32."""
-    I, D = chunk_device_prep(
-        carry_intensity, carry_depth, intensities, depths, depth_scale
-    )
-    return align_sequence(I, D, intr, config, use_fused, warm_start), I[-1], D[-1]
+    with profiling.span("phovo.align"):
+        I, D = chunk_device_prep(
+            carry_intensity, carry_depth, intensities, depths, depth_scale
+        )
+        return align_sequence(I, D, intr, config, use_fused, warm_start), I[-1], D[-1]
 
 
 class PhotoconsistencyOdometryAnalytic(PhotoconsistencyOdometryBase):

@@ -56,6 +56,7 @@ from phovo_tpu_torch.ops.fused import fused_tr_level, pack_target
 from phovo_tpu_torch.ops.fused_batch import fused_tr_level_batch
 from phovo_tpu_torch.ops.residuals import residual_valid_count, residual_vector
 from phovo_tpu_torch.solvers.trust_region import residual_to_linearizer, trust_region_level
+from phovo_tpu_torch.utils import profiling
 from phovo_tpu_torch.utils.config import PhovoConfig
 
 
@@ -89,12 +90,13 @@ def align_autodiff(
     torch.func.jacfwd of the residual."""
     del target_depth
     _check_supported(config, jacobian_mode)
-    si = device_unit_intensity(source_intensity).to(torch.float32)
-    ti = device_unit_intensity(target_intensity).to(torch.float32)
     L, blur = config.num_levels, config.blur_filter_sizes
-    int0 = pyr.build_pyramid(si, L, blur, blur_type=config.blur_type)
-    dep0 = pyr.build_pyramid(source_depth.to(torch.float32), L)
-    int1 = pyr.build_pyramid(ti, L, blur, blur_type=config.blur_type)
+    with profiling.span("phovo.prep"):
+        si = device_unit_intensity(source_intensity).to(torch.float32)
+        ti = device_unit_intensity(target_intensity).to(torch.float32)
+        int0 = pyr.build_pyramid(si, L, blur, blur_type=config.blur_type)
+        dep0 = pyr.build_pyramid(source_depth.to(torch.float32), L)
+        int1 = pyr.build_pyramid(ti, L, blur, blur_type=config.blur_type)
 
     state = init_state.to(device=si.device, dtype=torch.float32)
     zero = torch.zeros((), dtype=torch.float32, device=si.device)
@@ -112,7 +114,8 @@ def align_autodiff(
                             res.num_valid, zero)
             continue
         img, scale = int1[level], config.gradient_scales[level]
-        t_all = pack_target(img, pyr.scharr(img, "x", scale), pyr.scharr(img, "y", scale))
+        with profiling.span("phovo.prep"):
+            t_all = pack_target(img, pyr.scharr(img, "x", scale), pyr.scharr(img, "y", scale))
         state, its, cost, gnorm, _, nvalid, masked = fused_tr_level(
             int0[level], dep0[level], t_all, intr.at_level(level), state,
             config.min_depth, config.max_depth,
@@ -258,11 +261,12 @@ def align_sequence_chunk_autodiff(
     """Streaming variant of align_sequence_autodiff (the carry frame stays
     on the device; see models/analytic.align_sequence_chunk). Returns
     (results over B pairs, new carry intensity, new carry depth)."""
-    I, D = chunk_device_prep(
-        carry_intensity, carry_depth, intensities, depths, depth_scale
-    )
-    res = align_sequence_autodiff(I, D, intr, config, jacobian_mode, warm_start)
-    return res, I[-1], D[-1]
+    with profiling.span("phovo.align"):
+        I, D = chunk_device_prep(
+            carry_intensity, carry_depth, intensities, depths, depth_scale
+        )
+        res = align_sequence_autodiff(I, D, intr, config, jacobian_mode, warm_start)
+        return res, I[-1], D[-1]
 
 
 class PhotoconsistencyOdometryAutodiff(PhotoconsistencyOdometryBase):

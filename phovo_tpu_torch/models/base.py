@@ -21,6 +21,7 @@ import torch
 
 from phovo_tpu_torch.ops import se3
 from phovo_tpu_torch.ops.camera import Intrinsics
+from phovo_tpu_torch.utils import profiling
 from phovo_tpu_torch.utils.config import PhovoConfig, load_config
 
 
@@ -82,12 +83,13 @@ def chunk_device_prep(carry_intensity, carry_depth, intensities, depths, depth_s
     moves only the new frames, in storage dtype (uint8 intensity, uint16
     depth counts times depth_scale); the carry frame stays on the device.
     Returns (I (B+1, H, W) float32, D (B+1, H, W) float32 metres)."""
-    if depth_scale is not None and depths.dtype != torch.float32:
-        depths = depths.to(torch.float32) * float(np.float32(depth_scale))
-    intensities = device_unit_intensity(intensities).to(torch.float32)
-    carry_f = device_unit_intensity(carry_intensity).to(torch.float32)
-    I = torch.cat([carry_f[None], intensities])
-    D = torch.cat([carry_depth.to(torch.float32)[None], depths])
+    with profiling.span("phovo.prep"):
+        if depth_scale is not None and depths.dtype != torch.float32:
+            depths = depths.to(torch.float32) * float(np.float32(depth_scale))
+        intensities = device_unit_intensity(intensities).to(torch.float32)
+        carry_f = device_unit_intensity(carry_intensity).to(torch.float32)
+        I = torch.cat([carry_f[None], intensities])
+        D = torch.cat([carry_depth.to(torch.float32)[None], depths])
     return I, D
 
 
@@ -169,10 +171,11 @@ class PhotoconsistencyOdometryBase:
         self.config = dataclasses.replace(self.config, max_depth=float(d))
 
     def _frame(self, intensity, depth):
-        return (
-            torch.as_tensor(as_float_intensity(intensity), device=self.device),
-            torch.as_tensor(depth, dtype=torch.float32, device=self.device),
-        )
+        with profiling.span("phovo.upload"):
+            return (
+                torch.as_tensor(as_float_intensity(intensity), device=self.device),
+                torch.as_tensor(depth, dtype=torch.float32, device=self.device),
+            )
 
     def set_source_frame(self, intensity, depth) -> None:
         self._source = self._frame(intensity, depth)
@@ -188,9 +191,10 @@ class PhotoconsistencyOdometryBase:
             raise RuntimeError("set_intrinsic_matrix must be called before optimize")
         if self._source is None or self._target is None:
             raise RuntimeError("source and target frames must be set before optimize")
-        self._result = self.align(
-            *self._source, *self._target, self.intrinsics, self._init_state
-        )
+        with profiling.span("phovo.align"):
+            self._result = self.align(
+                *self._source, *self._target, self.intrinsics, self._init_state
+            )
         return self._result
 
     def get_optimal_state_vector(self) -> torch.Tensor:

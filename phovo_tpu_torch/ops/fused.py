@@ -30,6 +30,7 @@ from phovo_tpu_torch.ops.residuals import (
     normal_equations,
     photometric_residual_jacobian,
 )
+from phovo_tpu_torch.utils import profiling
 
 
 def pack_geometry(
@@ -44,16 +45,17 @@ def pack_geometry(
     source_grads, the source intensity gradients of the ESM Jacobian
     (gradient_at='esm') follow as rows 4 and 5: (..., 6, H*W)."""
     H, W = source_depth.shape[-2:]
-    c = torch.arange(W, dtype=torch.float32, device=source_depth.device)
-    r = torch.arange(H, dtype=torch.float32, device=source_depth.device)
-    rr, cc = torch.meshgrid(r, c, indexing="ij")
-    px = (cc - intr.cx) * source_depth / intr.fx
-    py = (rr - intr.cy) * source_depth / intr.fy
-    valid = ((source_depth > min_depth) & (source_depth < max_depth)).to(torch.float32)
-    rows = [px, py, source_depth, valid]
-    if source_grads is not None:
-        rows += list(source_grads)
-    geom = torch.stack(rows, dim=-3)
+    with profiling.span("phovo.prep"):
+        c = torch.arange(W, dtype=torch.float32, device=source_depth.device)
+        r = torch.arange(H, dtype=torch.float32, device=source_depth.device)
+        rr, cc = torch.meshgrid(r, c, indexing="ij")
+        px = (cc - intr.cx) * source_depth / intr.fx
+        py = (rr - intr.cy) * source_depth / intr.fy
+        valid = ((source_depth > min_depth) & (source_depth < max_depth)).to(torch.float32)
+        rows = [px, py, source_depth, valid]
+        if source_grads is not None:
+            rows += list(source_grads)
+        geom = torch.stack(rows, dim=-3)
     return geom.reshape(*geom.shape[:-2], H * W)
 
 

@@ -35,6 +35,7 @@ import torch
 
 from phovo_tpu_torch.ops.camera import Intrinsics
 from phovo_tpu_torch.ops.robust import LOSSES, sqrt_weight, tdist_scale_update
+from phovo_tpu_torch.utils import profiling
 
 # Launches of the CUDA kernel in this process. The wrapper adds one per
 # launch and nowhere else, so a caller can show that its run went through
@@ -216,39 +217,40 @@ def fused_gn_level_batch(
     a tracked chunk) gives the bits of the same pack repeated B times, in
     the kernel and in the plain version; photometric, every loss and ESM."""
     global LAUNCHES, SHARED_LAUNCHES, BI_LAUNCHES
-    if i0.device.type == "cpu":
-        return fused_gn_level_batch_reference(
-            i0, geom, t_all, intr, init_states, max_iterations,
-            min_gradient_norm, lambda_step, H=H, W=W, sampling=sampling,
-            robust_loss=robust_loss, robust_delta=robust_delta, esm=esm,
-            robust_scale=robust_scale, tdist_burnin=tdist_burnin,
-            depth_gains=depth_gains,
-        )
-    shared = _check_inputs(i0, geom, t_all, init_states, H, W, sampling, esm, robust_loss, robust_scale,
-                           depth_gains)
-    if i0.device.type != "cuda":
-        raise ValueError(f"no level kernel for device {i0.device}")
+    with profiling.span("phovo.level"):
+        if i0.device.type == "cpu":
+            return fused_gn_level_batch_reference(
+                i0, geom, t_all, intr, init_states, max_iterations,
+                min_gradient_norm, lambda_step, H=H, W=W, sampling=sampling,
+                robust_loss=robust_loss, robust_delta=robust_delta, esm=esm,
+                robust_scale=robust_scale, tdist_burnin=tdist_burnin,
+                depth_gains=depth_gains,
+            )
+        shared = _check_inputs(i0, geom, t_all, init_states, H, W, sampling, esm, robust_loss, robust_scale,
+                               depth_gains)
+        if i0.device.type != "cuda":
+            raise ValueError(f"no level kernel for device {i0.device}")
 
-    from phovo_tpu_torch.ops import _build
+        from phovo_tpu_torch.ops import _build
 
-    lib = _build.library()
-    with torch.cuda.device(i0.device):
-        args, (states, diag, _) = _gn_launch_args(
-            i0, geom, t_all, intr, init_states, max_iterations, min_gradient_norm,
-            lambda_step, H=H, W=W, shared=shared, sampling=sampling, robust_loss=robust_loss,
-            robust_delta=robust_delta, esm=esm, robust_scale=robust_scale,
-            tdist_burnin=tdist_burnin, depth_gains=depth_gains,
-            stream=torch.cuda.current_stream(i0.device).cuda_stream,
-        )
-        if t_all.shape[0]:
-            _raise_on_launch_error("fused_gn_batch", lib.phovo_fused_gn_level_batch(*args), t_all.shape[0], H, W)
-            LAUNCHES += 1
-            SHARED_LAUNCHES += shared
-            BI_LAUNCHES += depth_gains is not None
-    # one contiguous (B,) row per diagnostic: the sigma out goes back in
-    # as the next level's robust_scale
-    cols = diag.t().contiguous()
-    return LevelBatchResult(states, cols[0].to(torch.int32), *cols[1:])
+        lib = _build.library()
+        with torch.cuda.device(i0.device):
+            args, (states, diag, _) = _gn_launch_args(
+                i0, geom, t_all, intr, init_states, max_iterations, min_gradient_norm,
+                lambda_step, H=H, W=W, shared=shared, sampling=sampling, robust_loss=robust_loss,
+                robust_delta=robust_delta, esm=esm, robust_scale=robust_scale,
+                tdist_burnin=tdist_burnin, depth_gains=depth_gains,
+                stream=torch.cuda.current_stream(i0.device).cuda_stream,
+            )
+            if t_all.shape[0]:
+                _raise_on_launch_error("fused_gn_batch", lib.phovo_fused_gn_level_batch(*args), t_all.shape[0], H, W)
+                LAUNCHES += 1
+                SHARED_LAUNCHES += shared
+                BI_LAUNCHES += depth_gains is not None
+        # one contiguous (B,) row per diagnostic: the sigma out goes back in
+        # as the next level's robust_scale
+        cols = diag.t().contiguous()
+        return LevelBatchResult(states, cols[0].to(torch.int32), *cols[1:])
 
 
 def _raise_on_launch_error(kernel: str, err: int, B: int, H: int, W: int) -> None:
@@ -619,33 +621,34 @@ def fused_tr_level_batch(
     from t_all: keyframe tracking) gives the bits of the same pack repeated
     B times."""
     global TR_LAUNCHES, TR_SHARED_LAUNCHES
-    if i0.device.type == "cpu":
-        return fused_tr_level_batch_reference(
-            i0, geom, t_all, intr, init_states, opts, H=H, W=W, sampling=sampling,
-            robust_loss=robust_loss, robust_delta=robust_delta,
-        )
-    _check_tr_variant(geom, t_all, robust_loss)
-    shared = _check_inputs(i0, geom, t_all, init_states, H, W, sampling, robust_loss=robust_loss)
-    if i0.device.type != "cuda":
-        raise ValueError(f"no level kernel for device {i0.device}")
+    with profiling.span("phovo.level"):
+        if i0.device.type == "cpu":
+            return fused_tr_level_batch_reference(
+                i0, geom, t_all, intr, init_states, opts, H=H, W=W, sampling=sampling,
+                robust_loss=robust_loss, robust_delta=robust_delta,
+            )
+        _check_tr_variant(geom, t_all, robust_loss)
+        shared = _check_inputs(i0, geom, t_all, init_states, H, W, sampling, robust_loss=robust_loss)
+        if i0.device.type != "cuda":
+            raise ValueError(f"no level kernel for device {i0.device}")
 
-    from phovo_tpu_torch.ops import _build
+        from phovo_tpu_torch.ops import _build
 
-    lib = _build.library()
-    with torch.cuda.device(i0.device):
-        args, (states, diag) = _tr_launch_args(
-            i0, geom, t_all, intr, init_states, opts, H=H, W=W, shared=shared,
-            sampling=sampling, robust_loss=robust_loss, robust_delta=robust_delta,
-            stream=torch.cuda.current_stream(i0.device).cuda_stream,
+        lib = _build.library()
+        with torch.cuda.device(i0.device):
+            args, (states, diag) = _tr_launch_args(
+                i0, geom, t_all, intr, init_states, opts, H=H, W=W, shared=shared,
+                sampling=sampling, robust_loss=robust_loss, robust_delta=robust_delta,
+                stream=torch.cuda.current_stream(i0.device).cuda_stream,
+            )
+            if t_all.shape[0]:
+                _raise_on_launch_error("fused_tr_batch", lib.phovo_fused_tr_level_batch(*args), t_all.shape[0], H, W)
+                TR_LAUNCHES += 1
+                TR_SHARED_LAUNCHES += shared
+        return TRLevelBatchResult(
+            states, diag[:, 0].to(torch.int32), diag[:, 2], diag[:, 1],
+            diag[:, 4], diag[:, 3], diag[:, 5],
         )
-        if t_all.shape[0]:
-            _raise_on_launch_error("fused_tr_batch", lib.phovo_fused_tr_level_batch(*args), t_all.shape[0], H, W)
-            TR_LAUNCHES += 1
-            TR_SHARED_LAUNCHES += shared
-    return TRLevelBatchResult(
-        states, diag[:, 0].to(torch.int32), diag[:, 2], diag[:, 1],
-        diag[:, 4], diag[:, 3], diag[:, 5],
-    )
 
 
 def _tr_launch_args(i0, geom, t_all, intr, init_states, opts, *, H, W,

@@ -4,8 +4,10 @@ phovo_tpu/utils/profiling.py).
   - Stopwatch: accumulating host wall clock; stop(*tensors) first waits
     for the CUDA devices those tensors live on (the counterpart of
     jax.block_until_ready), so an interval covers their device work;
-  - timer(label): a labelled wall-clock context manager that, with sync,
-    waits for every CUDA device at its end;
+  - span(name): the program's own spans (phovo.upload, phovo.align,
+    phovo.prep, phovo.level): a torch.profiler annotation while a
+    profiler runs, so they land in its trace on its clock beside the
+    kernels they launched, and one shared null context otherwise;
   - trace(log_dir): a torch.profiler window (with the card's activity
     where there is a card) exported as a Chrome trace into log_dir, and
     trace_summary of it: kernel launches, device-busy and wall ms;
@@ -65,17 +67,18 @@ class Stopwatch:
         return self.total / max(self.count, 1)
 
 
-@contextlib.contextmanager
-def timer(label: str, *, sync: bool = True, out=print):
-    """with timer("align"): ... prints '<label>: X ms' on exit. With sync,
-    and once CUDA is initialised, the block's end waits for every queued
-    kernel of the current device, so the time covers the device work the
-    block enqueued."""
-    t0 = time.perf_counter()
-    yield
-    if sync and torch.cuda.is_initialized():
-        torch.cuda.synchronize()
-    out(f"{label}: {(time.perf_counter() - t0) * 1e3:.3f} ms")
+_NO_SPAN = contextlib.nullcontext()
+
+
+def span(name: str):
+    """with span("phovo.prep"): ... marks the block in the trace of the
+    torch profiler that runs (profiling.trace, or any other window), as a
+    user annotation named `name`; a span inside another on the same thread
+    is its child. With no profiler running it returns one shared null
+    context: no allocation and no clock read."""
+    if torch.autograd._profiler_enabled():
+        return torch.profiler.record_function(name)
+    return _NO_SPAN
 
 
 @dataclasses.dataclass

@@ -2,8 +2,8 @@
 utils/profiling.py) against phovo_tpu's, on the CPU: alignment_diff
 equal to phovo_tpu's; save_image's PNG (zlib and struct, no cv2) decoding
 to the pixels of the PNG phovo_tpu writes with cv2, for uint8 and float
-input; side_by_side equal; the Stopwatch and timer; a profiler trace
-written and summarized.
+input; side_by_side equal; the Stopwatch; a profiler trace written and
+summarized.
 """
 
 import struct
@@ -85,17 +85,11 @@ def test_side_by_side_matches_jax(pair):
     np.testing.assert_array_equal(viz.side_by_side(I0, I1, pad=2), jviz.side_by_side(I0, I1, pad=2))
 
 
-def test_stopwatch_and_timer(capsys):
+def test_stopwatch_and_timer():
     sw = profiling.Stopwatch()
     sw.start()
     dt = sw.stop(torch.zeros(3), (torch.ones(2), {"a": torch.zeros(1)}))
     assert dt >= 0 and sw.count == 1 and sw.mean == sw.total == dt
-    with profiling.timer("x", sync=False):
-        pass
-    with profiling.timer("y"):
-        pass
-    out = capsys.readouterr().out
-    assert "x:" in out and "y:" in out and " ms" in out
 
 
 def test_trace_writes_a_chrome_trace_and_summarizes_it(tmp_path):
