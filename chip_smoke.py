@@ -177,6 +177,14 @@ Phases, each of which raises on failure (exit code 1, no result line):
      device-busy and wall ms of one serving step (align_sequences_multi, 8
      streams) and of one LM iteration of finalize's photometric bundle
      adjustment (phase 4g's global keyframes)
+ 7i. K-PREP (csrc/prep_levels.cu) on the main paths' chunk of 257 VGA
+     frames (a float32 carry, then uint8 intensity and uint16 depth
+     counts) with the ceres preset (five levels) and the analytic preset
+     (levels 2-4): its packs and carry equal to the torch chain's, one
+     launch a call, its time beside its bound (bytes once at 3.35 TB/s)
+     and the torch chain's; then, under a profiler window, the kernel
+     launches of a chunk of each backend and of one object-API ceres pair,
+     with K-PREP's launches and the torch chain's calls
 Each of the paths of phases 4, 4b, 4c, 4d, 4e, 4f (each CLI run), 4g (each
 CLI run), 4h (each trace), 4j (each form on each rank), 5, 6, 6b, 6d, 6e and
 6f runs with the launch
@@ -1420,7 +1428,7 @@ def phase_ic_api(I8, D16, card):
     config_only_level_0_analytic. Returns (K-IC launches of the per-pair
     run, largest state difference)."""
     from phovo_tpu_torch.models import ic
-    from phovo_tpu_torch.models.base import device_unit_intensity
+    from phovo_tpu_torch.ops.prep import device_unit_intensity
     from phovo_tpu_torch.ops import ic as IC
     from phovo_tpu_torch.ops import ic_batch as ICB
     from phovo_tpu_torch.ops import pyramid as pyr
@@ -1752,7 +1760,7 @@ def phase_bi_api(fb, I8, D16, card):
     of config_only_level_0_analytic. Returns (launches of the per-pair
     run, largest state difference)."""
     from phovo_tpu_torch.models import biobjective
-    from phovo_tpu_torch.models.base import device_unit_intensity
+    from phovo_tpu_torch.ops.prep import device_unit_intensity
     from phovo_tpu_torch.ops import fused as fused_ops
     from phovo_tpu_torch.ops import pyramid as pyr
     from phovo_tpu_torch.ops.camera import TUM_FR1
@@ -3631,6 +3639,88 @@ def phase_profiles(dev, I8, D16, trackers, snaps, card):
     return rows
 
 
+def prep_bytes(packs, *tensors) -> int:
+    """Bytes K-PREP reads and writes once: the given tensors and every
+    pack."""
+    return nbytes(*tensors) + sum(nbytes(*p) for p in packs.values())
+
+
+def phase_prep(I8, D16, dev, card):
+    """Phase 7i: K-PREP against the torch chain on the main paths' chunk,
+    and the launches of the main paths. Returns the record's fields."""
+    from phovo_tpu_torch.models import analytic, autodiff
+    from phovo_tpu_torch.ops import _build
+    from phovo_tpu_torch.ops import prep
+    from phovo_tpu_torch.ops.camera import TUM_FR1
+    from phovo_tpu_torch.utils.config import config_from_dict
+
+    ci = prep.device_unit_intensity(torch.from_numpy(I8[0]).to(dev))
+    cd = torch.from_numpy(D16[0]).to(dev).to(torch.float32) * float(np.float32(DEPTH_SCALE))
+    Ii, Dd = torch.from_numpy(I8[1:]).to(dev), torch.from_numpy(D16[1:]).to(dev)
+    n = Ii.shape[0]
+    cfg_tr, cfg_an = config_from_dict(CERES_PRESET), config_from_dict(ANALYTIC_PRESET)
+    rows = {}
+    for name, cfg in (("ceres", cfg_tr), ("analytic", cfg_an)):
+        def kernel():
+            return prep.prep_chunk(ci, cd, Ii, Dd, DEPTH_SCALE, TUM_FR1, cfg)
+
+        def plain():
+            I, D = prep.chunk_device_prep(ci, cd, Ii, Dd, DEPTH_SCALE)
+            return prep.prep_levels_torch(I, D, TUM_FR1, cfg), I[-1], D[-1]
+
+        before = prep.PREP_LAUNCHES
+        (packs, kci, kcd), (full, pci, pcd) = kernel(), plain()
+        torch.cuda.synchronize()
+        check(prep.PREP_LAUNCHES == before + 1, f"K-PREP {name}: not one launch a call")
+        for level, (i0, geom, t_all) in packs.items():
+            p0, pg, pt = full[level]
+            check(torch.equal(i0, p0[:-1]) and torch.equal(geom, pg[:-1]) and torch.equal(t_all, pt[1:]),
+                  f"K-PREP {name}: level {level}'s packs differ from the torch chain's")
+        check(torch.equal(kci, pci) and torch.equal(kcd, pcd), f"K-PREP {name}: the carry differs")
+        p1 = cuda_ms(plain, 3)
+        k1 = cuda_ms(kernel, REPEATS)
+        k2 = cuda_ms(kernel, REPEATS)
+        p2 = cuda_ms(plain, 3)
+        k, p = (k1 + k2) / 2, (p1 + p2) / 2
+        least = bound(prep_bytes(packs, ci, cd, Ii, Dd, kci, kcd), 0.0)
+        print(f"K-PREP {name} chunk ({n + 1} VGA frames, levels {sorted(packs)}): packs and carry equal to the "
+              f"torch chain's; kernel {k:.4f} ms ({k1:.4f}, {k2:.4f}), {k / n:.5f} ms a frame; bound "
+              f"{least[0]:.4f} ms ({least[1]}, {100 * least[0] / k:.1f}% of it); torch chain {p:.4f} ms "
+              f"({p1:.4f}, {p2:.4f}), {p / n:.5f} ms a frame [{card}]")
+        rows[name] = {"ms": k, "plain_ms": p, "bound_ms": least[0], "bound_by": least[1]}
+        del packs, full
+
+    # the main paths' launches under a profiler window, K-PREP's and the
+    # torch chain's counts beside them
+    logs = _build.BUILD_DIR / "profiles"
+    vo = autodiff.PhotoconsistencyOdometryAutodiff(cfg_tr, device=dev)
+    vo.set_intrinsic_matrix([[TUM_FR1.fx, 0, TUM_FR1.cx], [0, TUM_FR1.fy, TUM_FR1.cy], [0, 0, 1]])
+    depth = [D16[k].astype(np.float32) * np.float32(DEPTH_SCALE) for k in range(2)]
+
+    def live_pair():
+        vo.set_source_frame(I8[0], depth[0])
+        vo.set_target_frame(I8[1], depth[1])
+        vo.set_initial_state_vector(np.zeros(6))
+        return vo.optimize().state.cpu()
+
+    paths = {
+        "analytic chunk": lambda: analytic.align_sequence_chunk(ci, cd, Ii, Dd, TUM_FR1, cfg_an,
+                                                                depth_scale=DEPTH_SCALE)[0].state.cpu(),
+        "ceres chunk": lambda: autodiff.align_sequence_chunk_autodiff(ci, cd, Ii, Dd, TUM_FR1, cfg_tr,
+                                                                      depth_scale=DEPTH_SCALE)[0].state.cpu(),
+        "ceres object-API pair": live_pair,
+    }
+    launches = {}
+    for name, fn in paths.items():
+        prep.PREP_LAUNCHES = prep.PREP_TORCH_CALLS = 0
+        s = profiled(name, fn, card, logs / name.replace(" ", "_"))
+        counts = (prep.PREP_LAUNCHES, prep.PREP_TORCH_CALLS)
+        print(f"K-PREP {name}: K-PREP launches {counts[0]}, torch chain calls {counts[1]} over two calls")
+        check(counts == (2, 0), f"{name}: prep did not run as one K-PREP launch a call")
+        launches[name] = {"kernel_launches": s["kernel_launches"], "frames": n if "chunk" in name else 1}
+    return {"by_chunk": rows, "main_path_launches": launches}
+
+
 # phase 4j: the mesh forms (parallel/mesh.py) on the one card: one rank in
 # an NCCL group in this process, then two ranks sharing the card over gloo
 # (NCCL refuses two ranks on one device), spawned, the library built first.
@@ -4141,7 +4231,7 @@ def main() -> int:
           f"max|state - zero-init state| {float((warm.state - lm.state).abs().max()):.3e}")
     check(warm_launches == tr_active * N_API_PAIRS, "the warm chain did not launch once per level per pair")
     check(bool(torch.isfinite(warm.state).all()), "non-finite warm-start states")
-    with mock.patch.object(fused_ops, "fused_tr_level_batch", fb.fused_tr_level_batch_reference):
+    with mock.patch.object(autodiff, "fused_tr_level_batch", fb.fused_tr_level_batch_reference):
         warm_plain = autodiff.align_sequence_autodiff(Iapi, Dapi, TUM_FR1, cfg_tr, warm_start=True)
     check(fb.TR_LAUNCHES == warm_launches, "the plain warm run launched the kernel")
     err, _ = compare_tr_results(
@@ -4297,6 +4387,9 @@ def main() -> int:
     # 7h. launches and host share of a serving step and an LM iteration
     stamp("7h. profiles")
     phase_profiles(dev, I8, D16, ba_trackers, ba_snaps, card)
+    # 7i. K-PREP against the torch chain, and the main paths' launches
+    stamp("7i. K-PREP")
+    prep_rec = phase_prep(I8, D16, dev, card)
     stamp("done")
 
     gn_bound, tr_bound = bound(gn_bytes, gn_flops), bound(tr_bytes, tr_flops)
@@ -4428,12 +4521,24 @@ def main() -> int:
             "library_ms": None,
             "cluster": level_clusters(an_levels),
         },
+        {
+            "name": "prep_levels",
+            "route": "cuda",
+            "source": "phovo_tpu_torch/csrc/prep_levels.cu",
+            "replaces": None,
+            "launches": 1,
+            "max_abs_err": 0.0,
+            **prep_rec["by_chunk"]["ceres"],
+            "library_ms": None,
+            "by_chunk": prep_rec["by_chunk"],
+            "main_path_launches": prep_rec["main_path_launches"],
+        },
     ]}
     # each kernel's launches under each CLI run that launched it
     counters = {"fused_gn_level_batch": "K-GN", "fused_tr_level_batch": "K-TR", "fused_lin": "K-LIN",
                 "ic_precompute": "K-ICpre", "ic_gn_level_batch": "K-IC", "fused_gn_level_batch_bi": "K-GN",
                 "fused_gn_level_batch_shared": "K-GN shared", "fused_tr_level_batch_shared": "K-TR shared",
-                "fused_gn_level_multi": None}
+                "fused_gn_level_multi": None, "prep_levels": None}
     for entry in record["kernels"]:
         key = counters[entry["name"]]
         bi = entry["name"].endswith("_bi")

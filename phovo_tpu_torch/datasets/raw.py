@@ -11,7 +11,7 @@ decoding,
     <out>/depth_timestamps.f64.npy   (n,) float64
 
 The uint8 intensity and uint16 depth go to the card in their storage
-dtypes and are converted there (models/base.py::chunk_device_prep). This
+dtypes and are converted there (ops/prep.py::chunk_device_prep). This
 is how recorded frames reach the machine with the card, which has no cv2:
 convert where cv2 or the libpng loader runs, copy the directory, replay.
 """

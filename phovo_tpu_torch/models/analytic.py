@@ -40,8 +40,6 @@ from phovo_tpu_torch.models.base import (
     DEFAULT_DEVICE,
     AlignmentResult,
     PhotoconsistencyOdometryBase,
-    chunk_device_prep,
-    device_unit_intensity,
     prepped_chain,
     sequence_scan,
     stack_levels,
@@ -52,10 +50,12 @@ from phovo_tpu_torch.ops.fused import (
     fused_gn_level,
     fused_gn_level_multi_packs,
     fused_gn_level_packs,
-    pack_geometry,
     pack_target,
 )
 from phovo_tpu_torch.ops.fused_batch import fused_gn_level_batch
+from phovo_tpu_torch.ops.prep import chunk_device_prep, device_unit_intensity, prep_chunk
+from phovo_tpu_torch.ops.prep import prep_frames as prep_frame_analytic
+from phovo_tpu_torch.ops.prep import prep_targets as prep_frame_targets
 from phovo_tpu_torch.ops.residuals import normal_equations, photometric_residual_jacobian
 from phovo_tpu_torch.ops.robust import TDIST_BURNIN, tdist_scale_update
 from phovo_tpu_torch.solvers.gauss_newton import gauss_newton_level
@@ -158,61 +158,6 @@ def align_analytic(
     return _coarse_to_fine(run_level, state, config)
 
 
-def prep_frame_analytic(
-    intensity: torch.Tensor,  # (..., H, W) float32 0..1
-    depth: torch.Tensor,  # (..., H, W) float32 metres
-    intr: Intrinsics,
-    config: PhovoConfig,
-) -> dict:
-    """Per-frame packs for every ACTIVE pyramid level: level -> (i0
-    (..., H*W), geom (..., 4 | 6, H*W), t_all (..., 3, H, W)); leading dims
-    are frames. With gradient_at='esm' the geometry carries the frame's
-    own level gradients as rows 4 and 5, the same arrays as its target
-    pack's gx and gy."""
-    L = config.num_levels
-    esm = config.gradient_at == "esm"
-    out = {}
-    with profiling.span("phovo.prep"):
-        int_p = pyr.build_pyramid(
-            intensity, L, config.blur_filter_sizes, blur_type=config.blur_type
-        )
-        dep_p = pyr.build_pyramid(depth, L)
-        for level in range(L):
-            if config.max_iterations[level] <= 0:
-                continue
-            img = int_p[level]
-            scale = config.gradient_scales[level]
-            gx, gy = pyr.scharr(img, "x", scale), pyr.scharr(img, "y", scale)
-            out[level] = (
-                img.reshape(*img.shape[:-2], -1),
-                pack_geometry(
-                    dep_p[level], intr.at_level(level), config.min_depth,
-                    config.max_depth, (gx, gy) if esm else None,
-                ),
-                pack_target(img, gx, gy),
-            )
-    return out
-
-
-def prep_frame_targets(intensity: torch.Tensor, config: PhovoConfig) -> dict:
-    """Target packs only, for every ACTIVE level: level -> t_all (..., 3, H,
-    W), the same arrays as prep_frame_analytic's third member. Frames
-    tracked against a keyframe are targets only (the reference's
-    SetTargetFrame ignores depth), so they need neither depth nor a
-    geometry pack."""
-    out = {}
-    with profiling.span("phovo.prep"):
-        int_p = pyr.build_pyramid(
-            intensity, config.num_levels, config.blur_filter_sizes, blur_type=config.blur_type
-        )
-        for level, img in enumerate(int_p):
-            if config.max_iterations[level] <= 0:
-                continue
-            scale = config.gradient_scales[level]
-            out[level] = pack_target(img, pyr.scharr(img, "x", scale), pyr.scharr(img, "y", scale))
-    return out
-
-
 def prep_keyframe(
     intensity: torch.Tensor,  # (H, W) uint8 or float32 0..1
     depth: torch.Tensor,  # (H, W) float32 metres
@@ -222,8 +167,7 @@ def prep_keyframe(
     """The source packs of ONE keyframe, computed once at promotion and
     shared by every tracked chunk until the next: level -> (i0 (1, H*W),
     geom (1, 4 | 6, H*W)), the shared-source layout of the level kernels."""
-    i = device_unit_intensity(intensity).to(torch.float32)
-    full = prep_frame_analytic(i[None], depth.to(torch.float32)[None], intr, config)
+    full = prep_frame_analytic(intensity[None], depth[None], intr, config)
     return {level: (i0, geom) for level, (i0, geom, _) in full.items()}
 
 
@@ -303,7 +247,6 @@ def track_chunk_levelmajor(
     """Track a chunk of B frames against ONE keyframe, level-major
     (phovo_tpu/models/analytic.py::track_chunk_levelmajor): the frames
     are prepped as targets only, then track_pairs_levelmajor."""
-    intensities = device_unit_intensity(intensities).to(torch.float32)
     tgt = prep_frame_targets(intensities, config)
     return track_pairs_levelmajor(
         kf_prep, tgt, tuple(intensities.shape[1:]), intr, config, init_states
@@ -381,8 +324,7 @@ def align_sequence_prepped(
     computed once, in one batched pass; pair k aligns frame k to frame k+1
     from the state pair k-1 ended at (pair 0 from zero). Chains from zero
     run level-major (align_sequence_levelmajor)."""
-    intensities = device_unit_intensity(intensities).to(torch.float32)
-    prep = prep_frame_analytic(intensities, depths.to(torch.float32), intr, config)
+    prep = prep_frame_analytic(intensities, depths, intr, config)
     shape = tuple(intensities.shape[1:])
     return prepped_chain(
         prep, intensities.shape[0] - 1,
@@ -432,8 +374,7 @@ def align_sequence_levelmajor(
 ) -> AlignmentResult:
     """align_sequence ordered level-major: each frame prepped once, pair k
     aligns frame k (source) to frame k+1 (target)."""
-    intensities = device_unit_intensity(intensities).to(torch.float32)
-    prep = prep_frame_analytic(intensities, depths.to(torch.float32), intr, config)
+    prep = prep_frame_analytic(intensities, depths, intr, config)
     prep_pairs = {
         level: (i0[:-1], geom[:-1], t_all[1:])
         for level, (i0, geom, t_all) in prep.items()
@@ -479,11 +420,16 @@ def align_sequence_chunk(
     """Streaming variant of align_sequence for the chunked VO pipeline:
     the carry frame stays on the device and the chunk is prepended there,
     so per chunk the host moves only the new frames in storage dtype.
+    From zero on the level kernel's route the pairs' packs come straight
+    from the carry and the storage-dtype frames (ops/prep.prep_chunk).
     warm_start chains the chunk's pairs; its first pair starts from zero,
     as phovo_tpu's does. Returns (results over B pairs, new carry
     intensity, new carry depth), the carries already converted to
     float32."""
     with profiling.span("phovo.align"):
+        if not warm_start and _fused_route(config, use_fused):
+            packs, ci, cd = prep_chunk(carry_intensity, carry_depth, intensities, depths, depth_scale, intr, config)
+            return align_pairs_levelmajor(packs, tuple(intensities.shape[1:]), intr, config), ci, cd
         I, D = chunk_device_prep(
             carry_intensity, carry_depth, intensities, depths, depth_scale
         )

@@ -13,6 +13,9 @@ Routing follows phovo_tpu:
   * gradient_at is not read: the prep packs the 4-row geometry of the
     warped-point gradient whatever it says (phovo_tpu forces 'esm' to
     'warped' for the same prep, autodiff.py:220-223);
+  * every route but jacfwd takes its packs from the prep layer
+    (ops/prep.py: one K-PREP launch on the card for a pair, a chunk or a
+    sequence);
   * zero-init sequences run level-major, all pairs of a chunk in one
     launch per level; warm_start runs the pairs as a serial chain of
     align_autodiff calls (each pair starts where the last one ended);
@@ -40,20 +43,24 @@ import dataclasses
 
 import torch
 
-from phovo_tpu_torch.models.analytic import prep_frame_analytic, prep_frame_targets
 from phovo_tpu_torch.models.base import (
     DEFAULT_DEVICE,
     AlignmentResult,
     PhotoconsistencyOdometryBase,
-    chunk_device_prep,
-    device_unit_intensity,
     sequence_scan,
     stack_levels,
 )
 from phovo_tpu_torch.ops import pyramid as pyr
 from phovo_tpu_torch.ops.camera import Intrinsics
-from phovo_tpu_torch.ops.fused import fused_tr_level, pack_target
 from phovo_tpu_torch.ops.fused_batch import fused_tr_level_batch
+from phovo_tpu_torch.ops.prep import (
+    chunk_device_prep,
+    device_unit_intensity,
+    prep_chunk,
+    prep_frames,
+    prep_pair,
+    prep_targets,
+)
 from phovo_tpu_torch.ops.residuals import residual_valid_count, residual_vector
 from phovo_tpu_torch.solvers.trust_region import residual_to_linearizer, trust_region_level
 from phovo_tpu_torch.utils import profiling
@@ -85,11 +92,23 @@ def align_autodiff(
     jacobian_mode: str = "linearizer",
 ) -> AlignmentResult:
     """Align one pair coarse to fine, on the device the tensors live on:
-    one trust-region kernel launch per active level (B = 1), or with
-    jacobian_mode='jacfwd' the exact trust-region loop over
-    torch.func.jacfwd of the residual."""
+    the pair's packs of every active level at once (ops/prep.prep_pair,
+    one K-PREP launch on the card), then one trust-region kernel launch
+    per active level (B = 1); or with jacobian_mode='jacfwd' the exact
+    trust-region loop over torch.func.jacfwd of the residual."""
     del target_depth
     _check_supported(config, jacobian_mode)
+    if jacobian_mode == "jacfwd":
+        return _align_jacfwd(source_intensity, source_depth, target_intensity, intr, init_state, config)
+    packs = prep_pair(source_intensity, source_depth, target_intensity, intr, _prep_config(config))
+    state = init_state.to(device=source_intensity.device, dtype=torch.float32).reshape(1, 6)
+    res = _tr_pairs_levelmajor(packs, tuple(source_intensity.shape[-2:]), intr, config, state)
+    return AlignmentResult(*(x[0] for x in res))
+
+
+def _align_jacfwd(source_intensity, source_depth, target_intensity, intr, init_state, config) -> AlignmentResult:
+    """align_autodiff's jacfwd mode: each active level through the exact
+    trust-region loop over torch.func.jacfwd of the residual."""
     L, blur = config.num_levels, config.blur_filter_sizes
     with profiling.span("phovo.prep"):
         si = device_unit_intensity(source_intensity).to(torch.float32)
@@ -104,25 +123,13 @@ def align_autodiff(
     for level in range(L - 1, -1, -1):
         if config.max_iterations[level] <= 0:
             continue
-        if jacobian_mode == "jacfwd":
-            res = trust_region_level(
-                _jacfwd_linearizer(int0[level], dep0[level], int1[level], intr.at_level(level), config),
-                state, config.trust_region_options(level),
-            )
-            state = res.state
-            diags[level] = (torch.tensor(float(res.iterations), device=si.device), res.gradient_norm, res.cost,
-                            res.num_valid, zero)
-            continue
-        img, scale = int1[level], config.gradient_scales[level]
-        with profiling.span("phovo.prep"):
-            t_all = pack_target(img, pyr.scharr(img, "x", scale), pyr.scharr(img, "y", scale))
-        state, its, cost, gnorm, _, nvalid, masked = fused_tr_level(
-            int0[level], dep0[level], t_all, intr.at_level(level), state,
-            config.min_depth, config.max_depth,
-            config.trust_region_options(level), sampling="bilinear",
-            robust_loss=config.robust_loss, robust_delta=config.robust_delta,
+        res = trust_region_level(
+            _jacfwd_linearizer(int0[level], dep0[level], int1[level], intr.at_level(level), config),
+            state, config.trust_region_options(level),
         )
-        diags[level] = (its.to(torch.float32), gnorm, cost, nvalid, masked)
+        state = res.state
+        diags[level] = (torch.tensor(float(res.iterations), device=si.device), res.gradient_norm, res.cost,
+                        res.num_valid, zero)
     return stack_levels(state, diags)
 
 
@@ -143,31 +150,29 @@ def _jacfwd_linearizer(i0, d0, i1, intr, config: PhovoConfig):
     )
 
 
-def align_sequence_autodiff_levelmajor(
-    intensities: torch.Tensor,  # (B+1, H, W) uint8 or float32
-    depths: torch.Tensor,  # (B+1, H, W) metres
-    intr: Intrinsics,
-    config: PhovoConfig,
-) -> AlignmentResult:
-    """The zero-init sequence ordered level-major: each frame prepped once,
-    then all B pairs' coarsest level in one kernel launch, then the next
-    level, each pair with its own radius and termination."""
-    intensities = device_unit_intensity(intensities).to(torch.float32)
-    # the 4-row geometry of the warped-point gradient whatever gradient_at
-    # says (an 'esm' config would pack six rows)
-    prep_cfg = dataclasses.replace(config, gradient_at="warped")
-    prep = prep_frame_analytic(intensities, depths.to(torch.float32), intr, prep_cfg)
-    B = intensities.shape[0] - 1
-    states = torch.zeros((B, 6), dtype=torch.float32, device=intensities.device)
-    zero = torch.zeros(B, dtype=torch.float32, device=intensities.device)
+def _prep_config(config: PhovoConfig) -> PhovoConfig:
+    """The config the packs are prepped with: the 4-row geometry of the
+    warped-point gradient whatever gradient_at says (an 'esm' config would
+    pack six rows)."""
+    return dataclasses.replace(config, gradient_at="warped")
+
+
+def _tr_pairs_levelmajor(packs: dict, shape, intr: Intrinsics, config: PhovoConfig,
+                         states: torch.Tensor) -> AlignmentResult:
+    """B independent pairs level-major from their packs (level -> (i0 (B,
+    N), geom (B, 4, N), t_all (B, 3, H, W)), or a shared source (1, ...))
+    and states (B, 6): per active level, coarsest first, ONE trust-region
+    launch for all B pairs, each pair with its own radius and
+    termination."""
+    states = states.to(torch.float32).contiguous()
+    zero = torch.zeros(states.shape[0], dtype=torch.float32, device=states.device)
     diags = [(zero,) * 5] * config.num_levels
     for level in range(config.num_levels - 1, -1, -1):
         if config.max_iterations[level] <= 0:
             continue
-        H, W = pyr.level_shape(tuple(intensities.shape[1:]), level)
-        i0, geom, t_all = prep[level]
+        H, W = pyr.level_shape(shape, level)
         res = fused_tr_level_batch(
-            i0[:-1], geom[:-1], t_all[1:], intr.at_level(level), states,
+            *packs[level], intr.at_level(level), states,
             config.trust_region_options(level), H=H, W=W, sampling="bilinear",
             robust_loss=config.robust_loss, robust_delta=config.robust_delta,
         )
@@ -177,6 +182,21 @@ def align_sequence_autodiff_levelmajor(
             res.num_valid, res.band_masked,
         )
     return stack_levels(states, diags)
+
+
+def align_sequence_autodiff_levelmajor(
+    intensities: torch.Tensor,  # (B+1, H, W) uint8 or float32
+    depths: torch.Tensor,  # (B+1, H, W) metres
+    intr: Intrinsics,
+    config: PhovoConfig,
+) -> AlignmentResult:
+    """The zero-init sequence ordered level-major: each frame prepped once,
+    then all B pairs' coarsest level in one kernel launch, then the next
+    level, each pair with its own radius and termination."""
+    prep = prep_frames(intensities, depths, intr, _prep_config(config))
+    packs = {level: (i0[:-1], geom[:-1], t_all[1:]) for level, (i0, geom, t_all) in prep.items()}
+    states = torch.zeros((intensities.shape[0] - 1, 6), dtype=torch.float32, device=intensities.device)
+    return _tr_pairs_levelmajor(packs, tuple(intensities.shape[1:]), intr, config, states)
 
 
 def tr_track_levelmajor_eligible(config: PhovoConfig, jacobian_mode: str = "linearizer") -> bool:
@@ -200,28 +220,9 @@ def track_chunk_levelmajor_tr(
     keyframe's packs shared by every pair, always bilinear. The keyframe
     packs have four rows whatever gradient_at says (models/keyframe.py
     preps them so)."""
-    intensities = device_unit_intensity(intensities).to(torch.float32)
-    shape = tuple(intensities.shape[1:])
-    tgt = prep_frame_targets(intensities, config)
-    B = intensities.shape[0]
-    states = init_states.to(torch.float32).contiguous()
-    zero = torch.zeros(B, dtype=torch.float32, device=intensities.device)
-    diags = [(zero,) * 5] * config.num_levels
-    for level in range(config.num_levels - 1, -1, -1):
-        if config.max_iterations[level] <= 0:
-            continue
-        H, W = pyr.level_shape(shape, level)
-        res = fused_tr_level_batch(
-            *kf_prep[level], tgt[level], intr.at_level(level), states,
-            config.trust_region_options(level), H=H, W=W, sampling="bilinear",
-            robust_loss=config.robust_loss, robust_delta=config.robust_delta,
-        )
-        states = res.state
-        diags[level] = (
-            res.iterations.to(torch.float32), res.gradient_norm, res.cost,
-            res.num_valid, res.band_masked,
-        )
-    return stack_levels(states, diags)
+    tgt = prep_targets(intensities, config)
+    packs = {level: (*kf_prep[level], t_all) for level, t_all in tgt.items()}
+    return _tr_pairs_levelmajor(packs, tuple(intensities.shape[1:]), intr, config, init_states)
 
 
 def align_sequence_autodiff(
@@ -262,6 +263,12 @@ def align_sequence_chunk_autodiff(
     on the device; see models/analytic.align_sequence_chunk). Returns
     (results over B pairs, new carry intensity, new carry depth)."""
     with profiling.span("phovo.align"):
+        if not warm_start and jacobian_mode == "linearizer":
+            _check_supported(config, jacobian_mode)
+            packs, ci, cd = prep_chunk(carry_intensity, carry_depth, intensities, depths, depth_scale, intr,
+                                       _prep_config(config))
+            states = torch.zeros((intensities.shape[0], 6), dtype=torch.float32, device=ci.device)
+            return _tr_pairs_levelmajor(packs, tuple(intensities.shape[1:]), intr, config, states), ci, cd
         I, D = chunk_device_prep(
             carry_intensity, carry_depth, intensities, depths, depth_scale
         )

@@ -68,31 +68,6 @@ def as_float_intensity(img):
     return arr.astype(np.float32)
 
 
-def device_unit_intensity(img: torch.Tensor) -> torch.Tensor:
-    """uint8 -> float32 * (1/255) on the tensor's device (the reference
-    SetSourceFrame conversion; a multiply, as phovo_tpu does, not a
-    divide); float inputs pass through."""
-    if img.dtype == torch.uint8:
-        return img.to(torch.float32) * (1.0 / 255.0)
-    return img
-
-
-def chunk_device_prep(carry_intensity, carry_depth, intensities, depths, depth_scale):
-    """Storage-dtype conversion and carry-frame prepend of the chunked
-    sequence entry, on the device the tensors live on: per chunk the host
-    moves only the new frames, in storage dtype (uint8 intensity, uint16
-    depth counts times depth_scale); the carry frame stays on the device.
-    Returns (I (B+1, H, W) float32, D (B+1, H, W) float32 metres)."""
-    with profiling.span("phovo.prep"):
-        if depth_scale is not None and depths.dtype != torch.float32:
-            depths = depths.to(torch.float32) * float(np.float32(depth_scale))
-        intensities = device_unit_intensity(intensities).to(torch.float32)
-        carry_f = device_unit_intensity(carry_intensity).to(torch.float32)
-        I = torch.cat([carry_f[None], intensities])
-        D = torch.cat([carry_depth.to(torch.float32)[None], depths])
-    return I, D
-
-
 def sequence_scan(align_one, intensities, depths, warm_start: bool) -> AlignmentResult:
     """Align the consecutive pairs of a buffered segment one after the
     other (phovo_tpu's lax.scan as a Python loop): pair k aligns frame k

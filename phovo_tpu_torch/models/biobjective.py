@@ -36,8 +36,6 @@ from phovo_tpu_torch.models.base import (
     DEFAULT_DEVICE,
     AlignmentResult,
     PhotoconsistencyOdometryBase,
-    chunk_device_prep,
-    device_unit_intensity,
     prepped_chain,
     sequence_scan,
 )
@@ -45,6 +43,7 @@ from phovo_tpu_torch.ops import pyramid as pyr
 from phovo_tpu_torch.ops.camera import Intrinsics
 from phovo_tpu_torch.ops.fused import fused_gn_level, fused_gn_level_packs, pack_geometry, pack_target
 from phovo_tpu_torch.ops.fused_batch import fused_gn_level_batch
+from phovo_tpu_torch.ops.prep import chunk_device_prep, device_unit_intensity
 from phovo_tpu_torch.ops.residuals import biobjective_residual_jacobian, normal_equations
 from phovo_tpu_torch.solvers.gauss_newton import gauss_newton_level
 from phovo_tpu_torch.utils.config import PhovoConfig

@@ -34,8 +34,6 @@ from phovo_tpu_torch.models.base import (
     DEFAULT_DEVICE,
     AlignmentResult,
     PhotoconsistencyOdometryBase,
-    chunk_device_prep,
-    device_unit_intensity,
     sequence_scan,
     stack_levels,
 )
@@ -45,6 +43,7 @@ from phovo_tpu_torch.ops import se3
 from phovo_tpu_torch.ops.camera import Intrinsics
 from phovo_tpu_torch.ops.fused import pack_geometry
 from phovo_tpu_torch.ops.ic_batch import ic_gn_level_batch
+from phovo_tpu_torch.ops.prep import chunk_device_prep, device_unit_intensity
 from phovo_tpu_torch.utils.config import PhovoConfig
 
 

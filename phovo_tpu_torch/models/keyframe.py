@@ -59,8 +59,9 @@ from phovo_tpu_torch.models.autodiff import (
     tr_track_levelmajor_eligible,
     track_chunk_levelmajor_tr,
 )
-from phovo_tpu_torch.models.base import AlignmentResult, PhotoconsistencyOdometryBase, device_unit_intensity
+from phovo_tpu_torch.models.base import AlignmentResult, PhotoconsistencyOdometryBase
 from phovo_tpu_torch.ops import se3
+from phovo_tpu_torch.ops.prep import device_unit_intensity
 from phovo_tpu_torch.parallel.batch import align_batch
 from phovo_tpu_torch.parallel.photometric_ba import (
     build_photometric_global,

@@ -58,6 +58,10 @@ _ENTRIES = {
         [_P] * 7 + [_I] * 6 + [_F] * 4 + [_I, _F, _F, _P],
         _I,
     ),
+    "phovo_prep_levels": (
+        [_P] * 4 + [_I] * 3 + [_F] + [_I] * 8 + [_F] * 2 + [_I] + [_P] * 6,
+        _I,
+    ),
 }
 
 
@@ -123,9 +127,10 @@ def _run(cmd: list[str]) -> None:
 def build() -> Path:
     """Compile the sources unless the library for them exists; returns its
     path. Each source compiles in its own nvcc process, all started
-    together (the five sources: 14-17 s on an 8-core H100 host, where
-    three took ~31 s in one nvcc); then one nvcc links the objects. Writes to
-    temporary names first, so a cut build leaves no library behind."""
+    together (the five sources before K-PREP's: 14-17 s on an 8-core H100
+    host, where three took ~31 s in one nvcc); then one nvcc links the
+    objects. Writes to temporary names first, so a cut build leaves no
+    library behind."""
     so = library_path()
     if so.is_file():
         return so

@@ -51,9 +51,10 @@ from phovo_tpu_torch.models.analytic import (
     prep_frame_analytic,
     prep_frame_targets,
 )
-from phovo_tpu_torch.models.base import AlignmentResult, chunk_device_prep, device_unit_intensity
+from phovo_tpu_torch.models.base import AlignmentResult
 from phovo_tpu_torch.ops import se3
 from phovo_tpu_torch.ops.camera import Intrinsics
+from phovo_tpu_torch.ops.prep import chunk_device_prep, device_unit_intensity
 from phovo_tpu_torch.parallel.mesh import DATA_AXIS, Mesh, gather
 from phovo_tpu_torch.utils.config import PhovoConfig
 

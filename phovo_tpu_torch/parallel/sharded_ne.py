@@ -21,9 +21,10 @@ from __future__ import annotations
 
 import torch
 
-from phovo_tpu_torch.models.base import AlignmentResult, device_unit_intensity
+from phovo_tpu_torch.models.base import AlignmentResult
 from phovo_tpu_torch.ops import pyramid as pyr
 from phovo_tpu_torch.ops.camera import Intrinsics
+from phovo_tpu_torch.ops.prep import device_unit_intensity
 from phovo_tpu_torch.ops.residuals import NormalEquations, normal_equations, photometric_residual_jacobian
 from phovo_tpu_torch.parallel.mesh import PIXEL_AXIS, Mesh, psum
 from phovo_tpu_torch.solvers.gauss_newton import gauss_newton_level

@@ -26,10 +26,11 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from phovo_tpu_torch.models.base import DEFAULT_DEVICE, device_unit_intensity
+from phovo_tpu_torch.models.base import DEFAULT_DEVICE
 from phovo_tpu_torch.ops import fused as fused_ops
 from phovo_tpu_torch.ops import pyramid as pyr
 from phovo_tpu_torch.ops.camera import Intrinsics
+from phovo_tpu_torch.ops.prep import device_unit_intensity
 from phovo_tpu_torch.ops.residuals import (
     biobjective_residual_jacobian,
     normal_equations,

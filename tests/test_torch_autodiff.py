@@ -226,13 +226,14 @@ def test_warm_start_runs_one_launch_per_pair_per_level(frames, monkeypatch):
     """The warm-started chain is per-pair: one level call per pair per
     active level, each at B = 1 and starting from the last pair's state."""
     calls = []
-    real = tad.fused_tr_level
+    real = tad.fused_tr_level_batch
 
-    def spy(si, sd, t_all, intr, init, *args, **kw):
-        calls.append(init.clone())
-        return real(si, sd, t_all, intr, init, *args, **kw)
+    def spy(i0, geom, t_all, intr, init, *args, **kw):
+        assert init.shape == (1, 6) and t_all.shape[0] == 1
+        calls.append(init[0].clone())
+        return real(i0, geom, t_all, intr, init, *args, **kw)
 
-    monkeypatch.setattr(tad, "fused_tr_level", spy)
+    monkeypatch.setattr(tad, "fused_tr_level_batch", spy)
     I, D = _seq(frames)
     cfg = _port_config()
     res = tad.align_sequence_autodiff(I, D, INTR, cfg, warm_start=True)

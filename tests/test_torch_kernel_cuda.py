@@ -51,7 +51,7 @@ import torch
 
 from phovo_tpu_torch.ops import fused_batch as FB
 from phovo_tpu_torch.ops import pyramid as pyr
-from phovo_tpu_torch.ops.camera import Intrinsics
+from phovo_tpu_torch.ops.camera import TUM_FR1, Intrinsics
 from phovo_tpu_torch.ops.fused import fused_tr_level, pack_geometry, pack_target
 from phovo_tpu_torch.solvers.trust_region import TROptions
 from phovo_tpu_torch.utils.synthetic import make_sequence
@@ -1410,3 +1410,137 @@ def test_trace_alignment_through_klin_matches_plain(case):
     for a, b in zip(kern, plain):
         np.testing.assert_allclose(a.state, b.state, rtol=0, atol=2e-4)
         assert a.num_valid == b.num_valid
+
+
+# -- K-PREP (csrc/prep_levels.cu) against the torch chain ------------------------
+
+VGA = (480, 640)
+COUNTS_TO_M = 1.0 / 5000.0
+
+
+def _prep_config(name, **changes):
+    """A shipped preset, with its prep's gradient_at (the ceres backend
+    packs the four-row warped geometry)."""
+    import dataclasses
+
+    from phovo_tpu_torch.utils.config import load_builtin
+
+    cfg = load_builtin(name)
+    return dataclasses.replace(cfg, **({"gradient_at": "warped"} | changes))
+
+
+@functools.cache
+def _storage_frames(n, seed=0):
+    """n VGA frames in storage dtype on the card: uint8 intensity and
+    uint16 depth counts at 5000 a metre, a tenth of them holes (0) and a
+    sixth beyond the 5 m limit."""
+    rng = np.random.default_rng(seed)
+    i8 = rng.integers(0, 256, (n, *VGA), dtype=np.uint8)
+    d16 = rng.integers(1, 30_000, (n, *VGA), dtype=np.uint16)
+    d16[rng.random((n, *VGA)) < 0.1] = 0
+    return torch.from_numpy(i8).cuda(), torch.from_numpy(d16).cuda()
+
+
+def _assert_packs_equal(got: dict, want: dict):
+    assert sorted(got) == sorted(want)
+    for level in got:
+        for g, w in zip(got[level], want[level]):
+            assert (g is None) == (w is None), level
+            if g is not None:
+                assert g.shape == w.shape and g.dtype == w.dtype, level
+                assert torch.equal(g, w), f"level {level}: {int((g != w).sum())} values differ"
+
+
+def test_k_prep_live_pair_is_one_launch_with_the_torch_chains_bits():
+    """The object API's ceres pair (uint8 intensity, float32 metres): ONE
+    K-PREP launch gives the source's (i0, geom) and the target's t_all at
+    all five levels, equal to the torch chain's."""
+    from phovo_tpu_torch.ops import prep
+
+    i8, d16 = _storage_frames(2)
+    sd = d16[0].to(torch.float32) * COUNTS_TO_M
+    cfg = _prep_config("config_5_level_optimization_ceres")
+    before = (prep.PREP_LAUNCHES, prep.PREP_TORCH_CALLS)
+    got = prep.prep_pair(i8[0], sd, i8[1], TUM_FR1, cfg)
+    assert (prep.PREP_LAUNCHES, prep.PREP_TORCH_CALLS) == (before[0] + 1, before[1])
+    torch.cuda.synchronize()
+    src = prep.prep_levels_torch(prep.device_unit_intensity(i8[0]), sd, TUM_FR1, cfg, targets=False)
+    tgt = prep.prep_levels_torch(prep.device_unit_intensity(i8[1]), None, TUM_FR1, cfg)
+    want = {level: (i0[None], geom[None], tgt[level][2][None]) for level, (i0, geom, _) in src.items()}
+    assert sorted(got) == [0, 1, 2, 3, 4]
+    _assert_packs_equal(got, want)
+
+
+@pytest.mark.parametrize("preset,depth", [
+    ("config_5_level_optimization_ceres", "counts"),
+    ("config_5_level_optimization_analytic", "counts"),
+    ("config_5_level_optimization_ceres", "metres"),
+])
+def test_k_prep_chunk_matches_the_torch_chain(preset, depth):
+    """A 257-frame chunk, the float32 carry then 256 new frames (uint8;
+    uint16 counts or float32 metres): ONE launch gives the 256 pairs'
+    packs at every active level and the new carry, equal to
+    chunk_device_prep and the torch chain's."""
+    from phovo_tpu_torch.ops import prep
+
+    i8, d16 = _storage_frames(257)
+    ci = prep.device_unit_intensity(i8[0])
+    cd = d16[0].to(torch.float32) * float(np.float32(COUNTS_TO_M))
+    frames = d16[1:] if depth == "counts" else d16[1:].to(torch.float32) * float(np.float32(COUNTS_TO_M))
+    cfg = _prep_config(preset)
+    before = prep.PREP_LAUNCHES
+    got, gci, gcd = prep.prep_chunk(ci, cd, i8[1:], frames, COUNTS_TO_M, TUM_FR1, cfg)
+    assert prep.PREP_LAUNCHES == before + 1
+    torch.cuda.synchronize()
+    I, D = prep.chunk_device_prep(ci, cd, i8[1:], frames, COUNTS_TO_M)
+    full = prep.prep_levels_torch(I, D, TUM_FR1, cfg)
+    want = {level: (i0[:-1], geom[:-1], t_all[1:]) for level, (i0, geom, t_all) in full.items()}
+    assert sorted(got) == [lv for lv, n in enumerate(cfg.max_iterations) if n > 0]
+    _assert_packs_equal(got, want)
+    assert torch.equal(gci, I[-1]) and torch.equal(gcd, D[-1])
+
+
+def test_k_prep_esm_rows_match_the_torch_chain():
+    """gradient_at='esm': the six-row geometry (the frame's own gradients
+    as rows 4 and 5) of float32 frames, equal to the torch chain's."""
+    from phovo_tpu_torch.ops import prep
+
+    i8, d16 = _storage_frames(9)
+    I = prep.device_unit_intensity(i8)
+    D = d16.to(torch.float32) * float(np.float32(COUNTS_TO_M))
+    cfg = _prep_config("config_5_level_optimization_analytic", gradient_at="esm")
+    before = prep.PREP_LAUNCHES
+    got = prep.prep_frames(I, D, TUM_FR1, cfg)
+    assert prep.PREP_LAUNCHES == before + 1
+    torch.cuda.synchronize()
+    assert all(geom.shape[1] == 6 for _, geom, _ in got.values())
+    _assert_packs_equal(got, prep.prep_levels_torch(I, D, TUM_FR1, cfg))
+
+
+def test_k_prep_targets_only_match_the_torch_chain():
+    """Tracked frames as targets only, from uint8: ONE launch, the torch
+    chain's t_all at every active level."""
+    from phovo_tpu_torch.ops import prep
+
+    i8, _ = _storage_frames(17)
+    cfg = _prep_config("config_5_level_optimization_ceres")
+    before = prep.PREP_LAUNCHES
+    got = prep.prep_targets(i8[1:], cfg)
+    assert prep.PREP_LAUNCHES == before + 1
+    torch.cuda.synchronize()
+    want = prep.prep_levels_torch(prep.device_unit_intensity(i8[1:]), None, None, cfg)
+    _assert_packs_equal({lv: (t,) for lv, t in got.items()}, {lv: (t,) for lv, (_, _, t) in want.items()})
+
+
+def test_k_prep_leaves_a_blurred_preset_to_the_torch_chain():
+    """A preset that blurs an active level runs the torch chain on the
+    card, counted as such, and launches no K-PREP."""
+    from phovo_tpu_torch.ops import prep
+
+    i8, d16 = _storage_frames(2)
+    cfg = _prep_config("config_3_level_optimization_ceres")
+    assert not prep.kernel_takes(cfg, VGA)
+    before = (prep.PREP_LAUNCHES, prep.PREP_TORCH_CALLS)
+    prep.prep_pair(i8[0], d16[0].to(torch.float32) * COUNTS_TO_M, i8[1], TUM_FR1, cfg)
+    torch.cuda.synchronize()
+    assert (prep.PREP_LAUNCHES, prep.PREP_TORCH_CALLS) == (before[0], before[1] + 1)

@@ -468,6 +468,6 @@ def test_library_path_hashes_headers(tmp_path, monkeypatch):
     assert all(cmd[cmd.index("-I") + 1] == str(csrc) for cmd in seen)
     assert sorted(Path(c).name for cmd in seen for c in cmd if c.endswith(".cu")) == [
         "fused_gn_batch.cu", "fused_lin.cu", "fused_tr_batch.cu", "ic_gn_batch.cu",
-        "ic_precompute.cu",
+        "ic_precompute.cu", "prep_levels.cu",
     ]
     assert not list((tmp_path / "build").iterdir())  # nothing left behind
