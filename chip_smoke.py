@@ -2696,6 +2696,7 @@ CLI_FRAMES = 33
 CLI_CHUNK = 16
 CLI_FRAME_MODE_PAIRS = 7
 CLI_SERVE_FRAMES = (CLI_FRAMES, 17)  # the two served streams' lengths
+CLI_ONE_FRAME_STREAMS, CLI_ONE_FRAME_LEN = 3, 9  # phovo-serve --chunk 1: streams and frames a stream
 CLI_PRESETS = {"analytic": "config_5_level_optimization_analytic", "ceres": "config_5_level_optimization_ceres",
                "ic": "config_5_level_optimization_analytic", "biobjective": "config_5_level_optimization_analytic"}
 
@@ -2769,7 +2770,9 @@ def phase_cli(fb, dev, card, shape=SHAPE):
     analytic, ceres, ic and biobjective (each trajectory the in-process
     chunked chain's lines, bit for bit), frame mode over
     CLI_FRAME_MODE_PAIRS pairs, --mode keyframe (analytic), phovo-serve
-    with two streams (each the lines of its own phovo-vo --chunk run) and
+    with two streams (each the lines of its own phovo-vo --chunk run),
+    phovo-serve --chunk 1 with three (one new frame a stream a round, each
+    the lines of its own phovo-vo --chunk 1 run) and
     phovo-eval --json (each ATE below standing still). Each run's launches
     are counted from 0 and checked. Returns {CLI run: launches}."""
     import contextlib
@@ -2912,6 +2915,29 @@ def phase_cli(fb, dev, card, shape=SHAPE):
               f"[{card}]")
         check(all(same), "a served stream differs from its single-stream phovo-vo trajectory")
         check(got["K-GN"] == active * n_chunks, f"phovo-serve launches {got}")
+
+        # live cameras: one new frame a stream a round (--chunk 1), each stream
+        # from its own start in the sequence
+        ones = []
+        for k in range(CLI_ONE_FRAME_STREAMS):
+            sl = slice(3 * k, 3 * k + CLI_ONE_FRAME_LEN)
+            d = write_raw_sequence(tmp / f"live{k}", I8[sl], D16[sl], ts[sl], DEPTH_SCALE)
+            single = tmp / f"live_single{k}.txt"
+            check(phovo_vo.main(["--config", cfg_path, "--output", str(single), "--chunk", "1", "--dataset", str(d),
+                                 "--intrinsics", spec, "--device", device, "-q"]) == 0,
+                  "single-stream phovo-vo --chunk 1 failed")
+            ones.append((d, single))
+        served = tmp / "served_live"
+        wall = counted("phovo-serve --chunk 1", lambda: phovo_serve.main(
+            ["--config", cfg_path, *[a for d, _ in ones for a in ("--dataset", str(d))], "--out-dir", str(served),
+             "--chunk", "1", "--intrinsics", spec, "--device", device, "-q"]))
+        got = launches["phovo-serve --chunk 1"]
+        same = [pose_lines(served / f"{d.name}.txt") == pose_lines(single) for d, single in ones]
+        rounds = CLI_ONE_FRAME_LEN - 1
+        print(f"CLI phovo-serve --chunk 1, {len(ones)} streams, {rounds} rounds in {wall:.3f} s; each stream its "
+              f"own phovo-vo --chunk 1 lines {same}; launches {got} [{card}]")
+        check(all(same), "a stream served one frame a round differs from its single-stream phovo-vo trajectory")
+        check(got["K-GN"] == active * rounds, f"phovo-serve --chunk 1 launches {got}")
 
         buf = io.StringIO()
         t0 = time.perf_counter()

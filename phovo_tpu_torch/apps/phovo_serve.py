@@ -10,13 +10,14 @@ dispatch a round (torch port of phovo_tpu/apps/phovo_serve.py).
 Every round a chunk of --chunk frames from EACH stream is aligned in one
 call of parallel/batch.py::serve_sequences_chunk: the streams' zero-init
 pairs form one level-major batch, one K-GN launch a level, each stream's
-carry frame stays on the device. The host advances each stream's global
-pose from the chunk's states (pose <- pose @ Rt^-1, float64, as phovo-vo
---chunk does), so a served stream writes its own phovo-vo --chunk
-trajectory, and writes one TUM-format trajectory per stream
-(<out-dir>/<stream name>.txt). Streams may differ in length: an exhausted
-or short chunk is padded by repeating the stream's last frame, and the
-padding pairs' poses are dropped.
+carry frame stays on the device; --chunk 1 serves live cameras, one new
+frame and one pair a stream a round, K-GN at B = the stream count. The
+host advances each stream's global pose from the chunk's states (pose <-
+pose @ Rt^-1, float64, as phovo-vo --chunk does), so a served stream
+writes its own phovo-vo --chunk trajectory, and writes one TUM-format
+trajectory per stream (<out-dir>/<stream name>.txt). Streams may differ
+in length: an exhausted or short chunk is padded by repeating the
+stream's last frame, and the padding pairs' poses are dropped.
 
 Several cards (--devices, phovo_tpu's rule): the streams are split over
 the data axis of a mesh of N ranks (parallel/mesh.py); 'auto' takes the
@@ -51,7 +52,8 @@ def build_parser() -> argparse.ArgumentParser:
                    help="named preset (default/fr1/fr2/fr3) or 'fx,fy,cx,cy' (shared by all streams)")
     p.add_argument("--depth-scale", type=float, default=1.0 / 5000.0)
     p.add_argument("--pairing", default="associate", choices=["associate", "lockstep"])
-    p.add_argument("--chunk", type=int, default=16, help="frames ingested per stream per dispatch")
+    p.add_argument("--chunk", type=int, default=16,
+                   help="frames ingested per stream per dispatch (1: one new frame a camera a round)")
     p.add_argument("--devices", default="auto",
                    help="cards to serve on (the data axis): 'auto' (the largest divisor of the stream count up to "
                         "the world size) or N, dividing the stream count, at most the world size (torchrun's ranks)")

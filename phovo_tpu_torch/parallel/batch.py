@@ -15,7 +15,17 @@ thread block, freezing on its own. So
     align_sequence, so a served stream is that stream's own chain;
   * align_sequences_multi walks time, one align_batch_fused (the
     multi-stream route, phovo_tpu's B7) per step;
-  * serve_sequences_chunk is the chunked streaming step of S streams.
+  * serve_sequences_chunk is the chunked streaming step of S streams: a
+    round carries B >= 1 new frames a stream, so one new frame a camera
+    (phovo-serve --chunk 1, a fleet of live cameras) is one pair a stream
+    and the level kernel runs at B = S.
+
+align_sequences_levelmajor, align_sequences and serve_sequences_chunk
+each open a phovo.align span (utils/profiling.span), as the chunked
+entries do; nested, the time counts to the inner one, so a round's glue
+(the stacking, the per-level slices, _gather, the pose integration) lies
+in phovo.align, its conversions and packs in phovo.prep and its level
+launches in phovo.level.
 
 Intrinsics: one Intrinsics for a shared rig, or a list of S (one per
 stream or pair). The kernels take the intrinsics as scalar arguments, so
@@ -56,6 +66,7 @@ from phovo_tpu_torch.ops import se3
 from phovo_tpu_torch.ops.camera import Intrinsics
 from phovo_tpu_torch.ops.prep import chunk_device_prep, device_unit_intensity
 from phovo_tpu_torch.parallel.mesh import DATA_AXIS, Mesh, gather
+from phovo_tpu_torch.utils import profiling
 from phovo_tpu_torch.utils.config import PhovoConfig
 
 
@@ -152,20 +163,23 @@ def align_sequences_levelmajor(
     prepped once, each interior frame the target of one pair and the source
     of the next, then one launch per active level for all S (T-1) pairs.
     Returns results with leading dims (S, T-1)."""
-    S, T = intensities.shape[:2]
-    shape = tuple(intensities.shape[2:])
-    flat_i = device_unit_intensity(intensities).to(torch.float32).reshape(S * T, *shape)
-    flat_d = depths.to(device=flat_i.device, dtype=torch.float32).reshape(S * T, *shape)
-    prep = prep_frame_analytic(flat_i, flat_d, intr, config)
-    B = S * (T - 1)
-    pairs = {}
-    for level, (i0, geom, t_all) in prep.items():
-        i0s = i0.reshape(S, T, -1)[:, :-1].reshape(B, -1)
-        geoms = geom.reshape(S, T, *geom.shape[1:])[:, :-1].reshape(B, *geom.shape[1:])
-        ts = t_all.reshape(S, T, *t_all.shape[1:])[:, 1:].reshape(B, *t_all.shape[1:])
-        pairs[level] = (i0s, geoms, ts)
-    res = align_pairs_levelmajor(pairs, shape, intr, config)
-    return AlignmentResult(*(x.reshape(S, T - 1, *x.shape[1:]) for x in res))
+    with profiling.span("phovo.align"):
+        S, T = intensities.shape[:2]
+        shape = tuple(intensities.shape[2:])
+        flat_i = device_unit_intensity(intensities).to(torch.float32).reshape(S * T, *shape)
+        flat_d = depths.to(device=flat_i.device, dtype=torch.float32).reshape(S * T, *shape)
+        prep = prep_frame_analytic(flat_i, flat_d, intr, config)
+        B = S * (T - 1)
+        pairs = {}
+        for level, (i0, geom, t_all) in prep.items():
+            # at T = 2 (one new frame a stream) each slice is a strided view
+            # of every other frame; above it reshape copies already
+            i0s = i0.reshape(S, T, -1)[:, :-1].reshape(B, -1).contiguous()
+            geoms = geom.reshape(S, T, *geom.shape[1:])[:, :-1].reshape(B, *geom.shape[1:]).contiguous()
+            ts = t_all.reshape(S, T, *t_all.shape[1:])[:, 1:].reshape(B, *t_all.shape[1:]).contiguous()
+            pairs[level] = (i0s, geoms, ts)
+        res = align_pairs_levelmajor(pairs, shape, intr, config)
+        return AlignmentResult(*(x.reshape(S, T - 1, *x.shape[1:]) for x in res))
 
 
 def align_sequences(
@@ -184,17 +198,18 @@ def align_sequences(
     pair). Each stream's results are then its own align_sequence's.
     Returns (results with leading dims (S, T-1), global poses (S, T-1, 4,
     4) integrated per stream from the identity)."""
-    S = intensities.shape[0]
-    parts = []
-    for cam, idx in _camera_groups(intr, S):
-        if not warm_start and _fused_route(config, use_fused):
-            parts.append((idx, align_sequences_levelmajor(_select(intensities, idx), _select(depths, idx), cam,
-                                                          config)))
-            continue
-        runs = [align_sequence(intensities[s], depths[s], cam, config, use_fused, warm_start) for s in idx]
-        parts.append((idx, AlignmentResult(*(torch.stack(x) for x in zip(*runs)))))
-    res = _gather(parts, S)
-    return res, se3.integrate_trajectory(res.state)
+    with profiling.span("phovo.align"):
+        S = intensities.shape[0]
+        parts = []
+        for cam, idx in _camera_groups(intr, S):
+            if not warm_start and _fused_route(config, use_fused):
+                parts.append((idx, align_sequences_levelmajor(_select(intensities, idx), _select(depths, idx), cam,
+                                                              config)))
+                continue
+            runs = [align_sequence(intensities[s], depths[s], cam, config, use_fused, warm_start) for s in idx]
+            parts.append((idx, AlignmentResult(*(torch.stack(x) for x in zip(*runs)))))
+        res = _gather(parts, S)
+        return res, se3.integrate_trajectory(res.state)
 
 
 def align_sequences_multi(
@@ -237,21 +252,22 @@ def serve_sequences_chunk(
     warm_start: bool = False,
     depth_scale: float | None = None,
 ) -> tuple[AlignmentResult, torch.Tensor, torch.Tensor, torch.Tensor]:
-    """One streaming step of S streams, B new frames each (phovo_tpu/
+    """One streaming step of S streams, B >= 1 new frames each (phovo_tpu/
     parallel/batch.py::serve_sequences_chunk): per stream the storage
     dtypes are converted and its carry frame prepended on the device
     (chunk_device_prep), then align_sequences. Returns (results with
     leading dims (S, B), chunk-relative poses (S, B, 4, 4): pair k's pose
     relative to the stream's chunk-start frame, the new carry intensities
     (S, H, W) and depths, float32)."""
-    prepped = [
-        chunk_device_prep(ci, cd, I, D, depth_scale)
-        for ci, cd, I, D in zip(carry_intensity, carry_depth, intensities, depths)
-    ]
-    I = torch.stack([p[0] for p in prepped])
-    D = torch.stack([p[1] for p in prepped])
-    res, poses = align_sequences(I, D, intr, config, use_fused, warm_start)
-    return res, poses, I[:, -1], D[:, -1]
+    with profiling.span("phovo.align"):
+        prepped = [
+            chunk_device_prep(ci, cd, I, D, depth_scale)
+            for ci, cd, I, D in zip(carry_intensity, carry_depth, intensities, depths)
+        ]
+        I = torch.stack([p[0] for p in prepped])
+        D = torch.stack([p[1] for p in prepped])
+        res, poses = align_sequences(I, D, intr, config, use_fused, warm_start)
+        return res, poses, I[:, -1], D[:, -1]
 
 
 # -- the mesh forms: pairs and streams over the data axis ---------------------

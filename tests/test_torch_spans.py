@@ -1,8 +1,8 @@
 """The port's own spans (utils/profiling.span) on the CPU: nothing is made
-while no profiler runs; inside profiling.trace the chunked entries and the
-object API write phovo.align, phovo.prep, phovo.level (and phovo.upload,
-object API) as user annotations, each level inside its call, one a
-active level."""
+while no profiler runs; inside profiling.trace the chunked entries, the
+serving round and the object API write phovo.align, phovo.prep,
+phovo.level (and phovo.upload, object API) as user annotations, each level
+inside its call, one a active level."""
 
 import json
 
@@ -13,6 +13,7 @@ import torch
 from phovo_tpu_torch.models.analytic import align_sequence_chunk
 from phovo_tpu_torch.models.autodiff import PhotoconsistencyOdometryAutodiff, align_sequence_chunk_autodiff
 from phovo_tpu_torch.ops.camera import Intrinsics
+from phovo_tpu_torch.parallel.batch import serve_sequences_chunk
 from phovo_tpu_torch.utils import profiling
 from phovo_tpu_torch.utils.config import load_builtin
 from phovo_tpu_torch.utils.synthetic import make_pair
@@ -87,3 +88,27 @@ def test_a_traced_call_writes_its_spans(frames, tmp_path, path):
     assert all(aligns[0][0] <= a and b <= aligns[0][1] for a, b in levels)
     # the frames go up before the call, outside it
     assert all(b <= aligns[0][0] for n, _, b in spans if n == "phovo.upload")
+
+
+def test_a_served_round_nests_its_spans_in_one_align(frames, tmp_path):
+    """One round of serve_sequences_chunk, two streams and one new frame
+    each: the round is one outermost phovo.align (align_sequences and
+    align_sequences_levelmajor open theirs inside it); every phovo.prep
+    (each stream's conversion, the packs) and phovo.level (one a active
+    level, both streams' pairs in it) lies inside it."""
+    i8, d16, _ = frames
+    carry_d = d16[:2].to(torch.float32) / COUNTS_PER_M
+    with profiling.trace(tmp_path) as window:
+        serve_sequences_chunk(i8[:2], carry_d, i8[1:, None], d16[1:, None], INTR, ANALYTIC,
+                              depth_scale=1.0 / COUNTS_PER_M)
+    events = json.loads(window.path.read_text())["traceEvents"]
+    spans = [(e["name"], float(e["ts"]), float(e["ts"]) + float(e["dur"]))
+             for e in events if e.get("cat") == "user_annotation" and e["name"].startswith("phovo.")]
+    aligns = [(a, b) for n, a, b in spans if n == "phovo.align"]
+    outer = [(a, b) for a, b in aligns if not any(c < a and b < d for c, d in aligns)]
+    assert len(outer) == 1 and len(aligns) == 3
+    lo, hi = outer[0]
+    assert {n for n, _, _ in spans} == {"phovo.align", "phovo.prep", "phovo.level"}
+    assert all(lo <= a and b <= hi for _, a, b in spans)
+    assert sum(n == "phovo.prep" for n, _, _ in spans) >= 3  # two streams' conversions, the packs
+    assert sum(n == "phovo.level" for n, _, _ in spans) == sum(m > 0 for m in ANALYTIC.max_iterations)

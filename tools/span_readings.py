@@ -5,18 +5,21 @@ phovo.align, phovo.prep and phovo.level, and what the spans and the
 profiler cost.
 
     python3 tools/span_readings.py trace --workload ceres5.live --seeds 7 8 --seconds 20
+    python3 tools/span_readings.py trace --workload analytic5.fleet --seeds 7 --seconds 20
     python3 tools/span_readings.py cost [--pairs 40] [--chunks 4] [--rounds 3]
 
 trace runs a cell as `benchmark/run.py --trace 1` does (benchmark.run.run_cell)
 and prints one JSON line a seed: benchmark/program_spans.attribute of the
 traced window, the per-frame readings taken from it (launches, device and
 idle ms under each span; `frames` as the benchmark's readers count them),
-the benchmark's own launches a frame beside them, and for a live cell the
-latencies of the pairs started before the traced window, inside it, and
-after it once the pairs no longer start late.
+the benchmark's own launches a frame beside them, and for an open-loop cell the
+latencies of the pairs (a fleet's: of the rounds, one a camera) started
+before the traced window, inside it, and after it once they no longer
+start late.
 
-cost times, on the ceres5.live pair and on one 256-frame chunk of each
-replay configuration, the host time of a call (from its first call into
+cost times, on the ceres5.live pair, on one 256-frame chunk of each
+replay configuration and on one round of the analytic5.fleet cell's
+cameras, the host time of a call (from its first call into
 the program to its return; a pair's to its pose on the host too) with the
 spans as they are and with span() replaced by a bare null context, each
 with and without a profiler window around the calls; and the host cost of
@@ -72,7 +75,7 @@ def _quantiles(xs) -> dict:
 
 def trace_runs(cell: str, seeds, seconds: float, device) -> list[dict]:
     """One traced run of `cell` a seed, with the program's spans attributed
-    and, for a live cell, the latencies before, inside and after the
+    and, for an open-loop cell, the latencies before, inside and after the
     window."""
     bench = run.load_json(ROOT / "BENCHMARK.json")
     overrides = SMALL if device.type == "cpu" else None
@@ -88,7 +91,7 @@ def trace_runs(cell: str, seeds, seconds: float, device) -> list[dict]:
 
         def wrapped(prog, seq, mix, secs, tracer, rng):
             out = drive(prog, seq, mix, secs, tracer, rng)
-            caught["out"] = (tracer, out["t_start"], mix.get("fps"), [c["t"] for c in out["calls"]],
+            caught["out"] = (tracer, out["t_start"], mix.get("fps"), [(c["t"], c["frames"]) for c in out["calls"]],
                              out["latencies"])
             return out
 
@@ -112,13 +115,16 @@ def trace_runs(cell: str, seeds, seconds: float, device) -> list[dict]:
             for name, (span, field, scale) in READINGS.items():
                 row = prog.get(span)
                 line[name] = scale * row[field] / frames if row and frames else None
-            tracer, t_start, fps, starts, latencies = caught["out"]
+            tracer, t_start, fps, calls, latencies = caught["out"]
             if latencies is not None:
-                # pair k is due k frame periods after the window opens; the
-                # trace's export when it stops holds the host, and the pairs
-                # after it queue until they catch up: those that started
-                # late are left out after the traced window
-                due = [t_start + (k + 1) / fps for k in range(len(starts))]
+                # call k (a pair, or a fleet's round of one frame a camera)
+                # is due k frame periods after the window opens, and each of
+                # its frames has a latency; the trace's export when it stops
+                # holds the host, and the calls after it queue until they
+                # catch up: those that started late are left out after the
+                # traced window
+                due = [t_start + (k + 1) / fps for k, (_, n) in enumerate(calls) for _ in range(n)]
+                starts = [t for t, n in calls for _ in range(n)]
                 groups = {"before": [], "inside": [], "after": []}
                 for s, d, lat in zip(starts, due, latencies):
                     if s < tracer.t0:
@@ -177,11 +183,13 @@ def cost(device, pairs: int, chunks: int, rounds: int, seed: int = 11) -> dict:
     cpu = device.type == "cpu"
     chunk = 4 if cpu else 256
     progs = {}
-    for cell in ("ceres5.live", "analytic5.replay", "ceres5.replay"):
+    for cell in ("ceres5.live", "analytic5.replay", "ceres5.replay", "analytic5.fleet"):
         _, config, mix, _ = run.cell_files(bench, cell)
         run.apply_overrides(config, mix, dict(SMALL, frames=max(pairs, chunk) + 1) if cpu
                             else {"frames": max(pairs, chunk) + 1})
         progs[cell] = drivers.Program(config, device)
+        if cell == "analytic5.fleet":
+            cameras = int(mix["cameras"])
     if not cpu:
         progs["ceres5.live"].load_kernels()
     # the three configurations share the camera: one sequence serves all
@@ -236,9 +244,31 @@ def cost(device, pairs: int, chunks: int, rounds: int, seed: int = 11) -> dict:
 
         return alternate(chunks, first_on, one)
 
+    def fleet_calls(first_on):
+        """A fleet's round: one new frame a camera, float32 carries (as in
+        every round after the first), the frames already on the card."""
+        prog = progs["analytic5.fleet"]
+        fn, scale = prog.chunk_entry(), prog.depth_scale
+        idx = np.arange(cameras) % (len(I8) - 1)
+        new = [drivers.to_device(a[idx + 1][:, None], device) for a in (I8, D16)]
+        _, _, *carry = fn(drivers.to_device(I8[idx], device),
+                          drivers.to_device(D16[idx], device).to(torch.float32) * float(np.float32(scale)),
+                          *new, scale)
+
+        def one(i):
+            sync()
+            t0 = time.perf_counter()
+            fn(*carry, *new, scale)
+            t1 = time.perf_counter()
+            sync()
+            return {"host": t1 - t0, "full": time.perf_counter() - t0}
+
+        return alternate(chunks, first_on, one)
+
     calls = {"live_pair": live_calls,
              "analytic_chunk": lambda first_on: chunk_calls("analytic5.replay", first_on),
-             "ceres_chunk": lambda first_on: chunk_calls("ceres5.replay", first_on)}
+             "ceres_chunk": lambda first_on: chunk_calls("ceres5.replay", first_on),
+             "fleet_round": fleet_calls}
     for fn in calls.values():  # warm-up: every shape, the kernels, the profiler's start
         with _profiler(True, device):
             fn(True)
