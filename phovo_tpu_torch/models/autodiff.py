@@ -16,6 +16,11 @@ Routing follows phovo_tpu:
   * every route but jacfwd takes its packs from the prep layer
     (ops/prep.py: one K-PREP launch on the card for a pair, a chunk or a
     sequence);
+  * the object API's pairs that take K-PREP on the card (capturable)
+    replay one CUDA graph of the pair's K-PREP launch, K-TR levels and
+    glue (models/base.PairGraph), captured at the first such pair and
+    again when the config, the intrinsics or the frames' shapes or dtypes
+    change;
   * zero-init sequences run level-major, all pairs of a chunk in one
     launch per level; warm_start runs the pairs as a serial chain of
     align_autodiff calls (each pair starts where the last one ended);
@@ -56,6 +61,7 @@ from phovo_tpu_torch.ops.fused_batch import fused_tr_level_batch
 from phovo_tpu_torch.ops.prep import (
     chunk_device_prep,
     device_unit_intensity,
+    frames_take_kernel,
     prep_chunk,
     prep_frames,
     prep_pair,
@@ -295,3 +301,12 @@ class PhotoconsistencyOdometryAutodiff(PhotoconsistencyOdometryBase):
         return align_autodiff(
             si, sd, ti, td, intr, init_state, self.config, self.jacobian_mode
         )
+
+    def capturable(self, device, shape, source_dtype, depth_dtype, target_dtype) -> bool:
+        """True where align_autodiff is one K-PREP launch (prep_pair) and
+        the K-TR levels with their glue, which synchronise nothing: the
+        linearizer Jacobian, a loss other than tdist, and frames K-PREP
+        takes on a CUDA card. The jacfwd mode, the CPU and the presets
+        that blur an active level run eagerly."""
+        return (self.jacobian_mode == "linearizer" and self.config.robust_loss != "tdist"
+                and frames_take_kernel(self.config, shape, device, (source_dtype, target_dtype), (depth_dtype,)))

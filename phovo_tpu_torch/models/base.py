@@ -2,13 +2,17 @@
 phovo_tpu/models/base.py): results, input conversion, the serial pair loop
 and the reference's object interface (CPhotoconsistencyOdometry.h:137-179).
 
-The object API is a thin host-side holder of frames over a backend's
-functional `align`; it runs on the CUDA card unless the caller names
-another device (device="cpu"), and raises where there is no card rather
-than run elsewhere. The functional entries run wherever their tensors
-live. phovo_tpu's
-band-fallback re-run has no counterpart: the GPU kernels sample the whole
-target, so band_masked is always 0.
+The object API holds a pair's frames and initial state on one device and
+runs a backend's functional `align` on them; it runs on the CUDA card
+unless the caller names another device (device="cpu"), and raises where
+there is no card rather than run elsewhere. Where the backend says a call
+can be captured (capturable: on the card, a chain of launches with no host
+synchronisation), optimize() replays one CUDA graph of that call
+(PairGraph) instead of dispatching its launches one by one, and set_*
+copy into the graph's input buffers; every other call runs `align`
+eagerly. The functional entries run wherever their tensors live.
+phovo_tpu's band-fallback re-run has no counterpart: the GPU kernels
+sample the whole target, so band_masked is always 0.
 """
 
 from __future__ import annotations
@@ -19,7 +23,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from phovo_tpu_torch.ops import se3
+from phovo_tpu_torch.ops import fused_batch, prep, se3
 from phovo_tpu_torch.ops.camera import Intrinsics
 from phovo_tpu_torch.utils import profiling
 from phovo_tpu_torch.utils.config import PhovoConfig, load_config
@@ -109,10 +113,104 @@ def prepped_chain(prep: dict, n_pairs: int, align_pair, device) -> AlignmentResu
 # The object API's device unless the caller names another.
 DEFAULT_DEVICE = torch.device("cuda")
 
+# Captures and replays of the object API's pair graph (PairGraph) in this
+# process. Each adds one where it happens and nowhere else, so a caller can
+# show which of its pairs replayed a graph (reset both to 0 before the run,
+# read them after).
+GRAPH_CAPTURES = 0
+GRAPH_REPLAYS = 0
+
+# The launch counters of the kernels a captured call can launch. A capture
+# launches nothing, so it leaves them as they were; a replay adds to each
+# what the captured call added, so they stay launches in this process.
+_LAUNCH_COUNTERS = (
+    (prep, "PREP_LAUNCHES"), (fused_batch, "LAUNCHES"), (fused_batch, "TR_LAUNCHES"),
+    (fused_batch, "LIN_LAUNCHES"), (fused_batch, "SHARED_LAUNCHES"), (fused_batch, "TR_SHARED_LAUNCHES"),
+    (fused_batch, "BI_LAUNCHES"),
+)
+
+
+class PairGraph:
+    """One object API's optimize() as a CUDA graph: the backend's align
+    over static device buffers (both frames and the initial state),
+    captured once per key and replayed for every later call with that key.
+
+    The key is what the captured launches bake in: the config, the
+    intrinsics, and each input's shape, dtype and device (a backend whose
+    align reads anything else answers capturable() False). A new key runs
+    the call eagerly first, on the caller's tensors (which builds the
+    kernels' library and loads the kernels, as a capture cannot), returns
+    that result, and then captures the call over new buffers. Buffers are
+    never shared with another key's graph, so a result that aliases an
+    input of its eager call (a state no level moved) stays as it is. The graph
+    writes its result into one flat int32 buffer: the state, then the
+    per-level iterations, gradient norm, cost, valid count and band_masked,
+    floats by their bits. A replay returns views of one clone of it, so a
+    result the caller keeps never changes with a later replay."""
+
+    SLOTS = ("source", "source depth", "target", "target depth", "init")
+
+    def __init__(self):
+        self.key = None
+        self.graph = None
+        self.out = None  # the flat result the graph writes
+        self.levels = 0
+        self.counts = ()  # what the captured call added to _LAUNCH_COUNTERS
+        self.inputs: dict[str, torch.Tensor] = {}  # slot -> the buffer the graph reads
+
+    def stage(self, slot: str, t: torch.Tensor) -> torch.Tensor | None:
+        """t copied into the slot's buffer, where the graph has one of t's
+        shape and dtype (on the card, from wherever t lives); else None."""
+        buf = self.inputs.get(slot)
+        if buf is None or buf.shape != t.shape or buf.dtype != t.dtype:
+            return None
+        return buf if buf is t else buf.copy_(t)
+
+    def run(self, align, inputs, key) -> AlignmentResult:
+        """align(*inputs) (inputs in SLOTS order): eagerly and then
+        captured where key is not the captured call's, else a replay of the
+        graph."""
+        global GRAPH_CAPTURES, GRAPH_REPLAYS
+        if key != self.key:
+            result = align(*inputs)
+            self._capture(align, inputs)
+            self.key = key
+            GRAPH_CAPTURES += 1
+            return result
+        for slot, t in zip(self.SLOTS, inputs):
+            self.stage(slot, t)
+        with profiling.span("phovo.replay"):
+            self.graph.replay()
+        for (module, name), n in zip(_LAUNCH_COUNTERS, self.counts):
+            setattr(module, name, getattr(module, name) + n)
+        GRAPH_REPLAYS += 1
+        flat = self.out.clone()
+        f, L = flat.view(torch.float32), self.levels
+        return AlignmentResult(f[:6], flat[6:6 + L], *(f[6 + k * L:6 + (k + 1) * L] for k in range(1, 5)))
+
+    def _capture(self, align, inputs) -> None:
+        """Capture align over new buffers holding copies of the inputs."""
+        self.key = self.graph = self.out = None  # frees the old graph's memory first
+        self.inputs = {slot: t.clone(memory_format=torch.contiguous_format) for slot, t in zip(self.SLOTS, inputs)}
+        before = [getattr(module, name) for module, name in _LAUNCH_COUNTERS]
+        graph = torch.cuda.CUDAGraph()
+        try:
+            # other threads' CUDA calls (a frame loader's copies) stay allowed
+            with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+                res = align(*(self.inputs[slot] for slot in self.SLOTS))
+                out = torch.cat([res.state.view(torch.int32), res.iterations,
+                                 *(x.view(torch.int32) for x in res[2:])])
+        finally:
+            self.counts = tuple(getattr(module, name) - n for (module, name), n in zip(_LAUNCH_COUNTERS, before))
+            for (module, name), n in zip(_LAUNCH_COUNTERS, before):
+                setattr(module, name, n)
+        self.graph, self.out, self.levels = graph, out, res.iterations.shape[-1]
+
 
 class PhotoconsistencyOdometryBase:
-    """Host-side stateful wrapper over a backend's functional aligner, on
-    one torch device: the CUDA card by default."""
+    """Stateful wrapper over a backend's functional aligner, on one torch
+    device: the CUDA card by default. Calls the backend says it can
+    capture replay a PairGraph."""
 
     # AlignmentResult.cost convention: GN backends report sum r^2, the
     # trust-region backend 0.5 * sum r^2 (Ceres's)
@@ -131,6 +229,7 @@ class PhotoconsistencyOdometryBase:
         self._target = None
         self._init_state = torch.zeros(6, dtype=torch.float32, device=self.device)
         self._result: AlignmentResult | None = None
+        self._graph: PairGraph | None = None  # from the first captured call
 
     # -- reference API surface ------------------------------------------------
     def read_configuration_file(self, path) -> None:
@@ -145,21 +244,27 @@ class PhotoconsistencyOdometryBase:
     def set_max_depth(self, d: float) -> None:
         self.config = dataclasses.replace(self.config, max_depth=float(d))
 
-    def _frame(self, intensity, depth):
+    def _to_device(self, t: torch.Tensor, slot: str) -> torch.Tensor:
+        """t on the object's device: copied into the pair graph's buffer
+        for `slot` where it has one of t's shape and dtype, else moved."""
+        staged = self._graph.stage(slot, t) if self._graph is not None else None
+        return staged if staged is not None else t.to(self.device)
+
+    def _frame(self, intensity, depth, slots):
         with profiling.span("phovo.upload"):
             return (
-                torch.as_tensor(as_float_intensity(intensity), device=self.device),
-                torch.as_tensor(depth, dtype=torch.float32, device=self.device),
+                self._to_device(torch.as_tensor(as_float_intensity(intensity)), slots[0]),
+                self._to_device(torch.as_tensor(depth, dtype=torch.float32), slots[1]),
             )
 
     def set_source_frame(self, intensity, depth) -> None:
-        self._source = self._frame(intensity, depth)
+        self._source = self._frame(intensity, depth, ("source", "source depth"))
 
     def set_target_frame(self, intensity, depth) -> None:
-        self._target = self._frame(intensity, depth)
+        self._target = self._frame(intensity, depth, ("target", "target depth"))
 
     def set_initial_state_vector(self, state) -> None:
-        self._init_state = torch.as_tensor(state, dtype=torch.float32, device=self.device)
+        self._init_state = self._to_device(torch.as_tensor(state, dtype=torch.float32), "init")
 
     def optimize(self) -> AlignmentResult:
         if self.intrinsics is None:
@@ -167,9 +272,20 @@ class PhotoconsistencyOdometryBase:
         if self._source is None or self._target is None:
             raise RuntimeError("source and target frames must be set before optimize")
         with profiling.span("phovo.align"):
-            self._result = self.align(
-                *self._source, *self._target, self.intrinsics, self._init_state
-            )
+            (si, sd), (ti, td) = self._source, self._target
+            if si.dim() == 2 and sd.shape == ti.shape == si.shape and self.capturable(
+                    si.device, tuple(si.shape), si.dtype, sd.dtype, ti.dtype):
+                if self._graph is None:
+                    self._graph = PairGraph()
+                inputs = (si, sd, ti, td, self._init_state)
+                key = (self.config, self.intrinsics, tuple((t.shape, t.dtype, t.device) for t in inputs))
+                self._result = self._graph.run(
+                    lambda *x: self.align(*x[:4], self.intrinsics, x[4]), inputs, key)
+            else:
+                # the graph goes; held tensors that are its buffers stay
+                # as they are, since no set_* writes into them again
+                self._graph = None
+                self._result = self.align(si, sd, ti, td, self.intrinsics, self._init_state)
         return self._result
 
     def get_optimal_state_vector(self) -> torch.Tensor:
@@ -188,3 +304,11 @@ class PhotoconsistencyOdometryBase:
     def align(self, source_intensity, source_depth, target_intensity,
               target_depth, intr: Intrinsics, init_state) -> AlignmentResult:
         raise NotImplementedError
+
+    def capturable(self, device, shape, source_dtype, depth_dtype, target_dtype) -> bool:
+        """Whether align on `device`, with a source intensity, source depth
+        and target intensity of this (H, W) shape and these dtypes, is a
+        chain of launches with no host synchronisation that one CUDA graph
+        can replay (PairGraph). The base answers False: every call runs
+        eagerly."""
+        return False

@@ -14,7 +14,8 @@ Two routes compute them, with the same bits on the card:
     call takes it where it observes that it can: its tensors on a CUDA
     card in those dtypes, no blur at an active level, and every active
     level an exact power-of-two downscale of the frame, at least 2x2
-    (kernel_takes). PREP_LAUNCHES counts its launches;
+    (kernel_takes). PREP_LAUNCHES counts its launches, the object API's
+    replayed pairs' included (models/base.PairGraph);
   * the torch chain (prep_levels_torch): the conversion, ops/pyramid.py's
     pyramids and Scharr gradients and ops/fused.py's pack_geometry and
     pack_target, op by op. It is the plain version: CPU tensors take it,
@@ -42,9 +43,10 @@ from phovo_tpu_torch.ops.fused import pack_geometry, pack_target
 from phovo_tpu_torch.utils import profiling
 
 # Launches of K-PREP in this process, and calls that ran the torch chain
-# instead. Each entry adds one to either, and nowhere else, so a caller can
-# show which route its run took (reset both to 0 before the run, read them
-# after).
+# instead. Each entry adds one to either, and a replay of the object API's
+# captured pair (models/base.PairGraph) adds the K-PREP launch it holds, so
+# a caller can show which route its run took (reset both to 0 before the
+# run, read them after).
 PREP_LAUNCHES = 0
 PREP_TORCH_CALLS = 0
 
@@ -107,19 +109,26 @@ def kernel_takes(config, shape: tuple[int, int]) -> bool:
     )
 
 
+def frames_take_kernel(config, shape, device, intensity_dtypes, depth_dtypes, depth_scale=None) -> bool:
+    """Whether K-PREP takes frames of this H x W shape on `device` with
+    these dtypes: a CUDA card, H and W above 0, intensities uint8 or
+    float32, depths uint16 (with a depth_scale) or float32, and
+    kernel_takes(config, shape)."""
+    return (torch.device(device).type == "cuda" and min(shape) > 0
+            and all(d in _INTENSITY_DTYPES for d in intensity_dtypes)
+            and all(d in _DEPTH_DTYPES and (d != torch.uint16 or depth_scale is not None) for d in depth_dtypes)
+            and kernel_takes(config, shape))
+
+
 def _on_kernel(config, shape, intensities, depths, depth_scale=None) -> bool:
     """Whether a call with these frames takes K-PREP: every tensor on a
-    CUDA card, not empty and H x W, intensities uint8 or float32, depths
-    uint16 (with a depth_scale) or float32, and kernel_takes(config,
-    shape)."""
+    CUDA card, not empty and H x W, and frames_take_kernel for their
+    dtypes."""
     if not all(t.device.type == "cuda" and t.numel() > 0 and tuple(t.shape[-2:]) == shape
                for t in (*intensities, *depths)):
         return False
-    if any(t.dtype not in _INTENSITY_DTYPES for t in intensities):
-        return False
-    if any(t.dtype not in _DEPTH_DTYPES or (t.dtype == torch.uint16 and depth_scale is None) for t in depths):
-        return False
-    return kernel_takes(config, shape)
+    return frames_take_kernel(config, shape, intensities[0].device, [t.dtype for t in intensities],
+                              [t.dtype for t in depths], depth_scale)
 
 
 def _check_frames(head, body_i, body_d, depth_scale, sources, targets) -> tuple[int, int, int]:

@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """The program's spans (utils/profiling.span) read on the card: what the
 benchmark's cells show when their traced window is split by phovo.upload,
-phovo.align, phovo.prep and phovo.level, and what the spans and the
-profiler cost.
+phovo.align, phovo.prep, phovo.level and phovo.replay (the object API's
+replayed pair graph), and what the spans and the profiler cost.
 
     python3 tools/span_readings.py trace --workload ceres5.live --seeds 7 8 --seconds 20
     python3 tools/span_readings.py trace --workload analytic5.fleet --seeds 7 --seconds 20
@@ -46,10 +46,12 @@ SMALL = {"shape": (60, 80), "frames": 12}
 READINGS = {  # name: (span, field, scale to the unit)
     "prep_launches_per_frame": ("phovo.prep", "launches", 1.0),
     "level_launches_per_frame": ("phovo.level", "launches", 1.0),
+    "replay_launches_per_frame": ("phovo.replay", "launches", 1.0),
     "glue_launches_per_frame": ("phovo.align", "launches", 1.0),
     "prep_device_ms_per_frame": ("phovo.prep", "device_s", 1e3),
     "prep_idle_ms_per_frame": ("phovo.prep", "idle_s", 1e3),
     "level_idle_ms_per_frame": ("phovo.level", "idle_s", 1e3),
+    "replay_idle_ms_per_frame": ("phovo.replay", "idle_s", 1e3),
     "align_idle_ms_per_frame": ("phovo.align", "idle_s", 1e3),
     "upload_ms_per_frame": ("phovo.upload", "host_s", 1e3),
     "upload_idle_ms_per_frame": ("phovo.upload", "idle_s", 1e3),
