@@ -916,12 +916,13 @@ def phase_variants(fb, I9, D9, card):
 
 
 def phase_analytic_api(fb, I8, D16, card):
-    """Phase 6b: the per-pair analytic object API and the warm-started
-    chain, one GN launch per pair per active level, each against its plain
-    version; one 480x640 pair of config_only_level_0_analytic. Returns
-    (launches of the per-pair run, largest state difference)."""
+    """Phase 6b: the per-pair analytic object API (one K-PREP launch and
+    one GN launch per active level a pair) and the warm-started chain (one
+    GN launch per pair per active level), each against its plain version;
+    one 480x640 pair of config_only_level_0_analytic. Returns (launches of
+    the per-pair run, largest state difference)."""
     from phovo_tpu_torch.models import analytic
-    from phovo_tpu_torch.ops import fused as fused_ops
+    from phovo_tpu_torch.ops import prep as prep_ops
     from phovo_tpu_torch.ops.camera import TUM_FR1
     from phovo_tpu_torch.utils.config import config_from_dict
 
@@ -946,22 +947,26 @@ def phase_analytic_api(fb, I8, D16, card):
         return type(out[0])(*(torch.stack(x) for x in zip(*out)))
 
     def plain(fn):
-        with mock.patch.object(fused_ops, "fused_gn_level_batch", fb.fused_gn_level_batch_reference):
+        with mock.patch.object(analytic, "fused_gn_level_batch", fb.fused_gn_level_batch_reference):
             return fn()
 
     lm = analytic.align_sequence(Iapi, Dapi, TUM_FR1, cfg_an)
     reset_counts(fb)
+    prep_ops.PREP_LAUNCHES = prep_ops.PREP_TORCH_CALLS = 0
     kern = per_pair(cfg_an, range(N_API_PAIRS))
     launches, other = fb.LAUNCHES, fb.TR_LAUNCHES + fb.LIN_LAUNCHES
+    preps = (prep_ops.PREP_LAUNCHES, prep_ops.PREP_TORCH_CALLS)
     reset_counts(fb)
     ref = plain(lambda: per_pair(cfg_an, range(N_API_PAIRS)))
     check(fb.LAUNCHES == 0, "the plain per-pair run launched the kernel")
     err = float((kern.state - ref.state).abs().max())
     lm_err = float((kern.state - lm.state).abs().max())
-    print(f"analytic per-pair API: {N_API_PAIRS} pairs, GN launches {launches} (expected {active} x "
+    print(f"analytic per-pair API: {N_API_PAIRS} pairs, K-PREP launches and torch-chain calls {preps} (expected "
+          f"({N_API_PAIRS}, 0)), GN launches {launches} (expected {active} x "
           f"{N_API_PAIRS}), other launches {other}, iterations {kern.iterations.tolist()}, max|state diff| "
           f"kernel vs plain {err:.3e}, vs level-major {lm_err:.3e} [{card}]")
     check(launches == active * N_API_PAIRS and other == 0, "optimize() did not launch the GN kernel once per level per pair")
+    check(preps == (N_API_PAIRS, 0), "optimize() did not launch K-PREP once a pair")
     check(err <= STATE_ATOL and lm_err <= STATE_ATOL, "per-pair analytic state diff")
     check(torch.equal(kern.iterations, ref.iterations) and torch.equal(kern.num_valid, ref.num_valid),
           "per-pair analytic iterations or valid counts differ")
@@ -1712,7 +1717,7 @@ def phase_bi_main(run_chain, fb, se3, traj, gts, ts, analytic_ate, card):
     held. Both: finite states and the ATE below standing still, the
     analytic chain's beside it. Returns the early-exit run's launches and
     its largest compared state difference."""
-    from phovo_tpu_torch.models import biobjective
+    from phovo_tpu_torch.models import analytic, biobjective
 
     out = None
     for name, cfg in (("early exit at 300", bench_config(300.0)), ("fixed-75", bench_config(0.0))):
@@ -1725,7 +1730,7 @@ def phase_bi_main(run_chain, fb, se3, traj, gts, ts, analytic_ate, card):
         check(launches == active * len(CHUNKS) and other == 0,
               "the bi-objective path did not launch K-GN-bi once per active level of every chunk")
         reset_counts(fb)
-        with mock.patch.object(biobjective, "fused_gn_level_batch", fb.fused_gn_level_batch_reference):
+        with mock.patch.object(analytic, "fused_gn_level_batch", fb.fused_gn_level_batch_reference):
             plain = run_chain(biobjective.align_sequence_chunk_biobjective, cfg)
         check(fb.LAUNCHES == 0, "the plain bi-objective run launched the kernel")
         diff = (kern.state - plain.state).abs().amax(dim=1)
@@ -1759,9 +1764,8 @@ def phase_bi_api(fb, I8, D16, card):
     launch per pair per level, against its plain version; one 480x640 pair
     of config_only_level_0_analytic. Returns (launches of the per-pair
     run, largest state difference)."""
-    from phovo_tpu_torch.models import biobjective
+    from phovo_tpu_torch.models import analytic, biobjective
     from phovo_tpu_torch.ops.prep import device_unit_intensity
-    from phovo_tpu_torch.ops import fused as fused_ops
     from phovo_tpu_torch.ops import pyramid as pyr
     from phovo_tpu_torch.ops.camera import TUM_FR1
     from phovo_tpu_torch.utils.config import config_from_dict
@@ -1787,7 +1791,7 @@ def phase_bi_api(fb, I8, D16, card):
         return type(out[0])(*(torch.stack(x) for x in zip(*out)))
 
     def plain(fn):
-        with mock.patch.object(fused_ops, "fused_gn_level_batch", fb.fused_gn_level_batch_reference):
+        with mock.patch.object(analytic, "fused_gn_level_batch", fb.fused_gn_level_batch_reference):
             return fn()
 
     lm = biobjective.align_sequence_biobjective(Iapi, Dapi, TUM_FR1, cfg_an)
@@ -2153,6 +2157,9 @@ def keyframe_run(frames, cfg, ceres, plain=False, timers=None):
                                       (autodiff, "fused_tr_level_batch", fb.fused_tr_level_batch_reference),
                                       (fused_ops, "fused_tr_level_batch", fb.fused_tr_level_batch_reference)):
                 stack.enter_context(mock.patch.object(module, name, ref))
+            # the plain versions copy host scalars to the card, which a CUDA
+            # graph cannot capture: the object API's pairs run eagerly
+            stack.enter_context(mock.patch.object(vo, "capturable", lambda *a: False))
         t0 = time.perf_counter()
         tracked = list(kvo.run_chunked(frames, chunk=KF_CHUNK, depth_scale=DEPTH_SCALE))
         torch.cuda.synchronize()
@@ -4371,7 +4378,7 @@ def main() -> int:
     zero6 = torch.zeros(6, device=dev)
     ms_an = cuda_ms(lambda: analytic.align_analytic(Is[0], Ds[0], Is[1], Ds[1], TUM_FR1, zero6, cfg_an), REPEATS)
     print(f"per-pair analytic route: align_analytic {ms_an:.3f} ms a VGA pair (analytic preset, "
-          f"3 launches at B = 1) [{card}]")
+          f"one K-PREP launch and 3 K-GN launches at B = 1) [{card}]")
     for variant in ("none", "huber", "tdist", "esm"):
         cfg = variant_config(cfg_ee, variant)
         ms = cuda_ms(lambda: align_sequence(Is, Ds, TUM_FR1, cfg), REPEATS)

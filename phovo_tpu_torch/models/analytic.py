@@ -1,29 +1,33 @@
 """Analytic Gauss-Newton backend (torch port of phovo_tpu/models/analytic.py).
 
 Routing follows phovo_tpu, without its TPU-only limits (no height cap, no
-band):
-  * per pair, align_analytic runs one launch of the Gauss-Newton level
-    kernel (ops/fused.fused_gn_level, the batched kernel at B = 1) per
-    active level when gradient_at is 'warped' or 'esm';
+band). Every route of the level kernel (gradient_at 'warped' or 'esm',
+use_fused) is one loop, align_pairs_levelmajor: per active level, coarse
+to fine, one launch of K-GN for a batch of pairs from their packs (the
+prep layer's, ops/prep.py: one K-PREP launch on the card where it takes
+the frames). A single pair, a warm chain and a tracked chunk are batches
+of it:
+  * per pair, align_analytic preps the pair (ops/prep.prep_pair) and runs
+    the loop at B = 1;
   * gradient_at='source' and use_fused=False run the exact torch path,
     gauss_newton_level over photometric_residual_jacobian +
     normal_equations, as phovo_tpu runs them through XLA;
   * keyframe tracking (models/keyframe.py run_chunked) runs a chunk of
-    frames against one keyframe level-major, one launch per active level
-    with the keyframe's packs shared by every pair (track_chunk_levelmajor)
-    from explicit per-pair inits, or as the serial warm-started scan
+    frames against one keyframe level-major, with the keyframe's packs
+    shared by every pair (track_chunk_levelmajor) from explicit per-pair
+    inits, or as the serial warm-started scan of align_analytic
     (track_sequence_chunk); Student-t chunks always take the scan, as
     phovo_tpu's gate sends them (track_levelmajor_eligible);
-  * S independent pairs of a shared rig run one launch per level
-    (align_batch_fused, phovo_tpu's multi-stream route, B7);
+  * S independent pairs of a shared rig run the loop through the
+    multi-stream wrapper (align_batch_fused, phovo_tpu's B7 route);
   * frame chains from zero (the reference's pair semantics,
     PhotoconsistencyVisualOdometry.cpp:224) run level-major: the pairs are
     independent, so all pairs' coarsest level runs in one launch, then all
     pairs' next level, and so on; every loss does, tdist too (its scale is a
     per-pair scalar in the kernel). warm_start runs the serial chain of
-    align_prepped over per-frame packs computed once, one launch per pair
-    per active level. Each frame is prepped once (pyramid, Scharr, packs)
-    and serves as the target of one pair and the source of the next.
+    align_prepped, the loop at B = 1 a pair, over per-frame packs computed
+    once: each frame serves as the target of one pair and the source of
+    the next.
 robust_loss='tdist': the scale sigma seeds from robust_delta, runs
 TDIST_BURNIN scale-only passes at the first active level, and passes to
 the next active level as tdist_scale_update(cost, num_valid) of the level
@@ -46,14 +50,9 @@ from phovo_tpu_torch.models.base import (
 )
 from phovo_tpu_torch.ops import pyramid as pyr
 from phovo_tpu_torch.ops.camera import Intrinsics
-from phovo_tpu_torch.ops.fused import (
-    fused_gn_level,
-    fused_gn_level_multi_packs,
-    fused_gn_level_packs,
-    pack_target,
-)
+from phovo_tpu_torch.ops.fused import fused_gn_level_multi_packs
 from phovo_tpu_torch.ops.fused_batch import fused_gn_level_batch
-from phovo_tpu_torch.ops.prep import chunk_device_prep, device_unit_intensity, prep_chunk
+from phovo_tpu_torch.ops.prep import chunk_device_prep, device_unit_intensity, prep_chunk, prep_pair
 from phovo_tpu_torch.ops.prep import prep_frames as prep_frame_analytic
 from phovo_tpu_torch.ops.prep import prep_targets as prep_frame_targets
 from phovo_tpu_torch.ops.residuals import normal_equations, photometric_residual_jacobian
@@ -107,10 +106,16 @@ def align_analytic(
     config: PhovoConfig,
     use_fused: bool = True,
 ) -> AlignmentResult:
-    """Align one pair coarse to fine on the device the tensors live on: one
-    level-kernel launch per active level, or the exact torch path for
-    gradient_at='source' and use_fused=False."""
+    """Align one pair coarse to fine on the device the tensors live on: the
+    pair's packs of every active level at once (ops/prep.prep_pair, one
+    K-PREP launch on the card where it takes the frames), then
+    align_pairs_levelmajor at B = 1, one level-kernel launch per active
+    level; or the exact torch path for gradient_at='source' and
+    use_fused=False."""
     del target_depth
+    if _fused_route(config, use_fused):
+        packs = prep_pair(source_intensity, source_depth, target_intensity, intr, config)
+        return _align_one(packs, tuple(source_intensity.shape[-2:]), intr, config, init_state)
     si = device_unit_intensity(source_intensity).to(torch.float32)
     ti = device_unit_intensity(target_intensity).to(torch.float32)
     L, blur, scales = config.num_levels, config.blur_filter_sizes, config.gradient_scales
@@ -121,19 +126,10 @@ def align_analytic(
     esm = config.gradient_at == "esm"
     if esm:  # the source gradients of the ESM Jacobian
         gx0, gy0 = pyr.build_gradient_pyramid(int0, scales)
-    fused = _fused_route(config, use_fused)
 
     def run_level(level, state, sigma, burnin):
         intr_l = intr.at_level(level)
         sg = (gx0[level], gy0[level]) if esm else None
-        if fused:
-            return fused_gn_level(
-                int0[level], dep0[level], pack_target(int1[level], gx1[level], gy1[level]),
-                intr_l, state, config.min_depth, config.max_depth,
-                *_gn_options(config, level), config.sampling,
-                robust_loss=config.robust_loss, robust_delta=config.robust_delta,
-                source_grads=sg, robust_scale=sigma, tdist_burnin=burnin,
-            )[:5]
 
         def linearize(s, *scale):
             r, J, valid = photometric_residual_jacobian(
@@ -184,10 +180,10 @@ def track_sequence_chunk(
 ) -> AlignmentResult:
     """Track B frames against ONE keyframe in series (phovo_tpu/models/
     analytic.py::track_sequence_chunk, warm-started): frame k aligns the
-    keyframe to it with align_analytic (one K-GN launch at B = 1 per active
-    level) from the state the frame before ended at, the first frame from
-    init_state. depth_scale converts raw depth counts on the device.
-    Results have leading dim B."""
+    keyframe to it with align_analytic (the pair's prep, then one K-GN
+    launch at B = 1 per active level) from the state the frame before
+    ended at, the first frame from init_state. depth_scale converts raw
+    depth counts on the device. Results have leading dim B."""
     if depth_scale is not None and depths.dtype != torch.float32:
         depths = depths.to(torch.float32) * float(np.float32(depth_scale))
     kf_i = device_unit_intensity(kf_intensity).to(torch.float32)
@@ -220,21 +216,10 @@ def track_pairs_levelmajor(
 ) -> AlignmentResult:
     """B frames tracked against ONE keyframe, level-major: per active level
     one launch of the level kernel with the keyframe's packs shared by
-    every pair (phovo_tpu/models/analytic.py::track_pairs_levelmajor).
-    Each pair starts from its own init state."""
-    esm = config.gradient_at == "esm"
-
-    def run_level(level, states, sigma, burnin):
-        H, W = pyr.level_shape(shape, level)
-        return fused_gn_level_batch(
-            *kf_prep[level], tgt_targets[level], intr.at_level(level), states,
-            *_gn_options(config, level), H=H, W=W, sampling=config.sampling,
-            robust_loss=config.robust_loss, robust_delta=config.robust_delta,
-            esm=esm, robust_scale=sigma, tdist_burnin=burnin,
-        )[:5]
-
-    states = init_states.to(torch.float32).contiguous()
-    return _coarse_to_fine(run_level, states, config)
+    every pair (phovo_tpu/models/analytic.py::track_pairs_levelmajor), by
+    align_pairs_levelmajor. Each pair starts from its own init state."""
+    packs = {level: (*src, tgt_targets[level]) for level, src in kf_prep.items()}
+    return align_pairs_levelmajor(packs, shape, intr, config, init_states.to(torch.float32))
 
 
 def track_chunk_levelmajor(
@@ -295,23 +280,21 @@ def align_prepped(
     init_state: torch.Tensor,  # (6,)
     config: PhovoConfig,
 ) -> AlignmentResult:
-    """Align one pair from per-frame packs: one level-kernel launch per
-    active level, the same kernel and numbers as align_analytic with the
-    packs computed once per frame instead of per pair."""
-    esm = config.gradient_at == "esm"
+    """Align one pair from per-frame packs: the source's i0 and geom and the
+    target's t_all (with the bi-objective products, its t6 and gain) given
+    a batch axis of 1, through align_pairs_levelmajor. The same kernel and
+    numbers as align_analytic, with the packs computed once per frame
+    instead of per pair."""
+    packs = {level: tuple(x[None] for x in (*src[level][:2], *tgt[level][2:])) for level in src}
+    return _align_one(packs, shape, intr, config, init_state)
 
-    def run_level(level, state, sigma, burnin):
-        H, W = pyr.level_shape(shape, level)
-        i0, geom, _ = src[level]
-        return fused_gn_level_packs(
-            i0, geom, tgt[level][2], intr.at_level(level), state,
-            *_gn_options(config, level), H=H, W=W, sampling=config.sampling,
-            robust_loss=config.robust_loss, robust_delta=config.robust_delta,
-            esm=esm, robust_scale=sigma, tdist_burnin=burnin,
-        )[:5]
 
-    state = init_state.to(device=src[max(src)][0].device, dtype=torch.float32)
-    return _coarse_to_fine(run_level, state, config)
+def _align_one(packs: dict, shape, intr: Intrinsics, config: PhovoConfig, init_state: torch.Tensor) -> AlignmentResult:
+    """One pair as a batch of one: align_pairs_levelmajor on packs with a
+    batch axis of 1 from init_state (6,); the result without the batch
+    axis."""
+    state = init_state.to(device=next(iter(packs.values()))[0].device, dtype=torch.float32).reshape(1, 6)
+    return AlignmentResult(*(x[0] for x in align_pairs_levelmajor(packs, shape, intr, config, state)))
 
 
 def align_sequence_prepped(
@@ -342,22 +325,28 @@ def align_pairs_levelmajor(
     multi: bool = False,
 ) -> AlignmentResult:
     """Level-major alignment of B independent pairs from per-pair packs
-    (level -> (i0 (B, N), geom (B, 4 | 6, N), t_all (B, 3, H, W)) for every
-    active level), each from its init state (the zero state by default);
-    the Student-t scale is carried per pair. multi launches each level
-    through the multi-stream wrapper (align_batch_fused's B7 route), the
-    same kernel counted as such. Returns batched results: state (B, 6),
-    per-level diagnostics (B, L)."""
+    (level -> (i0 (B | 1, N), geom (B | 1, 4 | 6, N), t_all (B, 3, H, W))
+    for every active level, a source pack of batch 1 shared by every pair;
+    or the bi-objective (i0, geom, t6 (B, 6, H, W), gains (B,)), which run
+    K-GN-bi), each from its init state (the zero state by default); the
+    Student-t scale is carried per pair. The one loop of the analytic and
+    bi-objective kernel routes: a single pair and a warm chain's pair are
+    batches of one. multi launches each level through the multi-stream
+    wrapper (align_batch_fused's B7 route), the same kernel counted as
+    such. Returns batched results: state (B, 6), per-level diagnostics (B,
+    L)."""
     i0_any = next(iter(prep_pairs.values()))[0]
     esm = config.gradient_at == "esm"
 
     def run_level(level, states, sigma, burnin):
         H, W = pyr.level_shape(shape, level)
+        i0, geom, t_all, *gains = prep_pairs[level]
         res = (fused_gn_level_multi_packs if multi else fused_gn_level_batch)(
-            *prep_pairs[level], intr.at_level(level), states,
+            i0, geom, t_all, intr.at_level(level), states,
             *_gn_options(config, level), H=H, W=W, sampling=config.sampling,
             robust_loss=config.robust_loss, robust_delta=config.robust_delta,
             esm=esm, robust_scale=sigma, tdist_burnin=burnin,
+            depth_gains=gains[0] if gains else None,
         )
         return res[:5]
 
@@ -375,11 +364,14 @@ def align_sequence_levelmajor(
     """align_sequence ordered level-major: each frame prepped once, pair k
     aligns frame k (source) to frame k+1 (target)."""
     prep = prep_frame_analytic(intensities, depths, intr, config)
-    prep_pairs = {
-        level: (i0[:-1], geom[:-1], t_all[1:])
-        for level, (i0, geom, t_all) in prep.items()
-    }
-    return align_pairs_levelmajor(prep_pairs, tuple(intensities.shape[1:]), intr, config)
+    return align_pairs_levelmajor(_chain_pairs(prep), tuple(intensities.shape[1:]), intr, config)
+
+
+def _chain_pairs(prep: dict) -> dict:
+    """The pairs' packs of a chain's per-frame packs: pair k is frame k's
+    source pack (i0, geom) and frame k+1's target products (t_all; the
+    bi-objective t6 and gain)."""
+    return {level: (i0[:-1], geom[:-1], *(x[1:] for x in tgt)) for level, (i0, geom, *tgt) in prep.items()}
 
 
 def align_sequence(

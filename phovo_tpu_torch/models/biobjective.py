@@ -11,18 +11,21 @@ phovo_tpu's: the two channels' residuals are disjoint, and the depth
 residual pairs D1(warped) with the transformed source depth.
 
 Routing follows models/analytic.py, without phovo_tpu's TPU-only limits
-(no height cap, no VMEM tiling gate, no band):
-  * per pair, align_biobjective runs one launch of the bi-objective level
-    kernel (K-GN-bi at B = 1, ops/fused.fused_gn_level with depth_cols)
-    per active level when gradient_at is 'warped' and use_fused is set;
+(no height cap, no VMEM tiling gate, no band). The level kernel's route
+(gradient_at 'warped', use_fused) is analytic's one loop,
+align_pairs_levelmajor, on the frames' products (prep_frame_biobjective:
+pyramids, Scharr, six-channel stacks, gains, each frame prepped once):
+one K-GN-bi launch per active level for a batch of pairs, each pair's
+gain from its target frame. A single pair and a warm chain's pair are
+batches of one:
+  * per pair, align_biobjective preps the pair's two frames and runs the
+    loop at B = 1;
   * gradient_at='source' and use_fused=False run the exact torch path,
     gauss_newton_level over biobjective_residual_jacobian +
     normal_equations, as phovo_tpu runs them through XLA;
-  * frame chains from zero run level-major: one K-GN-bi launch per active
-    level for all pairs, each pair's gain from its target frame;
-    warm_start runs the serial chain of align_prepped_biobjective over
-    per-frame packs computed once. Each frame is prepped once (pyramids,
-    Scharr, six-channel stacks, gains).
+  * frame chains from zero run the loop over all pairs; warm_start runs
+    the serial chain of analytic.align_prepped, the loop at B = 1 a pair,
+    over per-frame products computed once.
 gradient_at='esm' and robust_loss='tdist' raise ValueError on every entry
 point, as in phovo_tpu.
 """
@@ -31,7 +34,14 @@ from __future__ import annotations
 
 import torch
 
-from phovo_tpu_torch.models.analytic import _coarse_to_fine, _gn_options
+from phovo_tpu_torch.models.analytic import (
+    _align_one,
+    _chain_pairs,
+    _coarse_to_fine,
+    _gn_options,
+    align_pairs_levelmajor,
+    align_prepped,
+)
 from phovo_tpu_torch.models.base import (
     DEFAULT_DEVICE,
     AlignmentResult,
@@ -41,8 +51,7 @@ from phovo_tpu_torch.models.base import (
 )
 from phovo_tpu_torch.ops import pyramid as pyr
 from phovo_tpu_torch.ops.camera import Intrinsics
-from phovo_tpu_torch.ops.fused import fused_gn_level, fused_gn_level_packs, pack_geometry, pack_target
-from phovo_tpu_torch.ops.fused_batch import fused_gn_level_batch
+from phovo_tpu_torch.ops.fused import pack_geometry, pack_target
 from phovo_tpu_torch.ops.prep import chunk_device_prep, device_unit_intensity
 from phovo_tpu_torch.ops.residuals import biobjective_residual_jacobian, normal_equations
 from phovo_tpu_torch.solvers.gauss_newton import gauss_newton_level
@@ -92,10 +101,16 @@ def align_biobjective(
     config: PhovoConfig,
     use_fused: bool = True,
 ) -> AlignmentResult:
-    """Align one pair coarse to fine on the device the tensors live on: one
-    K-GN-bi launch per active level, or the exact torch path for
-    gradient_at='source' and use_fused=False."""
+    """Align one pair coarse to fine on the device the tensors live on: the
+    two frames' products (prep_frame_biobjective), then
+    align_pairs_levelmajor at B = 1, one K-GN-bi launch per active level;
+    or the exact torch path for gradient_at='source' and use_fused=False."""
     _check_config(config)
+    if _fused_route(config, use_fused):
+        I = torch.stack([device_unit_intensity(x).to(torch.float32) for x in (source_intensity, target_intensity)])
+        D = torch.stack([x.to(device=I.device, dtype=torch.float32) for x in (source_depth, target_depth)])
+        prep, shape, _ = _prep_chain(I, D, intr, config)
+        return _align_one(_chain_pairs(prep), shape, intr, config, init_state)
     si = device_unit_intensity(source_intensity).to(torch.float32)
     ti = device_unit_intensity(target_intensity).to(torch.float32)
     L, blur, scales = config.num_levels, config.blur_filter_sizes, config.gradient_scales
@@ -104,21 +119,12 @@ def align_biobjective(
     int1 = pyr.build_pyramid(ti, L, blur, blur_type=config.blur_type)
     dep1 = pyr.build_pyramid(target_depth.to(device=si.device, dtype=torch.float32), L)
     gx1, gy1 = pyr.build_gradient_pyramid(int1, scales)
-    fused = _fused_route(config, use_fused)
 
     def run_level(level, state, sigma, burnin):
         del sigma, burnin  # no Student-t scale: tdist is refused
         intr_l = intr.at_level(level)
         dep, dgx, dgy = _depth_cols(dep1[level], config, level)
         gain = _gain(int1[level], dep)
-        if fused:
-            return fused_gn_level(
-                int0[level], dep0[level], pack_target(int1[level], gx1[level], gy1[level]),
-                intr_l, state, config.min_depth, config.max_depth,
-                *_gn_options(config, level), config.sampling,
-                depth_cols=(dep, dgx, dgy), depth_gain=gain,
-                robust_loss=config.robust_loss, robust_delta=config.robust_delta,
-            )[:5]
 
         def linearize(s):
             r, J, valid = biobjective_residual_jacobian(
@@ -166,31 +172,6 @@ def prep_frame_biobjective(
     return out
 
 
-def align_prepped_biobjective(
-    src: dict,  # prep_frame_biobjective of the source frame (no frame dim)
-    tgt: dict,  # prep_frame_biobjective of the target frame
-    shape: tuple[int, int],
-    intr: Intrinsics,
-    init_state: torch.Tensor,  # (6,)
-    config: PhovoConfig,
-) -> AlignmentResult:
-    """Align one pair from per-frame products: one K-GN-bi launch per
-    active level at B = 1, the target frame's gain."""
-
-    def run_level(level, state, sigma, burnin):
-        H, W = pyr.level_shape(shape, level)
-        i0, geom, _, _ = src[level]
-        _, _, t6, gain = tgt[level]
-        return fused_gn_level_packs(
-            i0, geom, t6, intr.at_level(level), state, *_gn_options(config, level),
-            H=H, W=W, sampling=config.sampling, bi=True, depth_gain=gain,
-            robust_loss=config.robust_loss, robust_delta=config.robust_delta,
-        )[:5]
-
-    state = init_state.to(device=src[max(src)][0].device, dtype=torch.float32)
-    return _coarse_to_fine(run_level, state, config)
-
-
 def _prep_chain(intensities, depths, intr, config):
     """(per-frame products, frame shape, number of pairs) of a chain."""
     intensities = device_unit_intensity(intensities).to(torch.float32)
@@ -205,11 +186,12 @@ def align_sequence_biobjective_prepped(
     config: PhovoConfig,
 ) -> AlignmentResult:
     """The warm-started chain: the pairs in series over per-frame products
-    computed once; pair k starts where pair k-1 ended (pair 0 from zero)."""
+    computed once; pair k starts where pair k-1 ended (pair 0 from zero),
+    each pair through align_pairs_levelmajor at B = 1 (align_prepped)."""
     prep, shape, B = _prep_chain(intensities, depths, intr, config)
     return prepped_chain(
         prep, B,
-        lambda src, tgt, init: align_prepped_biobjective(src, tgt, shape, intr, init, config),
+        lambda src, tgt, init: align_prepped(src, tgt, shape, intr, init, config),
         intensities.device,
     )
 
@@ -220,23 +202,11 @@ def align_sequence_biobjective_levelmajor(
     intr: Intrinsics,
     config: PhovoConfig,
 ) -> AlignmentResult:
-    """The zero-init chain ordered level-major: one K-GN-bi launch per
-    active level for all B pairs (frame k source, frame k+1 target), each
-    pair's depth gain from its target frame."""
-    prep, shape, B = _prep_chain(intensities, depths, intr, config)
-
-    def run_level(level, states, sigma, burnin):
-        H, W = pyr.level_shape(shape, level)
-        i0, geom, t6, gains = prep[level]
-        return fused_gn_level_batch(
-            i0[:-1], geom[:-1], t6[1:], intr.at_level(level), states,
-            *_gn_options(config, level), H=H, W=W, sampling=config.sampling,
-            robust_loss=config.robust_loss, robust_delta=config.robust_delta,
-            depth_gains=gains[1:],
-        )[:5]
-
-    states = torch.zeros((B, 6), dtype=torch.float32, device=intensities.device)
-    return _coarse_to_fine(run_level, states, config)
+    """The zero-init chain ordered level-major: align_pairs_levelmajor, one
+    K-GN-bi launch per active level for all B pairs (frame k source, frame
+    k+1 target), each pair's depth gain from its target frame."""
+    prep, shape, _ = _prep_chain(intensities, depths, intr, config)
+    return align_pairs_levelmajor(_chain_pairs(prep), shape, intr, config)
 
 
 def align_sequence_biobjective(

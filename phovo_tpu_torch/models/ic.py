@@ -3,18 +3,18 @@ phovo_tpu/models/ic.py): a fourth aligner beside the reference's three,
 whose Jacobian and Cholesky factor come from the SOURCE frame once per
 level (ops/ic.py has the algorithm).
 
-Routing:
-  * per pair, align_ic runs one launch of the precompute kernel (K-ICpre,
-    B = 1) and one of the level kernel (K-IC, B = 1) per active level,
-    with the pose carried as a 4x4 matrix between levels and one
-    se3.matrix_to_state at the end; use_fused=False runs the exact torch
-    path (ops/ic.ic_precompute, ic_gn_level_exact), as phovo_tpu runs its
-    XLA form;
-  * frame chains from zero run level-major: each frame is prepped once
-    (pyramid, source Scharr, one K-ICpre launch per active level for all
-    frames), then one K-IC launch per active level for all pairs;
-    warm_start runs the serial chain of align_ic, and use_fused=False the
-    exact path pair after pair.
+Routing: the kernels' route (use_fused) is one loop, _ic_pairs_levelmajor,
+one K-IC launch per active level for a batch of pairs, the poses carried
+as 4x4 matrices between levels and one se3.matrix_to_state at the end. A
+single pair is a batch of one:
+  * per pair, align_ic preps the source (prep_frame_ic), takes the
+    target's intensity pyramid and runs the loop at B = 1;
+    use_fused=False runs the exact torch path (ops/ic.ic_precompute,
+    ic_gn_level_exact), as phovo_tpu runs its XLA form;
+  * frame chains from zero prep each frame once (pyramid, source Scharr,
+    one K-ICpre launch per active level for all frames) and run the loop
+    over all pairs; warm_start runs the serial chain of align_ic, and
+    use_fused=False the exact path pair after pair.
 phovo_tpu's TPU gating (VMEM tilings, its height cap, the level-major
 switch) has no counterpart: the GPU kernels take every level size.
 
@@ -30,6 +30,7 @@ from __future__ import annotations
 
 import torch
 
+from phovo_tpu_torch.models.analytic import _gn_options
 from phovo_tpu_torch.models.base import (
     DEFAULT_DEVICE,
     AlignmentResult,
@@ -72,13 +73,6 @@ def _coarse_to_fine(run_level, T: torch.Tensor, config: PhovoConfig) -> Alignmen
     return stack_levels(se3.matrix_to_state(T), diags)
 
 
-def _gn_options(config: PhovoConfig, level: int):
-    return (
-        config.max_iterations[level], config.min_gradient_norms[level],
-        config.lambda_steps[level],
-    )
-
-
 def align_ic(
     source_intensity: torch.Tensor,  # (H, W) uint8 or float32 0..1
     source_depth: torch.Tensor,  # (H, W) metres
@@ -90,36 +84,37 @@ def align_ic(
     use_fused: bool = True,
 ) -> AlignmentResult:
     """Align one pair coarse to fine on the device the tensors live on:
-    per active level one K-ICpre and one K-IC launch at B = 1, or the exact
-    torch path with use_fused=False."""
+    the source's products (prep_frame_ic, one K-ICpre launch per active
+    level) and the target's level images, then _ic_pairs_levelmajor at
+    B = 1, one K-IC launch per active level; or the exact torch path with
+    use_fused=False."""
     del target_depth
     _check_loss(config)
     si = device_unit_intensity(source_intensity).to(torch.float32)
     ti = device_unit_intensity(target_intensity).to(torch.float32)
+    sd = source_depth.to(device=si.device, dtype=torch.float32)
     L, blur = config.num_levels, config.blur_filter_sizes
-    int0 = pyr.build_pyramid(si, L, blur, blur_type=config.blur_type)
-    dep0 = pyr.build_pyramid(source_depth.to(device=si.device, dtype=torch.float32), L)
     int1 = pyr.build_pyramid(ti, L, blur, blur_type=config.blur_type)
+    T = se3.pose_matrix(init_state.to(device=si.device, dtype=torch.float32))
+    if use_fused:
+        pairs = {level: (geom, J8, Lrow, int1[level][None].contiguous())
+                 for level, (geom, J8, Lrow, _) in prep_frame_ic(si[None], sd[None], intr, config).items()}
+        res = _ic_pairs_levelmajor(pairs, tuple(si.shape), intr, config, T[None])
+        return AlignmentResult(*(x[0] for x in res))
+    int0 = pyr.build_pyramid(si, L, blur, blur_type=config.blur_type)
+    dep0 = pyr.build_pyramid(sd, L)
     # the SOURCE gradients (the defining difference from the forward backends)
     gx0, gy0 = pyr.build_gradient_pyramid(int0, config.gradient_scales)
     limits = (config.min_depth, config.max_depth)
 
     def run_level(level, T):
         intr_l = intr.at_level(level)
-        if use_fused:
-            frame = (x[level][None].contiguous() for x in (int0, dep0, gx0, gy0))
-            J8, Lrow = ic_ops.ic_precompute_batch(*frame, intr_l, *limits)
-            return ic_ops.ic_gn_level(
-                T, pack_geometry(dep0[level], intr_l, *limits), J8[0], Lrow[0], int1[level],
-                intr_l, *_gn_options(config, level), config.sampling, config.mix_mode,
-            )[:5]
         J8, chol = ic_ops.ic_precompute(int0[level], dep0[level], gx0[level], gy0[level], intr_l, *limits)
         return ic_ops.ic_gn_level_exact(
             T, dep0[level], J8, chol, int1[level], intr_l,
             *_gn_options(config, level), config.sampling,
         )[:5]
 
-    T = se3.pose_matrix(init_state.to(device=si.device, dtype=torch.float32))
     return _coarse_to_fine(run_level, T, config)
 
 
@@ -161,24 +156,28 @@ def align_sequence_ic_levelmajor(
     config: PhovoConfig,
 ) -> AlignmentResult:
     """align_sequence_ic from zero, ordered level-major: every frame
-    prepped once (prep_frame_ic), then all B pairs' level in one K-IC
-    launch, coarse to fine, the poses carried as matrices between levels.
-    Pair k aligns frame k (source) to frame k+1 (target)."""
+    prepped once (prep_frame_ic), then _ic_pairs_levelmajor over all B
+    pairs. Pair k aligns frame k (source) to frame k+1 (target)."""
     intensities = device_unit_intensity(intensities).to(torch.float32)
     prep = prep_frame_ic(intensities, depths.to(torch.float32), intr, config)
-    shape = tuple(intensities.shape[1:])
-    B = intensities.shape[0] - 1
+    pairs = {level: (geom[:-1], J8[:-1], Lrow[:-1], img[1:]) for level, (geom, J8, Lrow, img) in prep.items()}
+    Ts = torch.eye(4, dtype=torch.float32, device=intensities.device).repeat(intensities.shape[0] - 1, 1, 1)
+    return _ic_pairs_levelmajor(pairs, tuple(intensities.shape[1:]), intr, config, Ts)
+
+
+def _ic_pairs_levelmajor(pairs: dict, shape, intr: Intrinsics, config: PhovoConfig, Ts) -> AlignmentResult:
+    """The IC kernels' one loop: B pairs from poses Ts (B, 4, 4) and packs
+    level -> (geom (B, 4, H*W), J8 (B, 8, H*W), L (B, 36) of the sources,
+    target intensity (B, H, W)), one K-IC launch per active level. Returns
+    batched results: state (B, 6), per-level diagnostics (B, L)."""
 
     def run_level(level, Ts):
         H, W = pyr.level_shape(shape, level)
-        geom, J8, Lrow, img = prep[level]
         return ic_gn_level_batch(
-            Ts, geom[:-1], J8[:-1], Lrow[:-1], img[1:], intr.at_level(level),
-            *_gn_options(config, level), H=H, W=W, sampling=config.sampling,
-            mix_mode=config.mix_mode,
+            Ts, *pairs[level], intr.at_level(level), *_gn_options(config, level), H=H, W=W,
+            sampling=config.sampling, mix_mode=config.mix_mode,
         )[:5]
 
-    Ts = torch.eye(4, dtype=torch.float32, device=intensities.device).repeat(B, 1, 1)
     return _coarse_to_fine(run_level, Ts, config)
 
 

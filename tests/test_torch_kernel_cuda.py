@@ -297,7 +297,8 @@ def test_lin_kernel_matches_plain(loss, esm, sampling):
 
 def test_analytic_object_api_launches_once_per_level():
     """PhotoconsistencyOdometryAnalytic on the card: one K-GN launch per
-    active level, the states of the plain per-pair route."""
+    active level (the pair's K-PREP launch beside them), the states of the
+    plain per-pair route."""
     from unittest import mock
 
     from phovo_tpu_torch.models import analytic
@@ -317,7 +318,7 @@ def test_analytic_object_api_launches_once_per_level():
     k = vo.optimize()
     torch.cuda.synchronize()
     assert FB.LAUNCHES == before + 2
-    with mock.patch("phovo_tpu_torch.ops.fused.fused_gn_level_batch", FB.fused_gn_level_batch_reference):
+    with mock.patch.object(analytic, "fused_gn_level_batch", FB.fused_gn_level_batch_reference):
         p = vo.optimize()
     assert FB.LAUNCHES == before + 2
     torch.testing.assert_close(k.state, p.state, rtol=0, atol=2e-4)
@@ -446,7 +447,7 @@ def test_ic_object_api_launches_once_per_level():
     torch.cuda.synchronize()
     assert (IC.IC_PRE_LAUNCHES, ICB.IC_LAUNCHES) == (before[0] + 2, before[1] + 2)
     with mock.patch.object(IC, "ic_precompute_batch", IC.ic_precompute_batch_reference), \
-            mock.patch.object(ICB, "ic_gn_level_batch", ICB.ic_gn_level_batch_reference):
+            mock.patch.object(ic, "ic_gn_level_batch", ICB.ic_gn_level_batch_reference):
         p = vo.optimize()
     assert (IC.IC_PRE_LAUNCHES, ICB.IC_LAUNCHES) == (before[0] + 2, before[1] + 2)
     torch.testing.assert_close(k.state, p.state, rtol=0, atol=2e-4)
@@ -538,8 +539,7 @@ def test_bi_kernel_refuses_esm_and_tdist_before_a_launch():
 def test_bi_object_api_launches_once_per_level():
     """PhotoconsistencyOdometryBiObjective on the card: one K-GN-bi launch
     per active level, the states of the plain per-pair route."""
-    from phovo_tpu_torch.models import biobjective
-    from phovo_tpu_torch.ops import fused as fused_ops
+    from phovo_tpu_torch.models import analytic, biobjective
     from phovo_tpu_torch.utils.config import PhovoConfig
 
     cfg = PhovoConfig(
@@ -557,7 +557,7 @@ def test_bi_object_api_launches_once_per_level():
     k = vo.optimize()
     torch.cuda.synchronize()
     assert FB.LAUNCHES == before + 2
-    with mock.patch.object(fused_ops, "fused_gn_level_batch", FB.fused_gn_level_batch_reference):
+    with mock.patch.object(analytic, "fused_gn_level_batch", FB.fused_gn_level_batch_reference):
         p = vo.optimize()
     assert FB.LAUNCHES == before + 2
     torch.testing.assert_close(k.state, p.state, rtol=0, atol=2e-4)
@@ -685,10 +685,42 @@ def test_align_batch_gives_align_analytic_bits():
             assert torch.equal(x, y[j])
 
 
+def test_analytic_pair_is_one_k_prep_and_one_k_gn_launch_a_level():
+    """align_analytic on a VGA pair of config_5_level_optimization_analytic:
+    one K-PREP launch and one K-GN launch per active level, the bits of
+    align_pairs_levelmajor at B = 1 on the torch chain's packs of the
+    pair."""
+    from phovo_tpu_torch.models import analytic
+    from phovo_tpu_torch.ops import prep
+    from phovo_tpu_torch.utils.config import load_builtin
+    from phovo_tpu_torch.utils.synthetic import make_pair
+
+    cfg = load_builtin("config_5_level_optimization_analytic")
+    I0, D0, I1, D1, _ = make_pair(TUM_FR1, (480, 640))
+    si, ti = (torch.from_numpy((x * 255).astype(np.uint8)).cuda() for x in (I0, I1))
+    sd, td = (torch.from_numpy(np.asarray(x, np.float32)).cuda() for x in (D0, D1))
+    init = torch.tensor([0.004, -0.003, 0.002, 0.001, -0.002, 0.0015], device="cuda")
+    before = (prep.PREP_LAUNCHES, prep.PREP_TORCH_CALLS, FB.LAUNCHES)
+    res = analytic.align_analytic(si, sd, ti, td, TUM_FR1, init, cfg)
+    torch.cuda.synchronize()
+    active = sum(n > 0 for n in cfg.max_iterations)
+    assert (prep.PREP_LAUNCHES, prep.PREP_TORCH_CALLS, FB.LAUNCHES) == (before[0] + 1, before[1], before[2] + active)
+    src = prep.prep_levels_torch(prep.device_unit_intensity(si), sd, TUM_FR1, cfg, targets=False)
+    tgt = prep.prep_levels_torch(prep.device_unit_intensity(ti), None, None, cfg)
+    packs = {level: (i0[None], geom[None], tgt[level][2][None]) for level, (i0, geom, _) in src.items()}
+    want = analytic.align_pairs_levelmajor(packs, (480, 640), TUM_FR1, cfg, init.reshape(1, 6))
+    for x, y in zip(res, want):
+        assert torch.equal(x, y[0])
+
+
 def test_keyframe_run_chunked_on_the_card():
     """KeyframeVisualOdometry.run_chunked on the card: one shared-source
     K-GN launch per active level a chunk dispatch, the closures through
-    K-GN, and the keyframes, edges and closures of the plain versions."""
+    K-GN, and the keyframes, edges and closures of the plain versions.
+    The plain run is plain throughout: every K-GN call of the models
+    layer, the single pairs of align_analytic (the serial scan, the
+    closures) included, goes through analytic.fused_gn_level_batch, the
+    name it patches."""
     from phovo_tpu_torch.datasets.tum import RGBDFrame
     from phovo_tpu_torch.models import analytic
     from phovo_tpu_torch.models import keyframe
