@@ -18,6 +18,7 @@ sample the whole target, so band_masked is always 0.
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import NamedTuple
 
 import numpy as np
@@ -113,12 +114,15 @@ def prepped_chain(prep: dict, n_pairs: int, align_pair, device) -> AlignmentResu
 # The object API's device unless the caller names another.
 DEFAULT_DEVICE = torch.device("cuda")
 
-# Captures and replays of the object API's pair graph (PairGraph) in this
-# process. Each adds one where it happens and nowhere else, so a caller can
-# show which of its pairs replayed a graph (reset both to 0 before the run,
+# Captures and replays of the object API's pair graph (PairGraph) and of
+# the serving round's graph (parallel/batch.RoundGraph) in this process.
+# Each adds one where it happens and nowhere else, so a caller can show
+# which of its calls replayed a graph (reset them to 0 before the run,
 # read them after).
 GRAPH_CAPTURES = 0
 GRAPH_REPLAYS = 0
+ROUND_GRAPH_CAPTURES = 0
+ROUND_GRAPH_REPLAYS = 0
 
 # The launch counters of the kernels a captured call can launch. A capture
 # launches nothing, so it leaves them as they were; a replay adds to each
@@ -130,33 +134,49 @@ _LAUNCH_COUNTERS = (
 )
 
 
-class PairGraph:
-    """One object API's optimize() as a CUDA graph: the backend's align
-    over static device buffers (both frames and the initial state),
-    captured once per key and replayed for every later call with that key.
+class CallGraph:
+    """A call as a CUDA graph: fn over static device buffers, one a slot
+    of SLOTS, captured once per key and replayed for every later call with
+    that key. The caller routes here only calls that are a chain of
+    launches with no host synchronisation, and builds the key from what the
+    captured launches bake in.
 
-    The key is what the captured launches bake in: the config, the
-    intrinsics, and each input's shape, dtype and device (a backend whose
-    align reads anything else answers capturable() False). A new key runs
-    the call eagerly first, on the caller's tensors (which builds the
-    kernels' library and loads the kernels, as a capture cannot), returns
-    that result, and then captures the call over new buffers. Buffers are
-    never shared with another key's graph, so a result that aliases an
-    input of its eager call (a state no level moved) stays as it is. The graph
-    writes its result into one flat int32 buffer: the state, then the
-    per-level iterations, gradient norm, cost, valid count and band_masked,
-    floats by their bits. A replay returns views of one clone of it, so a
-    result the caller keeps never changes with a later replay."""
+    A new key runs the call eagerly first, on the caller's tensors (which
+    builds the kernels' library and loads the kernels, as a capture cannot),
+    returns that result, and then captures the call over new buffers.
+    Buffers are never shared with another key's graph, so a result that
+    aliases an input of its eager call stays as it is. The graph writes the
+    result's int32 and float32 tensors (floats by their bits) into one flat
+    int32 buffer, in the groups `flatten` gives; a replay clones each group
+    and returns views of the clones (`unflatten`), so a result the caller
+    keeps never changes with a later replay, and a group it keeps holds no
+    other group's memory. Each call runs with the inputs' card as the
+    current device, on whose streams the capture and the replay launch
+    (the kernels launch on their tensors' card), so a graph of a card other
+    than the current one is captured and replayed where its launches run.
+    `count` adds each capture and replay to the subclass's counters."""
 
-    SLOTS = ("source", "source depth", "target", "target depth", "init")
+    SLOTS: tuple[str, ...] = ()
 
     def __init__(self):
         self.key = None
         self.graph = None
         self.out = None  # the flat result the graph writes
-        self.levels = 0
+        self.groups = []  # ((start, stop) in out, [(dtype, shape)] of its tensors) a group
         self.counts = ()  # what the captured call added to _LAUNCH_COUNTERS
         self.inputs: dict[str, torch.Tensor] = {}  # slot -> the buffer the graph reads
+
+    def flatten(self, result) -> list[list[torch.Tensor]]:
+        """The result's tensors in groups, each group cloned on its own."""
+        raise NotImplementedError
+
+    def unflatten(self, tensors: list[torch.Tensor]):
+        """The result from its tensors in flatten's order."""
+        raise NotImplementedError
+
+    def count(self, replay: bool) -> None:
+        """Add one to the counter of captures, or of replays."""
+        raise NotImplementedError
 
     def stage(self, slot: str, t: torch.Tensor) -> torch.Tensor | None:
         """t copied into the slot's buffer, where the graph has one of t's
@@ -166,45 +186,83 @@ class PairGraph:
             return None
         return buf if buf is t else buf.copy_(t)
 
-    def run(self, align, inputs, key) -> AlignmentResult:
-        """align(*inputs) (inputs in SLOTS order): eagerly and then
-        captured where key is not the captured call's, else a replay of the
-        graph."""
-        global GRAPH_CAPTURES, GRAPH_REPLAYS
-        if key != self.key:
-            result = align(*inputs)
-            self._capture(align, inputs)
-            self.key = key
-            GRAPH_CAPTURES += 1
-            return result
-        for slot, t in zip(self.SLOTS, inputs):
-            self.stage(slot, t)
-        with profiling.span("phovo.replay"):
-            self.graph.replay()
-        for (module, name), n in zip(_LAUNCH_COUNTERS, self.counts):
-            setattr(module, name, getattr(module, name) + n)
-        GRAPH_REPLAYS += 1
-        flat = self.out.clone()
-        f, L = flat.view(torch.float32), self.levels
-        return AlignmentResult(f[:6], flat[6:6 + L], *(f[6 + k * L:6 + (k + 1) * L] for k in range(1, 5)))
+    def run(self, fn, inputs, key):
+        """fn(*inputs) (inputs in SLOTS order), with inputs[0]'s card as
+        the current device: eagerly and then captured where key is not the
+        captured call's, else a replay of the graph."""
+        with torch.cuda.device(inputs[0].device):
+            if key != self.key:
+                result = fn(*inputs)
+                self._capture(fn, inputs)
+                self.key = key
+                self.count(replay=False)
+                return result
+            for slot, t in zip(self.SLOTS, inputs):
+                self.stage(slot, t)
+            with profiling.span("phovo.replay"):
+                self.graph.replay()
+            for (module, name), n in zip(_LAUNCH_COUNTERS, self.counts):
+                setattr(module, name, getattr(module, name) + n)
+            self.count(replay=True)
+            tensors = []
+            for (start, stop), fields in self.groups:
+                flat = self.out[start:stop].clone()
+                typed = {torch.int32: flat, torch.float32: flat.view(torch.float32)}
+                at = 0
+                for dtype, shape in fields:
+                    n = math.prod(shape)
+                    tensors.append(typed[dtype][at:at + n].view(shape))
+                    at += n
+            return self.unflatten(tensors)
 
-    def _capture(self, align, inputs) -> None:
-        """Capture align over new buffers holding copies of the inputs."""
+    def _capture(self, fn, inputs) -> None:
+        """Capture fn over new buffers holding copies of the inputs."""
         self.key = self.graph = self.out = None  # frees the old graph's memory first
         self.inputs = {slot: t.clone(memory_format=torch.contiguous_format) for slot, t in zip(self.SLOTS, inputs)}
         before = [getattr(module, name) for module, name in _LAUNCH_COUNTERS]
         graph = torch.cuda.CUDAGraph()
         try:
-            # other threads' CUDA calls (a frame loader's copies) stay allowed
-            with torch.cuda.graph(graph, capture_error_mode="thread_local"):
-                res = align(*(self.inputs[slot] for slot in self.SLOTS))
-                out = torch.cat([res.state.view(torch.int32), res.iterations,
-                                 *(x.view(torch.int32) for x in res[2:])])
+            # a capture stream on the current card (torch.cuda.graph's own
+            # default lives on the card current at its first capture); other
+            # threads' CUDA calls (a frame loader's copies) stay allowed
+            with torch.cuda.graph(graph, stream=torch.cuda.Stream(), capture_error_mode="thread_local"):
+                groups = self.flatten(fn(*(self.inputs[slot] for slot in self.SLOTS)))
+                out = torch.cat([t.reshape(-1).view(torch.int32) for group in groups for t in group])
         finally:
             self.counts = tuple(getattr(module, name) - n for (module, name), n in zip(_LAUNCH_COUNTERS, before))
             for (module, name), n in zip(_LAUNCH_COUNTERS, before):
                 setattr(module, name, n)
-        self.graph, self.out, self.levels = graph, out, res.iterations.shape[-1]
+        self.groups, at = [], 0
+        for group in groups:
+            n = sum(t.numel() for t in group)
+            self.groups.append(((at, at + n), [(t.dtype, tuple(t.shape)) for t in group]))
+            at += n
+        self.graph, self.out = graph, out
+
+
+class PairGraph(CallGraph):
+    """One object API's optimize() as a CUDA graph (CallGraph): the
+    backend's align over static device buffers (both frames and the
+    initial state). The key is the config, the intrinsics, and each
+    input's shape, dtype and device (a backend whose align reads anything
+    else answers capturable() False). The result is one group: the state,
+    then the per-level iterations, gradient norm, cost, valid count and
+    band_masked."""
+
+    SLOTS = ("source", "source depth", "target", "target depth", "init")
+
+    def flatten(self, result: AlignmentResult) -> list[list[torch.Tensor]]:
+        return [list(result)]
+
+    def unflatten(self, tensors: list[torch.Tensor]) -> AlignmentResult:
+        return AlignmentResult(*tensors)
+
+    def count(self, replay: bool) -> None:
+        global GRAPH_CAPTURES, GRAPH_REPLAYS
+        if replay:
+            GRAPH_REPLAYS += 1
+        else:
+            GRAPH_CAPTURES += 1
 
 
 class PhotoconsistencyOdometryBase:

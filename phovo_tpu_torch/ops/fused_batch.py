@@ -38,9 +38,10 @@ from phovo_tpu_torch.ops.robust import LOSSES, sqrt_weight, tdist_scale_update
 from phovo_tpu_torch.utils import profiling
 
 # Launches of the CUDA kernel in this process. The wrapper adds one per
-# launch, and a replay of the object API's captured pair (models/base.
-# PairGraph) the launches it holds, so a caller can show that its run went
-# through the kernel (reset it to 0 before the run, read it after).
+# launch, and a replay of a captured call (models/base.CallGraph: the
+# object API's pair, the serving round) the launches it holds, so a caller
+# can show that its run went through the kernel (reset it to 0 before the
+# run, read it after).
 LAUNCHES = 0
 # Launches of the trust-region kernel, with the same contract.
 TR_LAUNCHES = 0

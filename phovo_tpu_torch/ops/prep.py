@@ -14,8 +14,9 @@ Two routes compute them, with the same bits on the card:
     call takes it where it observes that it can: its tensors on a CUDA
     card in those dtypes, no blur at an active level, and every active
     level an exact power-of-two downscale of the frame, at least 2x2
-    (kernel_takes). PREP_LAUNCHES counts its launches, the object API's
-    replayed pairs' included (models/base.PairGraph);
+    (kernel_takes). PREP_LAUNCHES counts its launches, those of replayed
+    CUDA graphs included (models/base.CallGraph: the object API's pairs,
+    the serving rounds);
   * the torch chain (prep_levels_torch): the conversion, ops/pyramid.py's
     pyramids and Scharr gradients and ops/fused.py's pack_geometry and
     pack_target, op by op. It is the plain version: CPU tensors take it,
@@ -43,10 +44,10 @@ from phovo_tpu_torch.ops.fused import pack_geometry, pack_target
 from phovo_tpu_torch.utils import profiling
 
 # Launches of K-PREP in this process, and calls that ran the torch chain
-# instead. Each entry adds one to either, and a replay of the object API's
-# captured pair (models/base.PairGraph) adds the K-PREP launch it holds, so
-# a caller can show which route its run took (reset both to 0 before the
-# run, read them after).
+# instead. Each entry adds one to either, and a replay of a captured call
+# (models/base.CallGraph: the object API's pair, the serving round) adds
+# the K-PREP launches it holds, so a caller can show which route its run
+# took (reset both to 0 before the run, read them after).
 PREP_LAUNCHES = 0
 PREP_TORCH_CALLS = 0
 

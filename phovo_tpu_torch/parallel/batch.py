@@ -18,14 +18,19 @@ thread block, freezing on its own. So
   * serve_sequences_chunk is the chunked streaming step of S streams: a
     round carries B >= 1 new frames a stream, so one new frame a camera
     (phovo-serve --chunk 1, a fleet of live cameras) is one pair a stream
-    and the level kernel runs at B = S.
+    and the level kernel runs at B = S. Where the round is a chain of
+    launches with no host synchronisation (round_capturable: on one CUDA
+    card, zero-init level-major, one camera, frames K-PREP takes), it
+    replays one CUDA graph of the whole round (RoundGraph), captured once
+    per key, instead of dispatching its launches one by one.
 
 align_sequences_levelmajor, align_sequences and serve_sequences_chunk
 each open a phovo.align span (utils/profiling.span), as the chunked
 entries do; nested, the time counts to the inner one, so a round's glue
 (the stacking, the per-level slices, _gather, the pose integration) lies
 in phovo.align, its conversions and packs in phovo.prep and its level
-launches in phovo.level.
+launches in phovo.level; a replayed round's launches lie in phovo.replay,
+inside the one phovo.align.
 
 Intrinsics: one Intrinsics for a shared rig, or a list of S (one per
 stream or pair). The kernels take the intrinsics as scalar arguments, so
@@ -48,8 +53,11 @@ with the batch count.
 
 from __future__ import annotations
 
+import threading
+
 import torch
 
+from phovo_tpu_torch.models import analytic, base
 from phovo_tpu_torch.models.analytic import (
     _fused_route,
     align_analytic,
@@ -61,10 +69,10 @@ from phovo_tpu_torch.models.analytic import (
     prep_frame_analytic,
     prep_frame_targets,
 )
-from phovo_tpu_torch.models.base import AlignmentResult
-from phovo_tpu_torch.ops import se3
+from phovo_tpu_torch.models.base import AlignmentResult, CallGraph
+from phovo_tpu_torch.ops import fused_batch, se3
 from phovo_tpu_torch.ops.camera import Intrinsics
-from phovo_tpu_torch.ops.prep import chunk_device_prep, device_unit_intensity
+from phovo_tpu_torch.ops.prep import chunk_device_prep, device_unit_intensity, frames_take_kernel
 from phovo_tpu_torch.parallel.mesh import DATA_AXIS, Mesh, gather
 from phovo_tpu_torch.utils import profiling
 from phovo_tpu_torch.utils.config import PhovoConfig
@@ -241,6 +249,74 @@ def align_sequences_multi(
     return res, se3.integrate_trajectory(res.state)
 
 
+def round_capturable(carry_intensity, carry_depth, intensities, depths, intr, config: PhovoConfig,
+                     use_fused: bool = True, warm_start: bool = False, depth_scale: float | None = None) -> bool:
+    """Whether serve_sequences_chunk's round over these tensors is a chain
+    of launches with no host synchronisation that one CUDA graph can
+    replay (RoundGraph): (S, B, H, W) new frames, not empty, every tensor
+    on one card; the zero-init level-major route (no warm_start, the level
+    kernel's route) through the K-GN wrapper itself (a plain version put in
+    its place, as a comparison does, runs launch by launch); one camera
+    for every stream (several cameras index their groups on the host); and
+    frames K-PREP takes in these dtypes on a CUDA card
+    (frames_take_kernel: blurred presets run the torch chain)."""
+    dev = intensities.device
+    return (intensities.dim() == 4 and intensities.numel() > 0
+            and all(t.device == dev for t in (carry_intensity, carry_depth, depths))
+            and not warm_start and _fused_route(config, use_fused)
+            and analytic.fused_gn_level_batch is fused_batch.fused_gn_level_batch
+            and len(_camera_groups(intr, intensities.shape[0])) == 1
+            and frames_take_kernel(config, tuple(intensities.shape[-2:]), dev,
+                                   (carry_intensity.dtype, intensities.dtype), (carry_depth.dtype, depths.dtype),
+                                   depth_scale))
+
+
+class RoundGraph(CallGraph):
+    """serve_sequences_chunk's round as a CUDA graph (models/base.CallGraph):
+    the per-stream conversions and carry prepends, the stacks, K-PREP, the
+    level slices, the K-GN levels and their glue, the result's reshape and
+    the pose integration, over static buffers for the carries and the new
+    frames. The key is the config, the camera, depth_scale and each
+    input's shape, dtype and device. The result comes back in two
+    groups, the results with the poses and the new carries, so a caller
+    that keeps a round's results (phovo-serve keeps its states while it
+    dispatches the next round) holds none of the carries' memory."""
+
+    SLOTS = ("carry intensity", "carry depth", "intensities", "depths")
+
+    def flatten(self, out) -> list[list[torch.Tensor]]:
+        res, poses, carry_i, carry_d = out
+        return [[*res, poses], [carry_i, carry_d]]
+
+    def unflatten(self, tensors: list[torch.Tensor]):
+        return AlignmentResult(*tensors[:6]), *tensors[6:]
+
+    def count(self, replay: bool) -> None:
+        if replay:
+            base.ROUND_GRAPH_REPLAYS += 1
+        else:
+            base.ROUND_GRAPH_CAPTURES += 1
+
+
+# The round graph of this process: one key at a time (a new key captures
+# anew), one round at a time.
+_ROUND_GRAPH = RoundGraph()
+_ROUND_LOCK = threading.Lock()
+
+
+def _serve_round(carry_intensity, carry_depth, intensities, depths, intr, config, use_fused, warm_start,
+                 depth_scale):
+    """One round, launch by launch: serve_sequences_chunk's work."""
+    prepped = [
+        chunk_device_prep(ci, cd, I, D, depth_scale)
+        for ci, cd, I, D in zip(carry_intensity, carry_depth, intensities, depths)
+    ]
+    I = torch.stack([p[0] for p in prepped])
+    D = torch.stack([p[1] for p in prepped])
+    res, poses = align_sequences(I, D, intr, config, use_fused, warm_start)
+    return res, poses, I[:, -1], D[:, -1]
+
+
 def serve_sequences_chunk(
     carry_intensity: torch.Tensor,  # (S, H, W) each stream's last frame of the chunk before
     carry_depth: torch.Tensor,  # (S, H, W) metres
@@ -258,16 +334,25 @@ def serve_sequences_chunk(
     (chunk_device_prep), then align_sequences. Returns (results with
     leading dims (S, B), chunk-relative poses (S, B, 4, 4): pair k's pose
     relative to the stream's chunk-start frame, the new carry intensities
-    (S, H, W) and depths, float32)."""
+    (S, H, W) and depths, float32).
+
+    Where round_capturable holds for the call, the round replays this
+    process's RoundGraph: a new key runs eagerly and captures, the same key
+    copies the carries and the new frames into the graph's buffers and
+    replays it, with the eager round's bits. No returned tensor changes
+    with a later call."""
     with profiling.span("phovo.align"):
-        prepped = [
-            chunk_device_prep(ci, cd, I, D, depth_scale)
-            for ci, cd, I, D in zip(carry_intensity, carry_depth, intensities, depths)
-        ]
-        I = torch.stack([p[0] for p in prepped])
-        D = torch.stack([p[1] for p in prepped])
-        res, poses = align_sequences(I, D, intr, config, use_fused, warm_start)
-        return res, poses, I[:, -1], D[:, -1]
+        inputs = (carry_intensity, carry_depth, intensities, depths)
+
+        def round_(*x):
+            return _serve_round(*x, intr, config, use_fused, warm_start, depth_scale)
+
+        if not round_capturable(*inputs, intr, config, use_fused, warm_start, depth_scale):
+            return round_(*inputs)
+        camera = _cameras(intr, intensities.shape[0])[0]
+        key = (config, camera, depth_scale, tuple((t.shape, t.dtype, t.device) for t in inputs))
+        with _ROUND_LOCK:
+            return _ROUND_GRAPH.run(round_, inputs, key)
 
 
 # -- the mesh forms: pairs and streams over the data axis ---------------------

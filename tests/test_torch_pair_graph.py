@@ -108,19 +108,54 @@ class _FakeGraph:
     """Stands in for torch.cuda.CUDAGraph on the CPU: the block in
     torch.cuda.graph runs (its ops compute there, on the captured pair),
     and a replay does nothing, so the flat result keeps what the capture
-    computed."""
+    computed. `seen` holds, for each capture and replay, the card that was
+    current then (and the capture stream's card)."""
 
     replays = 0
+    seen = []
 
     def replay(self):
         _FakeGraph.replays += 1
+        _FakeGraph.seen.append(("replay", _FakeCard.current))
+
+
+class _FakeCard:
+    """Stands in for torch.cuda.device: its device is the current card
+    while it is entered (None outside every one)."""
+
+    current = None
+
+    def __init__(self, device):
+        self.device = device
+
+    def __enter__(self):
+        self.before, _FakeCard.current = _FakeCard.current, self.device
+
+    def __exit__(self, *exc):
+        _FakeCard.current = self.before
+
+
+class _FakeStream:
+    """Stands in for torch.cuda.Stream: a stream of the current card."""
+
+    def __init__(self):
+        self.device = _FakeCard.current
+
+
+@contextlib.contextmanager
+def _fake_capture(graph, stream, **kw):
+    _FakeGraph.seen.append(("capture", _FakeCard.current, stream.device))
+    yield
 
 
 @pytest.fixture
 def fake_cuda_graph(monkeypatch):
     monkeypatch.setattr(torch.cuda, "CUDAGraph", _FakeGraph)
-    monkeypatch.setattr(torch.cuda, "graph", lambda graph, **kw: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "graph", _fake_capture)
+    monkeypatch.setattr(torch.cuda, "device", _FakeCard)
+    monkeypatch.setattr(torch.cuda, "Stream", _FakeStream)
     _FakeGraph.replays = 0
+    _FakeGraph.seen = []
 
 
 def _counting_align(result):
@@ -175,6 +210,22 @@ def test_pair_graph_bookkeeping(fake_cuda_graph):
 
     graph.run(align, inputs, ("another config", "intrinsics"))
     assert len(calls) == 4 and base.GRAPH_CAPTURES == before[2] + 2
+
+
+def test_pair_graph_runs_on_the_inputs_card(fake_cuda_graph):
+    """A pair's capture and its replays run with the inputs' card as the
+    current device, the capture on a stream of that card, and the current
+    card is as it was once the call returns: an object API on a card other
+    than the current one captures where its kernels launch."""
+    align, _ = _counting_align(_result())
+    inputs = (torch.zeros(60, 80, dtype=U8), torch.ones(60, 80), torch.zeros(60, 80, dtype=U8), torch.ones(60, 80),
+              torch.zeros(6))
+    graph = base.PairGraph()
+    for _ in range(3):
+        graph.run(align, inputs, ("config", "intrinsics"))
+    card = inputs[0].device
+    assert _FakeGraph.seen == [("capture", card, card), ("replay", card), ("replay", card)]
+    assert _FakeCard.current is None
 
 
 def test_pair_graph_stages_into_matching_buffers():

@@ -14,20 +14,27 @@ iteration and valid counts equal; poses 2e-4. A served
 stream is the port's own align_sequence of that stream, bit for bit.
 """
 
+import contextlib
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch._subclasses.fake_tensor import FakeTensorMode
 
 from phovo_tpu.models.analytic import align_batch_fused as jax_align_batch_fused
 from phovo_tpu.ops.camera import Intrinsics as JIntrinsics
 from phovo_tpu.parallel import batch as jbatch
 from phovo_tpu.utils.config import PhovoConfig as JConfig
 from phovo_tpu_torch.models import analytic as tan
+from phovo_tpu_torch.models import base
 from phovo_tpu_torch.ops import fused as tfused
 from phovo_tpu_torch.ops import fused_batch as FB
+from phovo_tpu_torch.ops import prep
 from phovo_tpu_torch.ops.camera import Intrinsics
+from phovo_tpu_torch.ops.prep import chunk_device_prep
 from phovo_tpu_torch.parallel import batch as tbatch
 from phovo_tpu_torch.utils.config import PhovoConfig
 from phovo_tpu_torch.utils.synthetic import make_sequence
@@ -259,6 +266,266 @@ def test_one_frame_rounds_are_each_streams_own_chain(fleet):
     control = check.reference_answers(pairs, (I8, D16), config, torch.device("cpu"), torch.bfloat16)
     assert _fleet_within_tolerance(answers, ref)
     assert not _fleet_within_tolerance(control, ref)
+
+
+# The round graph's route (parallel/batch.RoundGraph): which rounds would
+# replay a CUDA graph on the card, that every round here runs launch by
+# launch with the parent's bits, and the graph's bookkeeping with
+# torch.cuda's graph replaced by a stand-in. The card replays the real
+# graph (tests/test_torch_graph_cuda.py).
+U8, U16, F32 = torch.uint8, torch.uint16, torch.float32
+SHARED_RIG = [INTR] * S
+
+
+def _round_tensors(device, dtypes, streams=S, new=1, shape=(96, 128)):
+    """A round's carries and `new` new frames a stream (new None: one, as
+    (S, H, W)), ((carry, new) intensity dtypes, (carry, new) depth
+    dtypes), on `device` with no data: fake tensors
+    where the device is a card, so the rule is asked here as the card's
+    calls ask it."""
+    (ci, i), (cd, d) = dtypes
+    frames = (streams, *shape) if new is None else (streams, new, *shape)
+    specs = [((streams, *shape), ci), ((streams, *shape), cd), (frames, i), (frames, d)]
+    with FakeTensorMode() if torch.device(device).type == "cuda" else contextlib.nullcontext():
+        return [torch.empty(size, dtype=dtype, device=device) for size, dtype in specs]
+
+
+@pytest.mark.parametrize("device,intr,variant,dtypes,kw,want", [
+    ("cuda", INTR, {}, ((U8, U8), (F32, U16)), dict(depth_scale=DEPTH_SCALE), True),
+    ("cuda:0", INTR, {}, ((F32, U8), (F32, U16)), dict(depth_scale=DEPTH_SCALE), True),
+    ("cuda", INTR, dict(robust_loss="tdist", robust_delta=0.1), ((F32, F32), (F32, F32)), {}, True),
+    ("cuda", INTR, dict(gradient_at="esm"), ((F32, U8), (F32, F32)), {}, True),
+    ("cuda", SHARED_RIG, {}, ((F32, U8), (F32, U16)), dict(depth_scale=DEPTH_SCALE), True),
+    ("cpu", INTR, {}, ((F32, U8), (F32, U16)), dict(depth_scale=DEPTH_SCALE), False),
+    ("cuda", INTR, {}, ((F32, U8), (F32, U16)), dict(depth_scale=DEPTH_SCALE, warm_start=True), False),
+    ("cuda", INTR, {}, ((F32, U8), (F32, U16)), dict(depth_scale=DEPTH_SCALE, use_fused=False), False),
+    ("cuda", INTR, dict(gradient_at="source"), ((F32, U8), (F32, U16)), dict(depth_scale=DEPTH_SCALE), False),
+    ("cuda", [INTR, INTR_B, INTR], {}, ((F32, U8), (F32, U16)), dict(depth_scale=DEPTH_SCALE), False),
+    ("cuda", INTR, dict(blur_filter_sizes=(0, 3, 0)), ((F32, U8), (F32, U16)), dict(depth_scale=DEPTH_SCALE), False),
+    ("cuda", INTR, {}, ((F32, U8), (F32, U16)), {}, False),
+    ("cuda", INTR, {}, ((F32, torch.float64), (F32, F32)), {}, False),
+    ("cuda:1", INTR, {}, ((F32, U8), (F32, U16)), dict(depth_scale=DEPTH_SCALE), True),
+])
+def test_round_capturable_rule(device, intr, variant, dtypes, kw, want):
+    """A round replays a graph only on a CUDA card (any card, not only the
+    current one), zero-init on the level kernel's route, with one camera
+    for every stream and frames K-PREP takes in their dtypes (uint16 depth
+    with its depth_scale): never with warm_start, the exact path, two
+    cameras, a blurred level or other dtypes."""
+    _, tcfg = _cfgs(**variant)
+    tensors = _round_tensors(device, dtypes)
+    assert tbatch.round_capturable(*tensors, intr, tcfg, **kw) is want
+
+
+@pytest.mark.parametrize("case", ["two_cards", "carry_on_the_host", "three_dims", "empty", "plain_level"])
+def test_round_capturable_refuses_other_rounds(monkeypatch, case):
+    """The rule answers for the tensors themselves: carries on another card
+    or on the host, new frames that are not (S, B, H, W) or are empty, and
+    a round whose level is a plain version put in the K-GN wrapper's place
+    (as a comparison against it does) run launch by launch."""
+    _, tcfg = _cfgs()
+    dtypes = ((F32, U8), (F32, U16))
+    tensors = _round_tensors("cuda", dtypes)
+    if case == "two_cards":
+        tensors[1] = _round_tensors("cuda:1", dtypes)[1]
+    elif case == "carry_on_the_host":
+        tensors[0] = _round_tensors("cpu", dtypes)[0]
+    elif case == "three_dims":
+        tensors = _round_tensors("cuda", dtypes, new=None)
+    elif case == "empty":
+        tensors = _round_tensors("cuda", dtypes, new=0)
+    else:
+        monkeypatch.setattr(tan, "fused_gn_level_batch", FB.fused_gn_level_batch_reference)
+    assert tbatch.round_capturable(*tensors, INTR, tcfg, depth_scale=DEPTH_SCALE) is False
+
+
+def _parent_round(ci, cd, I, D, intr, cfg, use_fused=True, warm_start=False, depth_scale=None):
+    """serve_sequences_chunk's round as it ran before the round graph: each
+    stream's conversion and carry prepend, the stacks, align_sequences."""
+    prepped = [chunk_device_prep(*x, depth_scale) for x in zip(ci, cd, I, D)]
+    I, D = torch.stack([p[0] for p in prepped]), torch.stack([p[1] for p in prepped])
+    res, poses = tbatch.align_sequences(I, D, intr, cfg, use_fused, warm_start)
+    return res, poses, I[:, -1], D[:, -1]
+
+
+def _assert_round_equal(got, want):
+    for g, w in zip((*got[0], *got[1:]), (*want[0], *want[1:])):
+        assert g.dtype == w.dtype and g.shape == w.shape and torch.equal(g, w)
+
+
+def _round_counts():
+    return base.ROUND_GRAPH_CAPTURES, base.ROUND_GRAPH_REPLAYS
+
+
+def _fleet_round_inputs(fleet, k, offsets=FLEET_OFFSETS, carry=None):
+    """Round k's inputs of the fleet cut to 60x80: the carries (uint8 and
+    metres, or `carry`), the new frames in storage dtype, intrinsics,
+    config and depth_scale."""
+    config, (I8, D16) = fleet
+    cam = config["camera"]
+    intr = Intrinsics(*(float(np.float32(cam[c])) for c in ("fx", "fy", "cx", "cy")))
+    scale = 1.0 / cam["depth_counts_per_m"]
+    last, now = (np.array(offsets) + k - 1) % len(I8), (np.array(offsets) + k) % len(I8)
+    if carry is None:
+        carry = (_t(I8[last]), _t(D16[last]).to(torch.float32) * float(np.float32(scale)))
+    return (*carry, _t(I8[now][:, None]), _t(D16[now][:, None])), intr, PhovoConfig.from_dict(config["preset"]), scale
+
+
+@pytest.mark.parametrize("case", ["cpu", "warm_start", "two_cameras", "blurred"])
+def test_rounds_here_run_launch_by_launch(fleet, monkeypatch, case):
+    """Rounds on the CPU (and, on the card too, warm-started rounds, two
+    cameras and a blurred preset) never reach the round graph: the round
+    counters stay as they were, and each round, the first from a uint8
+    carry and the next from the returned carries, gives the parent's round
+    bit for bit."""
+
+    def refuse(*a):
+        raise AssertionError("a CPU round reached the round graph")
+
+    monkeypatch.setattr(tbatch._ROUND_GRAPH, "run", refuse)
+    before = _round_counts()
+    carry = None
+    for k in (1, 2):
+        inputs, intr, cfg, scale = _fleet_round_inputs(fleet, k, carry=carry)
+        kw = dict(depth_scale=scale)
+        if case == "warm_start":
+            kw["warm_start"] = True
+        elif case == "two_cameras":
+            intr = [intr, intr._replace(fx=intr.fx * 1.02), intr]
+        elif case == "blurred":
+            cfg = dataclasses.replace(cfg, blur_filter_sizes=(0, 0, 3, 0, 0))
+        got = tbatch.serve_sequences_chunk(*inputs, intr, cfg, **kw)
+        _assert_round_equal(got, _parent_round(*inputs, intr, cfg, **kw))
+        carry = got[2:]
+    assert carry[0].dtype == torch.float32 and _round_counts() == before
+
+
+class _FakeGraph:
+    """Stands in for torch.cuda.CUDAGraph on the CPU: the block in
+    torch.cuda.graph runs (its ops compute there, on the captured round),
+    and a replay does nothing, so the flat result keeps what the capture
+    computed. `seen` holds, for each capture and replay, the card that was
+    current then (and the capture stream's card)."""
+
+    replays = 0
+    seen = []
+
+    def replay(self):
+        _FakeGraph.replays += 1
+        _FakeGraph.seen.append(("replay", _FakeCard.current))
+
+
+class _FakeCard:
+    """Stands in for torch.cuda.device: its device is the current card
+    while it is entered (None outside every one)."""
+
+    current = None
+
+    def __init__(self, device):
+        self.device = device
+
+    def __enter__(self):
+        self.before, _FakeCard.current = _FakeCard.current, self.device
+
+    def __exit__(self, *exc):
+        _FakeCard.current = self.before
+
+
+class _FakeStream:
+    """Stands in for torch.cuda.Stream: a stream of the current card."""
+
+    def __init__(self):
+        self.device = _FakeCard.current
+
+
+@contextlib.contextmanager
+def _fake_capture(graph, stream, **kw):
+    _FakeGraph.seen.append(("capture", _FakeCard.current, stream.device))
+    yield
+
+
+@pytest.fixture
+def fake_card_graph(monkeypatch):
+    """torch.cuda's graph, capture, stream and current card by the
+    stand-ins above, and the route answering yes."""
+    monkeypatch.setattr(torch.cuda, "CUDAGraph", _FakeGraph)
+    monkeypatch.setattr(torch.cuda, "graph", _fake_capture)
+    monkeypatch.setattr(torch.cuda, "device", _FakeCard)
+    monkeypatch.setattr(torch.cuda, "Stream", _FakeStream)
+    monkeypatch.setattr(tbatch, "round_capturable", lambda *a, **kw: True)
+    _FakeGraph.seen = []
+
+
+def test_round_graph_bookkeeping(fleet, fake_card_graph, monkeypatch):
+    """With the rule answering yes and a stand-in graph: a new key (the
+    first round's uint8 carry, then float32 carries, then fewer streams)
+    runs the round eagerly, returns its result and captures, which counts
+    no launch; the same key stages the carries and frames into the graph's
+    buffers and replays, which counts the captured launches; a replay
+    returns the results and the carries as clones in two groups, which a
+    later replay does not change."""
+    graph = tbatch.RoundGraph()
+    monkeypatch.setattr(tbatch, "_ROUND_GRAPH", graph)
+    calls, eager = [], tbatch._serve_round
+
+    def counting_round(*args):  # one K-PREP and three K-GN launches, as a round on the card
+        calls.append(args)
+        prep.PREP_LAUNCHES += 1
+        FB.LAUNCHES += 3
+        return eager(*args)
+
+    monkeypatch.setattr(tbatch, "_serve_round", counting_round)
+
+    def counts():
+        return (*_round_counts(), prep.PREP_LAUNCHES, FB.LAUNCHES, len(calls))
+
+    inputs, intr, cfg, scale = _fleet_round_inputs(fleet, 1)
+    before = counts()
+    first = tbatch.serve_sequences_chunk(*inputs, intr, cfg, depth_scale=scale)
+    _assert_round_equal(first, _parent_round(*inputs, intr, cfg, depth_scale=scale))
+    assert counts() == (before[0] + 1, before[1], before[2] + 1, before[3] + 3, 2)
+    assert all(b is graph.inputs[slot] for b, slot in zip(calls[1][:4], graph.SLOTS))
+
+    inputs, *_ = _fleet_round_inputs(fleet, 2, carry=first[2:])
+    want = _parent_round(*inputs, intr, cfg, depth_scale=scale)
+    _assert_round_equal(tbatch.serve_sequences_chunk(*inputs, intr, cfg, depth_scale=scale), want)
+    assert counts() == (before[0] + 2, before[1], before[2] + 2, before[3] + 6, 4)
+
+    # the stand-in replays the captured round's values: the same inputs again
+    kept = tbatch.serve_sequences_chunk(*inputs, intr, cfg, depth_scale=scale)
+    _assert_round_equal(kept, want)
+    assert counts() == (before[0] + 2, before[1] + 1, before[2] + 3, before[3] + 9, 4) and _FakeGraph.replays >= 1
+    storages = {t.untyped_storage().data_ptr() for t in (*kept[0], kept[1])}
+    assert len(storages) == 1 and kept[2].untyped_storage().data_ptr() == kept[3].untyped_storage().data_ptr()
+    assert kept[2].untyped_storage().data_ptr() not in storages | {graph.out.untyped_storage().data_ptr()}
+    graph.out.zero_()
+    tbatch.serve_sequences_chunk(*inputs, intr, cfg, depth_scale=scale)
+    _assert_round_equal(kept, want)
+
+    later, *_ = _fleet_round_inputs(fleet, 3, carry=kept[2:])
+    tbatch.serve_sequences_chunk(*later, intr, cfg, depth_scale=scale)
+    assert all(torch.equal(graph.inputs[slot], t) for slot, t in zip(graph.SLOTS, later))
+    assert counts()[:2] == (before[0] + 2, before[1] + 3)
+
+    fewer, *_ = _fleet_round_inputs(fleet, 3, offsets=FLEET_OFFSETS[:2])
+    tbatch.serve_sequences_chunk(*fewer, intr, cfg, depth_scale=scale)
+    assert counts()[:2] == (before[0] + 3, before[1] + 3) and len(calls) == 6
+
+
+def test_round_graph_runs_on_the_inputs_card(fleet, fake_card_graph, monkeypatch):
+    """The round's capture and its replays run with the inputs' card as the
+    current device, the capture on a stream of that card, and the current
+    card is as it was once the call returns: a round on a card other than
+    the current one is captured where its kernels launch."""
+    monkeypatch.setattr(tbatch, "_ROUND_GRAPH", tbatch.RoundGraph())
+    inputs, intr, cfg, scale = _fleet_round_inputs(fleet, 1)
+    carry = tbatch.serve_sequences_chunk(*inputs, intr, cfg, depth_scale=scale)[2:]
+    inputs, *_ = _fleet_round_inputs(fleet, 2, carry=carry)
+    for _ in range(2):
+        tbatch.serve_sequences_chunk(*inputs, intr, cfg, depth_scale=scale)
+    card = inputs[2].device
+    assert _FakeGraph.seen == [("capture", card, card), ("capture", card, card), ("replay", card)]
+    assert _FakeCard.current is None
 
 
 @pytest.fixture(scope="module")

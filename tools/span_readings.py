@@ -12,7 +12,9 @@ trace runs a cell as `benchmark/run.py --trace 1` does (benchmark.run.run_cell)
 and prints one JSON line a seed: benchmark/program_spans.attribute of the
 traced window, the per-frame readings taken from it (launches, device and
 idle ms under each span; `frames` as the benchmark's readers count them),
-the benchmark's own launches a frame beside them, and for an open-loop cell the
+the benchmark's own launches a frame beside them, the CUDA graphs' captures
+and replays over the whole run (models/base: the object API's pairs and the
+serving rounds) beside the window's calls, and for an open-loop cell the
 latencies of the pairs (a fleet's: of the rounds, one a camera) started
 before the traced window, inside it, and after it once they no longer
 start late.
@@ -75,10 +77,16 @@ def _quantiles(xs) -> dict:
             "p95_ms": 1e3 * ranked[-(-95 * len(ranked) // 100) - 1]}
 
 
+GRAPH_COUNTERS = ("GRAPH_CAPTURES", "GRAPH_REPLAYS", "ROUND_GRAPH_CAPTURES", "ROUND_GRAPH_REPLAYS")
+
+
 def trace_runs(cell: str, seeds, seconds: float, device) -> list[dict]:
-    """One traced run of `cell` a seed, with the program's spans attributed
+    """One traced run of `cell` a seed, with the program's spans attributed,
+    the CUDA graphs' captures and replays over the run (warm-up included),
     and, for an open-loop cell, the latencies before, inside and after the
     window."""
+    from phovo_tpu_torch.models import base
+
     bench = run.load_json(ROOT / "BENCHMARK.json")
     overrides = SMALL if device.type == "cpu" else None
     caught = {}
@@ -104,7 +112,9 @@ def trace_runs(cell: str, seeds, seconds: float, device) -> list[dict]:
     try:
         for seed in seeds:
             caught.clear()
+            graphs = {name: getattr(base, name) for name in GRAPH_COUNTERS}
             rec = run.run_cell(cell, seed, seconds, True, device, time.perf_counter(), bench, overrides)
+            graphs = {name: getattr(base, name) - n for name, n in graphs.items()}
             t = rec.get("trace") or {}
             prog = caught.get("program", {})
             frames = t.get("frames", 0)
@@ -113,7 +123,7 @@ def trace_runs(cell: str, seeds, seconds: float, device) -> list[dict]:
                     "window_s": t.get("window_s"), "busy_s": t.get("busy_s"),
                     "launches_per_frame": kernels / frames if frames else None,
                     "kernels": kernels, "kernels_attributed": sum(r["launches"] for r in prog.values()),
-                    "program": prog}
+                    "graphs": graphs, "calls": len(caught["out"][3]), "program": prog}
             for name, (span, field, scale) in READINGS.items():
                 row = prog.get(span)
                 line[name] = scale * row[field] / frames if row and frames else None
