@@ -26,17 +26,26 @@ from benchmark import check, run  # noqa: E402
 from benchmark.drivers import integrate  # noqa: E402
 
 
-def control_chains(chains, uniq, answers):
+def control_chains(chains, uniq, answers, seq=None, config=None, device=None):
     """The program's chains with the control's answers in place of the
-    program's, integrated by the harness."""
+    program's, integrated by the harness; a chain's keyframe poses are
+    those the configuration's reference back end makes of the control's
+    answers to its edges (seq, config and device given)."""
     states, its, valid = answers
-    lookup = {tuple(p): i for i, p in enumerate(uniq.tolist())}
+    rows = check.key_rows(uniq)
     out = []
     for ch in chains:
-        at = [lookup[tuple(p)] for p in ch["pairs"].tolist()]
+        at = check.rows_of(rows, ch)
         poses, _ = integrate(np.eye(4), states[at])
-        out.append({"pairs": ch["pairs"], "states": states[at], "poses": poses,
+        out.append({"pairs": ch["pairs"], "inits": ch.get("inits"), "states": states[at], "poses": poses,
                     "iterations": its[at], "num_valid": valid[at]})
+        kf = ch.get("keyframes")
+        if kf is not None and config is not None and config.get("reference_backend"):
+            graph = {k: kf[k] for k in ("frames", "edges", "weights")}
+            edge = at[kf["edges"][:, 2]]
+            kf_poses = check.backend(config["reference_backend"]).solve(
+                graph, tuple(a[edge] for a in answers), seq, config, device)
+            out[-1]["keyframes"] = dict(graph, poses=np.asarray(kf_poses, np.float64))
     return out
 
 
@@ -58,8 +67,10 @@ def main(argv=None) -> int:
         line = {"workload": args.workload, "seed": seed, "program": rec["numbers"]}
         if args.controls is None or i < args.controls:
             ctl = check.reference_answers(rec["uniq"], rec["seq"], rec["config"], device, torch.bfloat16)
-            line["control"] = check.compare(control_chains(rec["chains"], rec["uniq"], ctl), rec["ref"],
-                                            rec["uniq"], rec["config"], 0)
+            chains = control_chains(rec["chains"], rec["uniq"], ctl, rec["seq"], rec["config"], device)
+            line["control"] = check.compare(chains, rec["ref"], rec["uniq"], rec["config"], 0)
+            line["control"].update(check.backend_numbers(chains, rec["ref"], rec["uniq"], rec["seq"],
+                                                         rec["config"], device))
         line["seconds"] = time.perf_counter() - t0
         print(json.dumps(line), flush=True)
         if args.out:

@@ -16,7 +16,15 @@ gives a limit; the check computes them all:
     harness integrated from the program's states and the pose the
     reference integrates from its own (largest absolute difference of the
     4x4 entries);
+  * keyframe_pose_gap: where the configuration names a
+    "reference_backend", the widest gap between a back end's keyframe
+    poses that a chain carries (drivers.Chain.keyframes) and the poses
+    benchmark/reference/<reference_backend>.py makes of the reference's
+    answers to the same graph edges;
   * missing: the frames due in the window that got no pose.
+An answer is the alignment of a (source, target) frame pair from the
+state it started at: the reference answers each distinct (source,
+target, start) once, keyed on the start's float32 bits, from that start.
 Numbers with no limit in the cell's file are printed and not judged: a
 widest gap whose readings on sound runs come within three times of the
 control's has no place between them (PERF.md gives the readings).
@@ -24,12 +32,15 @@ control's has no place between them (PERF.md gives the readings).
 
 from __future__ import annotations
 
+import importlib
+import re
+
 import numpy as np
 import torch
 
 from benchmark.reference import vo as reference
 
-NUMBERS = ("state_gap_median", "state_gap", "iters_differ", "valid_gap", "pose_gap", "missing")
+NUMBERS = ("state_gap_median", "state_gap", "iters_differ", "valid_gap", "pose_gap", "keyframe_pose_gap", "missing")
 
 
 def reference_config(config: dict) -> dict:
@@ -44,12 +55,41 @@ def reference_config(config: dict) -> dict:
     }
 
 
-def reference_answers(pairs: np.ndarray, seq, config: dict, device, pack_dtype=torch.float32):
-    """The reference's (states, iterations, num_valid) of each (source,
-    target) frame pair in `pairs` ((P, 2) frame indices)."""
+def answer_keys(pairs: np.ndarray, inits: np.ndarray | None = None) -> np.ndarray:
+    """(n, 8) int64 keys of answers: source, target and the six float32
+    bit patterns of the state each started from (zeros where None)."""
+    pairs = np.asarray(pairs, np.int64).reshape(-1, 2)
+    if inits is None:
+        inits = np.zeros((len(pairs), 6), np.float32)
+    bits = np.ascontiguousarray(inits, np.float32).reshape(-1, 6).view(np.uint32).astype(np.int64)
+    return np.concatenate([pairs, bits], axis=1)
+
+
+def key_inits(keys: np.ndarray) -> np.ndarray:
+    """(P, 6) float32 starts of answer keys; (P, 2) frame pairs start at
+    zero."""
+    if keys.shape[1] == 2:
+        return np.zeros((len(keys), 6), np.float32)
+    return np.ascontiguousarray(keys[:, 2:]).astype(np.uint32).view(np.float32)
+
+
+def reference_answers(keys: np.ndarray, seq, config: dict, device, pack_dtype=torch.float32):
+    """The reference's (states, iterations, num_valid) of each answer key
+    in `keys` ((P, 8) from answer_keys, or (P, 2) frame pairs from zero)."""
     I8, D16 = seq
-    return reference.align_pairs(I8[pairs[:, 0]], D16[pairs[:, 0]], I8[pairs[:, 1]], D16[pairs[:, 1]],
-                                 reference_config(config), device, pack_dtype)
+    src, tgt = keys[:, 0], keys[:, 1]
+    return reference.align_pairs(I8[src], D16[src], I8[tgt], D16[tgt], reference_config(config), device,
+                                 pack_dtype, inits=key_inits(keys))
+
+
+def key_rows(uniq: np.ndarray) -> dict:
+    """Answer key -> its row of `uniq`."""
+    return {tuple(k): i for i, k in enumerate(uniq.tolist())}
+
+
+def rows_of(rows: dict, chain: dict) -> np.ndarray:
+    """The row (key_rows) of each of a chain's answers."""
+    return np.array([rows[tuple(k)] for k in answer_keys(chain["pairs"], chain.get("inits")).tolist()], np.int64)
 
 
 def compare(chains: list[dict], ref, uniq: np.ndarray, config: dict, missing: int) -> dict:
@@ -57,13 +97,13 @@ def compare(chains: list[dict], ref, uniq: np.ndarray, config: dict, missing: in
     the reference's answers `ref` to the distinct pairs `uniq`."""
     ref_states, ref_its, ref_valid = ref
     active = np.asarray(config["preset"]["max_iterations"]) > 0
-    lookup = {tuple(p): i for i, p in enumerate(uniq.tolist())}
+    rows = key_rows(uniq)
     gaps, differ, vgaps, pose_gaps, n = [], 0, [], [], 0
     ref_chains = {}
     for ch in chains:
         if not len(ch["pairs"]):
             continue
-        at = np.array([lookup[tuple(p)] for p in ch["pairs"].tolist()])
+        at = rows_of(rows, ch)
         gaps.append(np.abs(ch["states"].astype(np.float64) - ref_states[at]).max(axis=1))
         differ += int((ch["iterations"][:, active] != ref_its[at][:, active]).any(axis=1).sum())
         rv = ref_valid[at][:, active].astype(np.float64)
@@ -87,16 +127,51 @@ def compare(chains: list[dict], ref, uniq: np.ndarray, config: dict, missing: in
     }
 
 
+def backend(name: str):
+    """The back end's reference, benchmark/reference/<name>.py, by name:
+    its solve(graph, answers, seq, config, device) takes a chain's
+    keyframe graph ({"frames", "edges", "weights"} as drivers.Chain
+    holds them) and the reference's (states, iterations, num_valid) of
+    each edge's answer, and returns the (K, 4, 4) keyframe poses."""
+    if not re.fullmatch(r"[a-z][A-Za-z0-9_]*", name):
+        raise ValueError(f"no reference back end named {name!r}")
+    module = importlib.import_module(f"benchmark.reference.{name}")
+    if not hasattr(module, "solve"):
+        raise ValueError(f"benchmark/reference/{name}.py has no solve")
+    return module
+
+
+def backend_numbers(chains: list[dict], ref, uniq: np.ndarray, seq, config: dict, device) -> dict:
+    """{"keyframe_pose_gap": ...} where the configuration names a
+    "reference_backend" (inf where no chain carries keyframes), else {}."""
+    name = config.get("reference_backend")
+    if not name:
+        return {}
+    solve, rows = backend(name).solve, key_rows(uniq)
+    gaps = []
+    for ch in chains:
+        kf = ch.get("keyframes")
+        if kf is None:
+            continue
+        edge_rows = rows_of(rows, ch)[kf["edges"][:, 2]]
+        answers = tuple(a[edge_rows] for a in ref)
+        graph = {k: kf[k] for k in ("frames", "edges", "weights")}
+        poses = np.asarray(solve(graph, answers, seq, config, device), np.float64)
+        gaps.append(float(np.abs(kf["poses"] - poses).max()) if len(poses) else 0.0)
+    return {"keyframe_pose_gap": max(gaps) if gaps else float("inf")}
+
+
 def judge(numbers: dict, limits: dict) -> tuple[bool, dict]:
     """(every limited number within its limit, {name: {value, limit}} in
-    NUMBERS order)."""
-    shown = {k: {"value": numbers[k], "limit": limits[k]} for k in NUMBERS if k in limits}
+    NUMBERS order); a limited number the run did not compute is inf."""
+    shown = {k: {"value": numbers.get(k, float("inf")), "limit": limits[k]} for k in NUMBERS if k in limits}
     ok = all(v["value"] <= v["limit"] for v in shown.values()) and bool(shown)
     return ok, shown
 
 
 def distinct_pairs(chains: list[dict]) -> np.ndarray:
-    pairs = [ch["pairs"] for ch in chains if len(ch["pairs"])]
-    if not pairs:
-        return np.zeros((0, 2), np.int64)
-    return np.unique(np.concatenate(pairs), axis=0)
+    """The distinct answer keys (answer_keys) of every chain, sorted."""
+    keys = [answer_keys(ch["pairs"], ch.get("inits")) for ch in chains if len(ch["pairs"])]
+    if not keys:
+        return np.zeros((0, 8), np.int64)
+    return np.unique(np.concatenate(keys), axis=0)

@@ -11,12 +11,17 @@ calls (Program, here with what the drivers share).
   * live: one camera, open loop at the mix's frame rate, in frame mode:
     each pair through the object API (set_source_frame,
     set_target_frame, set_initial_state_vector, optimize), as phovo-vo's
-    frame mode and models/sequence.VisualOdometryPipeline run it.
+    frame mode and models/sequence.VisualOdometryPipeline run it;
+  * fleet: cameras in step, one new frame a camera a round through the
+    serving round's entry, the frames copied from pinned grabber buffers.
 
 A driver warms up the calls and shapes its window uses, then runs the
-window and returns what the program answered: chains of consecutive
-pairs with their states, iteration and valid counts and the poses the
-harness integrated, the host times, and the calls (for the trace's work).
+window and returns what the program answered: chains of pairs with the
+state each started from (zero unless the driver says otherwise), their
+states, iteration and valid counts and the poses the harness integrated,
+the host times, and the calls (for the trace's work). A chain may carry
+a back end's keyframe poses (Chain.keyframes), and a driver that runs on
+to the end of a pass returns the window's true length as "window_s".
 The program is imported by Program and nowhere else in the harness, by
 the names the configuration file gives.
 """
@@ -124,19 +129,32 @@ def integrate(pose: np.ndarray, states) -> tuple[np.ndarray, np.ndarray]:
 
 
 class Chain:
-    """The answers of one stream of consecutive pairs: pair k aligns frame
-    pairs[k][0] to frame pairs[k][1]; `pose` is the last global pose the
-    harness integrated."""
+    """The answers of one stream of pairs: answer k aligns frame pairs[k][0]
+    to frame pairs[k][1] from the state inits[k]; `pose` is the last global
+    pose the harness integrated. `keyframes`, where a driver sets it, is
+    what a back end made of the chain's answers:
+      * "frames": the keyframes' frame indices (K,);
+      * "edges": (E, 3) rows (keyframe i, keyframe j, the index of the
+        answer that measured the edge: a tracked pair or a loop closure);
+      * "weights": (E,) the edges' weights;
+      * "poses": (K, 4, 4) the keyframe poses the back end returned.
+    The check hands the reference's answers to those edges and this graph
+    to the configuration's "reference_backend" and compares the poses."""
 
     def __init__(self):
-        self.pairs, self.states, self.poses = [], [], []
+        self.pairs, self.states, self.poses, self.inits = [], [], [], []
         self.iterations, self.num_valid = [], []  # device tensors, fetched after the window
         self.pose = np.eye(4)
+        self.keyframes = None
 
-    def add(self, pairs, states, poses, res_iterations, res_num_valid):
+    def add(self, pairs, states, poses, res_iterations, res_num_valid, inits=None):
+        """Answers to `pairs`, each started from its row of `inits` ((n, 6),
+        zeros where None)."""
         self.pairs += pairs
         self.states.append(np.asarray(states, np.float32).reshape(-1, 6))
         self.poses.append(np.asarray(poses).reshape(-1, 4, 4))
+        self.inits.append(np.zeros((len(pairs), 6), np.float32) if inits is None
+                          else np.asarray(inits, np.float32).reshape(len(pairs), 6))
         self.iterations.append(res_iterations)
         self.num_valid.append(res_num_valid)
 
@@ -148,13 +166,23 @@ class Chain:
                 return np.zeros((0, L), dtype)
             return np.concatenate([p.detach().cpu().numpy().reshape(-1, L).astype(dtype) for p in parts])
 
-        return {
+        out = {
             "pairs": np.asarray(self.pairs, np.int64).reshape(-1, 2),
+            "inits": np.concatenate(self.inits) if self.inits else np.zeros((0, 6), np.float32),
             "states": np.concatenate(self.states) if self.states else np.zeros((0, 6), np.float32),
             "poses": np.concatenate(self.poses) if self.poses else np.zeros((0, 4, 4)),
             "iterations": host(self.iterations, np.int64),
             "num_valid": host(self.num_valid, np.float32),
         }
+        if self.keyframes is not None:
+            kf = self.keyframes
+            out["keyframes"] = {
+                "frames": np.asarray(kf["frames"], np.int64).reshape(-1),
+                "edges": np.asarray(kf["edges"], np.int64).reshape(-1, 3),
+                "weights": np.asarray(kf["weights"], np.float64).reshape(-1),
+                "poses": np.asarray(kf["poses"], np.float64).reshape(-1, 4, 4),
+            }
+        return out
 
 
 def wait_until(t: float) -> None:

@@ -13,8 +13,9 @@ backend's solver, benchmark/reference/<backend>.py, found by the
 configuration's backend name: analytic.py (Gauss-Newton steps until the
 gradient norm falls under its threshold or the budget is spent) and
 ceres.py (Ceres's trust-region loop with its tolerances). A preset value
-the reference does not implement raises (`solver`). Every pair starts from the zero state and aligns its source to its
-target, coarse to fine. It reads only the uint8 and uint16 frames the
+the reference does not implement raises (`solver`). Every pair starts
+from the state it is given (zero unless the harness's answer started
+elsewhere) and aligns its source to its target, coarse to fine. It reads only the uint8 and uint16 frames the
 harness hands the program, and builds its own pyramids and packs; it
 imports nothing of the program.
 
@@ -243,9 +244,10 @@ def dot6(a, b):
     return acc
 
 
-def align_pairs(src_i8, src_d16, tgt_i8, tgt_d16, cfg: dict, device, pack_dtype=torch.float32):
+def align_pairs(src_i8, src_d16, tgt_i8, tgt_d16, cfg: dict, device, pack_dtype=torch.float32, inits=None):
     """Align P pairs (numpy (P, H, W) uint8 intensities and uint16 depth
-    counts, source and target) from zero, coarse to fine, on `device`. cfg
+    counts, source and target) from `inits` ((P, 6) float32 states; zero
+    where None), coarse to fine, on `device`. cfg
     holds "backend", "preset" (the configuration file's), "intrinsics" and
     "depth_scale". Level by level, all pairs advance in blocks of at
     most PIXEL_PAIRS pixels. Returns numpy (states (P, 6) float32,
@@ -255,7 +257,7 @@ def align_pairs(src_i8, src_d16, tgt_i8, tgt_d16, cfg: dict, device, pack_dtype=
     torch.backends.cuda.matmul.allow_tf32 = False
     try:
         frames = [torch.from_numpy(np.ascontiguousarray(a)).to(device) for a in (src_i8, src_d16, tgt_i8, tgt_d16)]
-        return _align_levels(*frames, cfg, pack_dtype)
+        return _align_levels(*frames, cfg, pack_dtype, inits)
     finally:
         torch.backends.cuda.matmul.allow_tf32 = prev_tf32
 
@@ -318,7 +320,7 @@ def solver(cfg: dict):
     return module
 
 
-def _align_levels(si8, sd16, ti8, td16, cfg, pack_dtype):
+def _align_levels(si8, sd16, ti8, td16, cfg, pack_dtype, inits):
     del td16  # the target's depth is not read (the reference's SetTargetFrame ignores it)
     module = solver(cfg)
     pre = cfg["preset"]
@@ -326,6 +328,8 @@ def _align_levels(si8, sd16, ti8, td16, cfg, pack_dtype):
     P = si8.shape[0]
     dev = si8.device
     state = torch.zeros((P, 6), dtype=torch.float32, device=dev)
+    if inits is not None:
+        state.copy_(torch.from_numpy(np.asarray(inits, np.float32).reshape(P, 6)))
     its = torch.zeros((P, L), dtype=torch.int64, device=dev)
     nvs = torch.zeros((P, L), dtype=torch.float32, device=dev)
     for level in range(L - 1, -1, -1):

@@ -11,7 +11,10 @@ sequence on the card from the seed, warms up, measures for --seconds,
 checks every answer of the window against the plain reference, and prints
 one JSON line last on standard output: with --trace 0 the cell's
 end-to-end metrics, with --trace 1 its per-layer metrics from a profiler
-trace of part of the window.
+trace of part of the window. A driver that runs on to the end of a pass
+reports the window's true length, which the rates divide by. The line
+carries the host's state and the card's SM clock at the driver's start
+and the window's end under "host", which no metric reads.
 """
 
 import time
@@ -115,7 +118,7 @@ def run_cell(cell_name: str, seed: int, seconds: float, trace: bool, device, t_p
     import numpy as np
     import torch
 
-    from benchmark import check, drivers, work
+    from benchmark import check, drivers, host, program_spans, work
     from benchmark.tracing import Tracer, reduce
     from benchmark.traffic.generator import make_sequence
 
@@ -136,6 +139,9 @@ def run_cell(cell_name: str, seed: int, seconds: float, trace: bool, device, t_p
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats(device)
     tracer = Tracer(mix["trace_lead_s"], mix["trace_seconds"], device) if trace else None
+    t_read = time.perf_counter()
+    host_start = host.state(device)
+    read_s = time.perf_counter() - t_read  # the reading is the line's, not set-up's
     # set-up's objects leave the collector's generations: a collection in
     # the window then walks the window's objects only
     gc.collect()
@@ -147,21 +153,23 @@ def run_cell(cell_name: str, seed: int, seconds: float, trace: bool, device, t_p
     if cuda:
         torch.cuda.synchronize(device)
     record = {
-        "cell": cell_name, "seconds": seconds, "setup_s": out["t_start"] - t_process,
+        "cell": cell_name, "seconds": out.get("window_s", seconds), "setup_s": out["t_start"] - t_process - read_s,
         # set-up's parts: process start, imports and the card; the program
         # and its kernels (nvcc in a checkout's first run); the frames; the
         # warm-up of the window's shapes (and the profiler's, traced)
         "setup_parts": {"start_s": t_program - t_process, "program_s": t_frames - t_program,
-                        "frames_s": t_warm - t_frames, "warm_s": out["t_start"] - t_warm},
+                        "frames_s": t_warm - t_frames, "warm_s": out["t_start"] - t_warm - read_s},
         "frames_done": out["frames_done"], "latencies": out["latencies"],
         "attempted": out["attempted"], "missing": out["missing"],
         "memory_peak_bytes": torch.cuda.max_memory_allocated(device) if cuda else 0,
+        "host": {"start": host_start, "end": host.state(device)},
     }
     if tracer is not None and tracer.events is not None:
         traced = [c for c in out["calls"] if tracer.in_trace(c["t"])]
         its = [c["iterations"].detach().cpu().numpy().reshape(-1, c["iterations"].shape[-1]) for c in traced]
         shape = (config["camera"]["height"], config["camera"]["width"])
         record["trace"] = reduce(tracer.events, SPANS)
+        record["trace"]["program"] = program_spans.attribute(tracer.events)
         record["trace"].update(
             frames=sum(c["frames"] for c in traced),
             # each level kernel: its name in the trace and the (bytes,
@@ -180,6 +188,7 @@ def run_cell(cell_name: str, seed: int, seconds: float, trace: bool, device, t_p
     uniq = check.distinct_pairs(chains)
     ref = check.reference_answers(uniq, seq, config, device)
     record["numbers"] = check.compare(chains, ref, uniq, config, record["missing"])
+    record["numbers"].update(check.backend_numbers(chains, ref, uniq, seq, config, device))
     record["numbers"]["check_s"] = time.perf_counter() - t_check
     record["correct"], record["checks"] = check.judge(record["numbers"], limits)
     if keep:
@@ -206,6 +215,7 @@ def result_line(bench: dict, cell_name: str, record: dict, trace: bool, device_i
         device_info["window_s"] = record["trace"]["window_s"]
         line["breakdown"] = record["trace"]["breakdown"]
     line["setup_parts"] = record["setup_parts"]
+    line["host"] = record["host"]
     line["checks"] = record["checks"]
     return line
 

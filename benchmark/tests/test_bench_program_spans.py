@@ -86,6 +86,9 @@ PATH_SPANS = {
     "analytic5.replay": {"phovo.align", "phovo.prep", "phovo.level"},
     "ceres5.replay": {"phovo.align", "phovo.prep", "phovo.level"},
     "ceres5.live": {"phovo.upload", "phovo.align", "phovo.prep", "phovo.level"},
+    # a round on the CPU runs launch by launch (the card replays it as one
+    # CUDA graph under phovo.replay)
+    "analytic5.fleet": {"phovo.align", "phovo.prep", "phovo.level"},
 }
 
 
